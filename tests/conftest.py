@@ -29,6 +29,11 @@ def pytest_configure(config):
         "slow: long-running test (process-pool chaos etc.); "
         "skipped unless REPRO_RUN_SLOW=1",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of the PyTorch port; skipped on a host "
+        "without a CUDA device",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

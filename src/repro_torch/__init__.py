@@ -7,9 +7,12 @@ of ``repro``.  Every kernel the JAX package wrote in Pallas for the TPU
 becomes a hand-written CUDA kernel under ``kernels/csrc``, with a plain
 PyTorch version beside it.
 
-This slice ports the serving path: ``launch.serve.TopicServer`` over a
-disk-backed ``core.streaming.ParameterStore`` (the JAX store's on-disk
-format), fitting θ through ``kernels.ops.infer`` and the frozen-φ θ-sweep
-kernel.  Entry points run on the GPU by default and raise without one;
-``device="cpu"`` runs the plain PyTorch path.
+Ported so far: the serving path (``launch.serve.TopicServer`` over a
+disk-backed ``core.streaming.ParameterStore`` in the JAX store's on-disk
+format, fitting θ through ``kernels.ops.infer`` and the frozen-φ θ-sweep
+kernel) and the streaming trainer (``core.trainer.FOEMTrainer`` →
+``core.foem.foem_minibatch`` → ``kernels.ops.sweep`` and the dense and
+scheduled Gauss-Seidel sweep kernels).  Entry points run on the GPU by
+default and raise without one; ``device="cpu"`` runs the plain PyTorch
+path.
 """

@@ -21,10 +21,12 @@ This slice carries:
   readonly ``attach`` used by serving processes;
 * :func:`store_from_arrays` — writes a store straight into the memmap in
   row blocks (a full-width φ̂ never goes through a WAL record);
-* :class:`HotRowCache` — the serving-side read-only hot-word row LRU.
+* :class:`HotRowCache` — the serving-side read-only hot-word row LRU;
+* :class:`StreamPrefetcher` — the training pipeline's background row
+  fetch, whose items carry the ``write_version`` they are consistent with
+  so the trainer can reconcile them against newer write-backs.
 
-The snapshot publisher and the stream prefetcher come with the lifelong
-and training slices.
+The snapshot publisher comes with the lifelong slice.
 """
 from __future__ import annotations
 
@@ -35,12 +37,14 @@ import json
 import os
 import struct
 import threading
+import time
 import zlib
-from typing import Iterable, Optional, Tuple, Union
+from typing import Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.runtime import faults as fault_lib
+from repro_torch.sparse.minibatch import prefetch_iterator
 
 
 class StoreCorruptionError(RuntimeError):
@@ -112,6 +116,17 @@ class StoreStats:
     buffer_hits: int = 0     # rows served from the hot buffer
     evictions: int = 0
     promotions: int = 0      # rows promoted into the buffer by insert-on-read
+    prefetch_hits: int = 0   # minibatches whose rows were already staged
+    overlap_seconds: float = 0.0  # host I/O time hidden behind device compute
+
+    def reset(self) -> None:
+        self.disk_reads = self.disk_writes = 0
+        self.buffer_hits = self.evictions = self.promotions = 0
+        self.prefetch_hits = 0
+        self.overlap_seconds = 0.0
+
+    def snapshot(self) -> "StoreStats":
+        return dataclasses.replace(self)
 
 
 class ParameterStore:
@@ -121,8 +136,11 @@ class ParameterStore:
     fancy-indexed gather/scatter against the memmap and one partitioned
     gather against the hot buffer.  The LRU is array-backed — a contiguous
     ``(W*, K)`` row buffer plus id/clock/dirty vectors and a word→slot
-    index.  Every public mutator takes ``_lock``.  ``write_version``
-    increments on every value-changing write.
+    index.  Every public mutator takes ``_lock``, so a background
+    prefetcher (``StreamPrefetcher``) can fetch while the trainer writes
+    back.  ``write_version`` increments on every value-changing write; a
+    fetch tagged with an older version may miss those writes and must be
+    reconciled by the caller (see ``fetch_rows_versioned``).
 
     Row ids within one ``fetch_rows``/``write_rows`` call must be unique.
 
@@ -270,6 +288,13 @@ class ParameterStore:
         that insert: a layered read cache (``HotRowCache``) that already
         retains the miss must not also promote it here.
         """
+        return self.fetch_rows_versioned(word_ids, promote=promote)[0]
+
+    def fetch_rows_versioned(
+        self, word_ids: np.ndarray, promote: bool = True
+    ) -> Tuple[np.ndarray, int]:
+        """``fetch_rows`` plus the ``write_version`` the read is consistent
+        with — the prefetch pipeline's reconciliation token."""
         with self._lock:
             ids = np.asarray(word_ids, np.int64)
             if len(ids) and int(ids.max()) >= self.capacity:
@@ -280,7 +305,7 @@ class ParameterStore:
             if self.buffer_rows == 0:
                 out = self._read_backing(ids)
                 self.stats.disk_reads += len(ids)
-                return out
+                return out, self.write_version
             slots = self._slot_of[ids]
             hit = slots >= 0
             n_hit = int(hit.sum())
@@ -288,14 +313,14 @@ class ParameterStore:
                 out = self._buf[slots]
                 self._touch(slots)
                 self.stats.buffer_hits += n_hit
-                return out
+                return out, self.write_version
             if n_hit == 0:                        # cold stream fast path
                 out = self._read_backing(ids)
                 self.stats.disk_reads += len(ids)
                 if promote:
                     self.stats.promotions += len(ids)
                     self._insert(ids, out, dirty=False)
-                return out
+                return out, self.write_version
             out = np.empty((len(ids), self.K), self.dtype)
             hit_idx = np.flatnonzero(hit)
             miss_idx = np.flatnonzero(~hit)
@@ -310,7 +335,7 @@ class ParameterStore:
             if promote:
                 self.stats.promotions += len(miss_ids)
                 self._insert(miss_ids, rows, dirty=False)
-            return out
+            return out, self.write_version
 
     def write_rows(self, word_ids: np.ndarray, rows: np.ndarray) -> int:
         """Write updated rows back (coalesced) — buffered words stay dirty
@@ -405,6 +430,17 @@ class ParameterStore:
         self._slot_of[vict_ids] = -1
         self._buf_ids[slots] = -1
         self._buf_dirty[slots] = False
+
+    # -------------------------------------------------------------- vocab
+
+    def ensure_vocab(self, max_word_id: int) -> None:
+        """Watermark growth: the paper's W ← W + 1 on unseen words."""
+        if max_word_id >= self.capacity:
+            raise ValueError(
+                f"word id {max_word_id} exceeds store capacity "
+                f"{self.capacity}; grow capacity at construction"
+            )
+        self.live_vocab = max(self.live_vocab, max_word_id + 1)
 
     # ---------------------------------------------------------- persistence
 
@@ -551,13 +587,49 @@ class ParameterStore:
             )
         self._apply_manifest(payload)
 
+    # ------------------------------------------------------------- helpers
+
+    def stats_window(self, reset: bool = True) -> StoreStats:
+        """Snapshot the I/O counters, optionally zeroing them."""
+        with self._lock:
+            snap = self.stats.snapshot()
+            if reset:
+                self.stats.reset()
+            return snap
+
+    def bump_pipeline_stats(
+        self, overlap_seconds: float = 0.0, prefetch_hit: bool = False
+    ) -> Tuple[int, int, int]:
+        """Credit the prefetch pipeline's counters and return the current
+        ``(disk_reads, disk_writes, buffer_hits)`` totals — one locked
+        read-modify-read, so a concurrent ``stats_window(reset=True)`` can
+        neither lose the bump nor observe a torn triple."""
+        with self._lock:
+            self.stats.overlap_seconds += overlap_seconds
+            if prefetch_hit:
+                self.stats.prefetch_hits += 1
+            return (
+                self.stats.disk_reads,
+                self.stats.disk_writes,
+                self.stats.buffer_hits,
+            )
+
+    def dense_phi(self) -> np.ndarray:
+        """Materialise the live (W, K) matrix (tests / small corpora only).
+        A writable store flushes first."""
+        if self.readonly:
+            n = max(self.live_vocab, 1)
+            return np.asarray(self._read_backing(np.arange(n)))
+        self.flush()
+        return np.asarray(self._mm[: max(self.live_vocab, 1)])
+
     def resident_rows(self) -> int:
         return int((self._buf_ids >= 0).sum())
 
 
 def store_from_arrays(
     path: str,
-    phi_wk: Union[np.ndarray, Iterable[np.ndarray]],
+    phi_wk,
     phi_k: Optional[np.ndarray] = None,
     *,
     live_vocab: int,
@@ -566,8 +638,12 @@ def store_from_arrays(
 ) -> ParameterStore:
     """Write a committed store at ``path`` from host arrays.
 
-    ``phi_wk`` is a (W, K) array, or an iterable of consecutive (n, K) row
-    blocks (then ``vocab_capacity`` gives W).  The rows go straight into
+    ``phi_wk`` is a (W, K) array, an iterable of consecutive (n, K) row
+    blocks (then ``vocab_capacity`` gives W), or a ``GlobalStats`` whose
+    fields are numpy arrays — the JAX package's whole-vocabulary training
+    state, carried into the port: its ``phi_wk`` rows, its ``phi_k`` totals
+    and its ``step`` counter (which then override ``phi_k`` and
+    ``step``).  The rows go straight into
     the memmap, one block at a time, followed by an msync and one committed
     flush that carries only the manifest: a full-width φ̂ (5.6 GB at
     W = 141,043, K = 10⁴) never passes through a WAL record or exists as
@@ -576,6 +652,11 @@ def store_from_arrays(
     """
     if os.path.exists(os.path.join(path, ParameterStore.BACKING)):
         raise FileExistsError(f"a store already exists under {path}")
+    if type(phi_wk).__name__ == "GlobalStats":
+        stats = phi_wk
+        phi_wk = np.asarray(stats.phi_wk, np.float32)
+        phi_k = np.asarray(stats.phi_k, np.float64)
+        step = int(np.asarray(stats.step))
     if isinstance(phi_wk, np.ndarray):
         if vocab_capacity is None:
             vocab_capacity = phi_wk.shape[0]
@@ -745,3 +826,66 @@ class HotRowCache:
             if reset:
                 self._window = CacheStats()
             return snap
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous prefetch — double-buffered fetch stage of the training pipeline
+# ---------------------------------------------------------------------------
+
+
+class PrefetchedBatch(NamedTuple):
+    """A minibatch staged by the worker: its φ̂ rows, the store version the
+    fetch is consistent with, and how long the host I/O took."""
+
+    minibatch: object            # sparse.minibatch.Minibatch
+    phi_rows: np.ndarray         # (W_s, K)
+    version: int                 # store.write_version at fetch time
+    fetch_seconds: float
+
+
+class StreamPrefetcher:
+    """Background fetch of upcoming minibatches' φ̂ rows (double buffering).
+
+    A worker thread (``sparse.minibatch.prefetch_iterator``) drains
+    ``stream`` — so bucketization and ``localize_vocab`` also run off the
+    critical path — fetches each minibatch's rows, and stages
+    ``PrefetchedBatch`` items in a bounded queue.  With ``depth=1`` the
+    worker is fetching minibatch s+1 while the consumer computes on
+    minibatch s.
+
+    Because a staged fetch may predate the consumer's most recent
+    ``write_rows``, each item carries the store ``write_version`` it saw;
+    the consumer patches rows overlapping any newer write-back (the trainer
+    keeps the last few write sets) — that reconciliation is what makes
+    prefetched and sequential execution bitwise-identical.
+    """
+
+    def __init__(self, store: ParameterStore, stream: Iterable,
+                 depth: int = 1):
+        if depth < 1:
+            raise ValueError("prefetch depth must be >= 1")
+
+        def staged() -> Iterator[PrefetchedBatch]:
+            for mb in stream:
+                t0 = time.perf_counter()
+                rows, version = store.fetch_rows_versioned(mb.local_vocab)
+                yield PrefetchedBatch(
+                    mb, rows, version, time.perf_counter() - t0
+                )
+
+        self._inner = prefetch_iterator(staged(), depth=depth)
+
+    def __iter__(self) -> Iterator[Tuple[PrefetchedBatch, float]]:
+        """Yields ``(staged_batch, wait_seconds)`` — wait_seconds is how long
+        the consumer blocked on the queue (≈0 ⇒ the fetch fully overlapped)."""
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(self._inner)
+            except StopIteration:
+                return
+            yield item, time.perf_counter() - t0
+
+    def close(self) -> None:
+        """Stop the worker and release the source (safe to call repeatedly)."""
+        self._inner.close()

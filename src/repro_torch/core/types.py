@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -86,6 +87,32 @@ class LDAConfig:
     def W(self) -> int:
         return self.vocab_size
 
+    def resolve_blocks(self, bucket_len: int,
+                       override: Optional[int] = None) -> int:
+        """Blocked-IEM block count B for a minibatch of ``bucket_len`` token
+        columns: ``override`` (0/None defers to ``iem_blocks``) with 0 → B =
+        bucket_len (column-serial), clamped to [1, bucket_len]."""
+        b = override if override else self.iem_blocks
+        if b <= 0:
+            b = bucket_len
+        return max(1, min(b, bucket_len))
+
+
+class GlobalStats(NamedTuple):
+    """Global (stream-lifetime) sufficient statistics — the 'big model'."""
+
+    phi_wk: torch.Tensor   # (W, K) φ̂_w(k)
+    phi_k: torch.Tensor    # (K,)   φ̂(k)
+    step: torch.Tensor     # () int32 — minibatch counter s
+
+    @classmethod
+    def zeros(cls, cfg: "LDAConfig", device="cpu") -> "GlobalStats":
+        return cls(
+            phi_wk=torch.zeros((cfg.W, cfg.K), dtype=cfg.dtype, device=device),
+            phi_k=torch.zeros((cfg.K,), dtype=cfg.dtype, device=device),
+            step=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
 
 class MinibatchData(NamedTuple):
     """One bucketed minibatch of the sparse doc-word stream."""
@@ -103,6 +130,51 @@ class MinibatchData(NamedTuple):
 
     def ntokens(self) -> torch.Tensor:
         return self.counts.sum()
+
+
+class LocalState(NamedTuple):
+    """Per-minibatch local state (freed after one look, paper Fig. 3 line 11)."""
+
+    mu: torch.Tensor        # (D_s, L, K) responsibilities
+    theta_dk: torch.Tensor  # (D_s, K)    θ̂_d(k)
+
+
+class SchedulerState(NamedTuple):
+    """Residual state for dynamic scheduling (paper §3.1, eqs. 35-37)."""
+
+    r_wk: torch.Tensor  # (W_s|W, K) residual per (vocab word, topic), eq. 36
+    r_w: torch.Tensor   # (W_s|W,)   residual per vocab word,          eq. 37
+
+
+def from_numpy(state, device="cpu"):
+    """Carry a ``GlobalStats`` or ``SchedulerState`` whose fields are numpy
+    arrays (for instance the JAX package's, after ``jax.device_get``) into
+    the port's container of the same name, as tensors on ``device``.  Field
+    names and layouts are the JAX package's; ``step`` becomes an int32
+    scalar tensor.  (A store's φ̂ rows carry across through the shared
+    on-disk format, or ``streaming.store_from_arrays``.)"""
+    cls = {"GlobalStats": GlobalStats,
+           "SchedulerState": SchedulerState}[type(state).__name__]
+    out = {}
+    for name in cls._fields:
+        x = np.array(getattr(state, name))      # a writable copy
+        dtype = torch.int32 if name == "step" else None
+        out[name] = torch.as_tensor(x, dtype=dtype).to(device)
+    return cls(**out)
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """Execution plan for ``kernels.ops.sweep`` — where and how a sweep runs.
+
+    ``axis_name`` names the mesh axis of a topic-sharded sweep, which this
+    slice of the port refuses (``ops.sweep`` raises ``ContractError``): the
+    sharded engine comes with the port's sharded slice.  An unsharded plan
+    changes nothing: CUDA tensors run the Hopper kernels, CPU tensors their
+    plain PyTorch versions.
+    """
+
+    axis_name: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +223,27 @@ class InferResult(NamedTuple):
         n = torch.as_tensor(ev_tokens, dtype=self.ev_loglik.dtype,
                             device=self.ev_loglik.device)
         return torch.exp(-self.ev_loglik / n.clamp_min(1.0))
+
+
+class SweepResult(NamedTuple):
+    """Everything one column-serial Gauss-Seidel sweep produces.
+
+    The contract of ``kernels.ops.sweep`` — dense (full-K) and scheduled
+    (active-set, eq. 38) sweeps, kernel and plain paths alike.
+    ``phi_wk``/``phi_k`` are the updated *working copies* (callers needing
+    minibatch deltas subtract the inputs); ``residual`` is the per-token
+    counts·|Δμ| (eq. 36) measured inside the sweep, full-K with zeros on
+    untouched topics; ``loglik`` is the MAP data log-likelihood of the
+    post-sweep statistics (the eq. 3 data term the training-perplexity stop
+    rule needs), or None when not requested.
+    """
+
+    mu: torch.Tensor                  # (D_s, L, K) updated responsibilities
+    theta: torch.Tensor               # (D_s, K)    updated θ̂
+    phi_wk: torch.Tensor              # (W_s, K)    updated working φ̂
+    phi_k: torch.Tensor               # (K,)        updated working φ̂(k)
+    residual: torch.Tensor            # (D_s, L, K) counts·|Δμ|
+    loglik: Optional[torch.Tensor]    # () or None — in-sweep stop-rule loglik
 
 
 def uniform_responsibilities(generator: torch.Generator, shape,

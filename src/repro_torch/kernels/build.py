@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface, compiled
-with ``nvcc`` for Hopper (``sm_90a``) into a shared library and loaded with
-``ctypes``; no PyTorch header is compiled, so a build takes seconds.  The
-build happens at first use, on the machine with the card, into ``_build/``
-next to this file (listed in ``.gitignore``); the library's name carries a
-hash of its source and flags, so an edited source is rebuilt.  Nothing here
-runs at import time.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it may
+include the shared ``csrc/*.cuh`` headers), compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library and loaded with ``ctypes``; no PyTorch
+header is compiled, so a build takes seconds.  The build happens at first
+use, on the machine with the card, into ``_build/`` next to this file
+(listed in ``.gitignore``); the library's name carries a hash of its source,
+the shared headers and the flags, so an edited source is rebuilt.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: Every CUDA source of the port, by kernel name.
-KERNELS = ("theta_sweep",)
+KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -49,6 +50,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the shared library of kernel ``name`` is (or will be) built."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,11 +1,17 @@
 """Kernel dispatch layer (PyTorch port of ``repro.kernels.ops``).
 
-This slice carries the frozen-φ inference half: :func:`infer`, the serving
-entry point, with its eager argument contracts (``ContractError``, the
-port of ``repro.analysis.validate.validate_infer_args``) and its chunked
-convergence stop.  Each chunk is one :func:`theta_sweep.theta_sweep` call:
-the Hopper kernel on the card, its plain version on the CPU.  The training
-sweeps come with the training slice.
+Two entry points, each with its eager argument contracts (``ContractError``,
+the port of ``repro.analysis.validate``):
+
+* :func:`sweep` — one column-serial Gauss-Seidel training sweep, dense
+  (full-K IEM) or scheduled (active-set, §3.1), returning a ``SweepResult``.
+  Every training sweep of the port (``em.gs_sweep_with_residuals``,
+  ``foem`` warm-up and scheduled sweeps, the streaming trainer through
+  ``foem_minibatch``) routes through it.  Each call is one
+  :func:`gs_sweep.gs_sweep` or :func:`scheduled_sweep.scheduled_sweep`
+  call: the Hopper kernel on the card, its plain version on the CPU.
+* :func:`infer` — the frozen-φ serving fit, in chunks of one
+  :func:`theta_sweep.theta_sweep` call each, with its convergence stop.
 """
 from __future__ import annotations
 
@@ -14,20 +20,24 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.types import InferPlan, InferResult
+from repro_torch.core.types import InferPlan, InferResult, SweepPlan, SweepResult
+from repro_torch.kernels.gs_sweep import gs_sweep
+from repro_torch.kernels.scheduled_sweep import scheduled_sweep
 from repro_torch.kernels.theta_sweep import (
     PHI_DTYPES,
     quantize_phi,
     theta_sweep,
 )
+from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 
-__all__ = ["ContractError", "Device", "infer", "resolve_device",
-           "validate_infer_args"]
+__all__ = ["ContractError", "Device", "check_index_ranges", "infer",
+           "resolve_device", "sweep", "validate_infer_args",
+           "validate_sweep_args"]
 
 
 class ContractError(ValueError):
-    """An ``ops.infer`` argument violates a launch contract."""
+    """An ``ops.sweep``/``ops.infer`` argument violates a launch contract."""
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -125,13 +135,82 @@ def validate_infer_args(
     _check_word_topics(word_topics, phi_norm.shape[0], K)
 
 
-def _check_index_ranges(word_ids, word_topics, num_rows: int,
-                        num_topics: int) -> None:
+def validate_sweep_args(
+    word_ids, counts, mu, theta, phi_wk, phi_k,
+    *,
+    word_topics=None,
+    token_active=None,
+    plan: Optional[SweepPlan] = None,
+    norm_psum=None,
+    renorm_psum=None,
+) -> None:
+    """Check every ``ops.sweep`` argument contract; raise ContractError.
+
+    Shape/dtype-only: no tensor value is read.
+    """
+    _require(
+        plan is None or plan.axis_name is None,
+        "a topic-sharded SweepPlan (axis_name set) is not ported yet: the "
+        "sharded sweep engine comes with the port's sharded slice",
+    )
+    _require(
+        norm_psum is None and renorm_psum is None,
+        "norm_psum/renorm_psum reduction hooks are not ported yet: they "
+        "come with the port's sharded slice",
+    )
+    _require(
+        word_ids.ndim == 2 and _is_int(word_ids),
+        f"word_ids must be a (D, L) integer array, got shape "
+        f"{tuple(word_ids.shape)} dtype {word_ids.dtype}",
+    )
+    D, L = word_ids.shape
+    _require(
+        tuple(counts.shape) == (D, L) and counts.dtype.is_floating_point,
+        f"counts must be a float (D, L) = ({D}, {L}) array matching "
+        f"word_ids, got shape {tuple(counts.shape)} dtype {counts.dtype}",
+    )
+    _require(
+        mu.ndim == 3 and tuple(mu.shape[:2]) == (D, L),
+        f"mu must be (D, L, K) = ({D}, {L}, K) responsibilities, got "
+        f"shape {tuple(mu.shape)}",
+    )
+    K = mu.shape[-1]
+    _require(
+        tuple(theta.shape) == (D, K),
+        f"theta must be (D, K) = ({D}, {K}), got {tuple(theta.shape)}",
+    )
+    _require(
+        phi_wk.ndim == 2 and phi_wk.shape[1] == K,
+        f"phi_wk must be (W_s, K) with K = {K}, got "
+        f"{tuple(phi_wk.shape)}",
+    )
+    _require(
+        tuple(phi_k.shape) == (K,),
+        f"phi_k must be (K,) = ({K},), got {tuple(phi_k.shape)}",
+    )
+    dtypes = {"mu": mu.dtype, "theta": theta.dtype,
+              "phi_wk": phi_wk.dtype, "phi_k": phi_k.dtype}
+    _require(
+        set(dtypes.values()) == {torch.float32},
+        "mu/theta/phi_wk/phi_k must all be float32 (the sweep computes in "
+        "float32), got " + ", ".join(f"{k}={v}" for k, v in dtypes.items()),
+    )
+    _check_word_topics(word_topics, phi_wk.shape[0], K)
+    if token_active is not None:
+        _require(
+            tuple(token_active.shape) == (D, L),
+            f"token_active must be a (D, L) = ({D}, {L}) mask, got "
+            f"{tuple(token_active.shape)}",
+        )
+
+
+def check_index_ranges(word_ids, word_topics, num_rows: int,
+                       num_topics: int) -> None:
     """``word_ids`` must lie in [0, W_s) and ``word_topics`` in [0, K).
 
-    The kernel reads φ rows and writes θ̂ lanes at these values without a
-    bound check, so they are checked once per call: one ``aminmax`` per
-    array and one device sync.
+    The kernels read (and the sweeps write) φ rows and θ̂ lanes at these
+    values without a bound check, so they are checked before a launch: one
+    ``aminmax`` per array and one device sync.  Raises ContractError.
     """
     named = [("word_ids", word_ids, num_rows)]
     if word_topics is not None:
@@ -225,8 +304,8 @@ def infer(
     theta = on_dev(theta0, torch.float32)
     if word_topics is not None:
         word_topics = on_dev(word_topics, torch.int32)
-    _check_index_ranges(word_ids, word_topics, phi_norm.shape[0],
-                        theta.shape[1])
+    check_index_ranges(word_ids, word_topics, phi_norm.shape[0],
+                       theta.shape[1])
     # Quantize the frozen φ block ONCE, outside the loop: every chunk reads
     # the same stored values.  The f32 path never touches phi_norm.
     phi_store, phi_scale = quantize_phi(on_dev(phi_norm, torch.float32),
@@ -256,3 +335,84 @@ def infer(
         ev_loglik=ev_ll_tok.sum(),
         ev_loglik_doc=ev_ll_tok.sum(-1),
     )
+
+
+def sweep(
+    word_ids,                  # (D, L) int — rows into phi_wk
+    counts,                    # (D, L) float
+    mu,                        # (D, L, K) float32 responsibilities
+    theta,                     # (D, K) float32
+    phi_wk,                    # (W_s, K) float32 working stats
+    phi_k,                     # (K,) float32
+    *,
+    alpha_m1: float,
+    beta_m1: float,
+    wb,                        # W·(β−1), with the *global* W
+    word_topics=None,          # (W_s, A) int: scheduled sweep
+    token_active=None,         # (D, L) bool λ_w mask (scheduled)
+    compute_loglik: bool = False,
+    norm_psum=None,
+    renorm_psum=None,
+    plan: Optional[SweepPlan] = None,
+    check_indices: bool = True,
+    device: Device = "cuda",
+) -> SweepResult:
+    """One column-serial Gauss-Seidel sweep — THE sweep entry point.
+
+    * ``word_topics is None`` → the dense full-K IEM sweep (paper Fig. 2 at
+      B = L); otherwise the §3.1 scheduled sweep on the per-word active
+      sets with eq. 38 renormalisation and the ``token_active`` λ_w word
+      mask (default ``counts > 0``).
+    * ``compute_loglik`` also returns the post-sweep eq. 3 data
+      log-likelihood (the training-perplexity stop rule), from the
+      kernels' per-token partials on the card.
+    * Arguments may be numpy arrays or tensors; they move to ``device``
+      (default ``"cuda"``, which raises without a GPU).  On the card the
+      Hopper kernels run; on the CPU their plain versions.
+    * Argument contracts are checked eagerly (``ContractError``): shapes
+      and dtypes, and — unless ``check_indices=False``, for a caller that
+      has checked them already — ``word_ids`` in [0, W_s) and
+      ``word_topics`` in [0, K), at one device sync.  A sharded ``plan``
+      and the ``norm_psum``/``renorm_psum`` hooks are refused: they come
+      with the sharded slice.
+    * The process-wide fault plan's ``PRE_PROBE`` point fires first
+      (``runtime.faults.fire_active``).
+    """
+    fault_lib.fire_active(fault_lib.PRE_PROBE)
+    dev = resolve_device(device)
+    word_ids, counts, mu = _tensor(word_ids), _tensor(counts), _tensor(mu)
+    theta, phi_wk, phi_k = _tensor(theta), _tensor(phi_wk), _tensor(phi_k)
+    if word_topics is not None:
+        word_topics = _tensor(word_topics)
+    if token_active is not None:
+        token_active = _tensor(token_active)
+    validate_sweep_args(
+        word_ids, counts, mu, theta, phi_wk, phi_k, word_topics=word_topics,
+        token_active=token_active, plan=plan, norm_psum=norm_psum,
+        renorm_psum=renorm_psum,
+    )
+
+    def on_dev(t, dtype):
+        return t.to(device=dev, dtype=dtype).contiguous()
+
+    word_ids = on_dev(word_ids, torch.int32)
+    counts = on_dev(counts, torch.float32)
+    mu, theta = on_dev(mu, torch.float32), on_dev(theta, torch.float32)
+    phi_wk = on_dev(phi_wk, torch.float32)
+    phi_k = on_dev(phi_k, torch.float32)
+    if word_topics is not None:
+        word_topics = on_dev(word_topics, torch.int32)
+        token_active = (counts > 0 if token_active is None
+                        else on_dev(token_active, torch.bool))
+    if check_indices:
+        check_index_ranges(word_ids, word_topics, phi_wk.shape[0],
+                           mu.shape[-1])
+    kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
+              emit_loglik=compute_loglik)
+    args = (word_ids, counts, mu, theta, phi_wk, phi_k)
+    if word_topics is not None:
+        out = scheduled_sweep(*args, word_topics, token_active, **kw)
+    else:
+        out = gs_sweep(*args, **kw)
+    mu_new, res, theta_o, phi_o, ptot_o, ll = out
+    return SweepResult(mu_new, theta_o, phi_o, ptot_o, res, ll)

@@ -1,0 +1,192 @@
+"""Scheduled (active-set) column-serial Gauss-Seidel IEM sweep — the Hopper
+kernel's wrapper and its plain PyTorch version.
+
+One call of :func:`scheduled_sweep` computes what one launch of the JAX
+package's ``kernels/scheduled_sweep.py::scheduled_sweep_pallas`` computes:
+the sweep of :func:`gs_sweep.gs_sweep` restricted to each word's (W_s, A)
+active topics (paper §3.1), with the eq. 38 partial renormalisation to the
+active set's previous mass and the λ_w ``token_active`` mask.  Inactive
+(token, topic) entries keep μ_old and carry a zero residual; the residual
+is the eq. 36 replacement value |Δ| = counts·|μ_new − μ_old|, full-K.
+
+* On CUDA tensors the wrapper runs the hand-written kernel
+  ``csrc/scheduled_sweep.cu`` (same build and fold as ``gs_sweep``); it
+  computes on the A active lanes only.  It never falls back.
+* On CPU tensors it runs :func:`scheduled_sweep_reference`, a port of the
+  JAX package's ``ops._sched_sweep_portable`` (masked full-K arithmetic
+  over a (W_s, K) word lane mask).
+
+``scheduled_sweep.launches`` counts kernel calls: one per sweep, each of
+which enqueues 2L CUDA launches (+1 with ``emit_loglik``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.gs_sweep import (
+    SweepOut,
+    check_cuda_args,
+    column_segments,
+    dense_operands,
+    ptr,
+    sweep_loglik,
+)
+from repro_torch.kernels.theta_sweep import word_lane_masks
+
+
+def scheduled_sweep_reference(
+    word_ids: torch.Tensor,      # (D, L) int — rows into phi_wk
+    counts: torch.Tensor,        # (D, L) float32
+    mu: torch.Tensor,            # (D, L, K)
+    theta: torch.Tensor,         # (D, K)
+    phi_wk: torch.Tensor,        # (W_s, K)
+    phi_k: torch.Tensor,         # (K,)
+    word_topics: torch.Tensor,   # (W_s, A) int — active topic ids per word
+    token_active: torch.Tensor,  # (D, L) bool — λ_w word mask per token
+    *,
+    alpha_m1: float,
+    beta_m1: float,
+    wb: float,
+    emit_loglik: bool = False,
+) -> SweepOut:
+    """The plain PyTorch version of :func:`scheduled_sweep`, any device.
+
+    A port of ``ops._sched_sweep_portable``: the active sets expand once
+    into a (W_s, K) word lane mask; each column gathers its D mask and φ̂
+    rows, runs the masked full-K E-step (eq. 13 exclusion on the active
+    lanes, eq. 38 renorm, λ_w folded into the mask) and folds Δ.
+    """
+    D, L = word_ids.shape
+    masks = word_lane_masks(phi_wk, word_topics)
+    act = token_active.to(mu.dtype)
+    mu_out = torch.empty_like(mu)
+    res = torch.empty_like(mu)
+    phi = phi_wk.clone()
+    ptot = phi_k.clone()
+    idx = word_ids.long()
+    for l in range(L):
+        wid = idx[:, l]
+        cnt = counts[:, l, None]
+        mu_old = mu[:, l]
+        mask = masks[wid] * act[:, l, None]
+        ex = cnt * mu_old * mask
+        th = (theta - ex).clamp_min(0.0)
+        ph = (phi[wid] - ex).clamp_min(0.0)
+        pt = ptot[None, :] - ex
+        num = (th + alpha_m1) * (ph + beta_m1) / (pt + wb) * mask
+        prev_mass = (mu_old * mask).sum(-1, keepdim=True)
+        new_sum = num.sum(-1, keepdim=True)
+        mu_new = mask * (num / new_sum.clamp_min(1e-30) * prev_mass) + (
+            1.0 - mask) * mu_old
+        delta = cnt * (mu_new - mu_old)          # zero off the active set
+        theta = theta + delta
+        phi.index_put_((wid,), delta, accumulate=True)
+        ptot = ptot + delta.sum(0)
+        mu_out[:, l] = mu_new
+        res[:, l] = delta.abs()
+    if not L:
+        theta = theta.clone()
+    loglik = None
+    if emit_loglik:
+        loglik = sweep_loglik(word_ids, counts, theta, phi, ptot, wb,
+                              alpha_m1=alpha_m1, beta_m1=beta_m1)
+    return mu_out, res, theta, phi, ptot, loglik
+
+
+def _launcher():
+    from repro_torch.kernels import build
+
+    lib = build.load("scheduled_sweep")
+    fn = lib.scheduled_sweep_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([p] * 10 + [i] + [p] * 8
+                       + [i, i, i, f, f, f, f, p])
+        fn.restype = ctypes.c_int
+        lib.scheduled_sweep_error_string.argtypes = [ctypes.c_int]
+        lib.scheduled_sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def scheduled_sweep(
+    word_ids: torch.Tensor,      # (D, L) int32 — rows into phi_wk
+    counts: torch.Tensor,        # (D, L) float32
+    mu: torch.Tensor,            # (D, L, K) float32
+    theta: torch.Tensor,         # (D, K) float32
+    phi_wk: torch.Tensor,        # (W_s, K) float32
+    phi_k: torch.Tensor,         # (K,) float32
+    word_topics: torch.Tensor,   # (W_s, A) int32 — active topic ids per word
+    token_active: torch.Tensor,  # (D, L) bool — λ_w word mask per token
+    *,
+    alpha_m1: float,
+    beta_m1: float,
+    wb: float,                   # W·(β−1), with the *global* W
+    emit_loglik: bool = False,
+) -> SweepOut:
+    """One scheduled sparse sweep.
+
+    Returns ``(mu_new (D,L,K), residual (D,L,K), theta (D,K), phi_wk
+    (W_s,K), phi_k (K,), loglik)`` — the outputs of
+    ``scheduled_sweep_pallas``.  CUDA tensors run the kernel (on the current
+    stream, not synchronised; every output is a new tensor); CPU tensors
+    run :func:`scheduled_sweep_reference`.  Word ids must index rows of
+    ``phi_wk`` and ``word_topics`` must index topics, with distinct ids in
+    each row: the kernel does not check (``ops.sweep`` checks the ranges).
+    """
+    wb = float(wb)
+    if theta.device.type == "cpu":
+        return scheduled_sweep_reference(
+            word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
+            token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb,
+            emit_loglik=emit_loglik,
+        )
+    if theta.device.type != "cuda":
+        raise ValueError(
+            f"scheduled_sweep runs on cuda or cpu, not {theta.device}")
+    D, L = word_ids.shape
+    K = mu.shape[-1]
+    W_s = phi_wk.shape[0]
+    A = word_topics.shape[-1] if word_topics.ndim == 2 else -1
+    check_cuda_args("scheduled_sweep", dense_operands(
+        word_ids, counts, mu, theta, phi_wk, phi_k) + [
+        ("word_topics", word_topics, torch.int32, (W_s, A)),
+        ("token_active", token_active, torch.bool, (D, L)),
+    ])
+    if not 0 < A <= K:
+        raise ValueError("scheduled_sweep: word_topics needs 1 <= A <= K")
+    mu_out = torch.empty_like(mu)
+    res = torch.empty_like(mu)
+    theta_o, phi_o, ptot_o = theta.clone(), phi_wk.clone(), phi_k.clone()
+    tok_ll = (torch.zeros((D, L), dtype=torch.float32, device=theta.device)
+              if emit_loglik else None)
+    if D and L:
+        live = token_active & (counts != 0)
+        segs = column_segments(word_ids, live, W_s)
+        delta = torch.zeros((D, K), dtype=torch.float32, device=theta.device)
+        compact = torch.empty((D, A), dtype=torch.float32,
+                              device=theta.device)
+        act8 = token_active.to(torch.uint8)
+        live8 = live.to(torch.uint8)
+        lib = _launcher()
+        with torch.cuda.device(theta.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.scheduled_sweep_launch(
+                ptr(word_ids), ptr(counts), ptr(act8), ptr(mu), ptr(mu_out),
+                ptr(res), ptr(theta_o), ptr(phi_o), ptr(ptot_o),
+                ptr(word_topics), A, *map(ptr, segs), ptr(live8),
+                ptr(delta), ptr(compact), ptr(tok_ll), D, L, K,
+                float(alpha_m1), float(beta_m1), wb, float(K * alpha_m1),
+                stream,
+            )
+        if rc != 0:
+            msg = lib.scheduled_sweep_error_string(rc).decode()
+            raise RuntimeError(
+                f"scheduled_sweep kernel launch failed: {msg} ({rc})")
+        scheduled_sweep.launches += 1
+    loglik = tok_ll.sum() if emit_loglik else None
+    return mu_out, res, theta_o, phi_o, ptot_o, loglik
+
+
+scheduled_sweep.launches = 0

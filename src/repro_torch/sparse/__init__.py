@@ -4,5 +4,11 @@ from repro_torch.sparse.docword import (
     bucketize,
     localize_vocab,
 )
+from repro_torch.sparse.minibatch import (
+    Minibatch,
+    MinibatchStream,
+    prefetch_iterator,
+)
 
-__all__ = ["DocWordMatrix", "bucket_length", "bucketize", "localize_vocab"]
+__all__ = ["DocWordMatrix", "Minibatch", "MinibatchStream", "bucket_length",
+           "bucketize", "localize_vocab", "prefetch_iterator"]

@@ -4,7 +4,9 @@
   ``import jax`` and ``import repro`` fail.
 * No file of the port, nor ``chip_smoke.py``, has an import statement
   naming ``jax``/``jaxlib`` or ``repro``.
-* The entry points default to ``device="cuda"`` and raise on a host
+* The entry points — serving (``TopicServer``, ``ops.infer``, the serve
+  CLI) and training (``FOEMTrainer``, ``ops.sweep``, ``foem_minibatch``,
+  the train CLI) — default to ``device="cuda"`` and raise on a host
   without a GPU instead of falling back to the CPU.
 """
 import ast
@@ -93,11 +95,48 @@ def test_entry_points_default_to_the_gpu(tmp_path):
     assert r.sweeps == 2 and r.theta.device.type == "cpu"
 
 
+def test_training_entry_points_default_to_the_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core import FOEMTrainer, LDAConfig, MinibatchData
+    from repro_torch.core import ParameterStore, foem
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    store = ParameterStore(str(tmp_path), num_topics=4, vocab_capacity=8)
+    cfg = LDAConfig(num_topics=4, vocab_size=8, max_sweeps=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FOEMTrainer(cfg, store)
+    w = np.zeros((2, 3), np.int32)
+    c = np.ones((2, 3), np.float32)
+    mu = np.full((2, 3, 4), 0.25, np.float32)
+    th, phi = mu.sum(1), np.ones((8, 4), np.float32)
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=0.08)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.sweep(w, c, mu, th, phi, phi.sum(0), **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        foem.foem_minibatch(None, MinibatchData(w, c), phi, phi.sum(0), cfg,
+                            mu0=mu)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--workdir", str(tmp_path / "cli"), "--steps", "1"])
+    # the explicit CPU choice runs the plain path
+    r = ops.sweep(w, c, mu, th, phi, phi.sum(0), **kw, device="cpu")
+    assert r.mu.device.type == "cpu" and r.loglik is None
+    res = foem.foem_minibatch(None, MinibatchData(w, c), phi, phi.sum(0),
+                              cfg, mu0=mu, device="cpu")
+    assert res.diag.sweeps_run == 2
+    assert FOEMTrainer(cfg, store, device="cpu").device.type == "cpu"
+
+
 def test_cuda_tensors_never_fall_back():
-    """The kernel wrapper refuses a device it has no kernel for rather than
-    quietly running the plain version there."""
+    """The kernel wrappers refuse a device they have no kernel for rather
+    than quietly running the plain version there."""
+    from repro_torch.kernels.gs_sweep import gs_sweep
     from repro_torch.kernels.theta_sweep import theta_sweep
 
     t = torch.zeros((1, 2), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         theta_sweep(t.int(), t, t, t, t, alpha_m1=0.01, num_sweeps=1)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gs_sweep(t.int(), t, t[..., None], t, t, t[0], alpha_m1=0.01,
+                 beta_m1=0.01, wb=1.0)

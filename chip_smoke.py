@@ -24,7 +24,18 @@ order:
 4. drives the training path — ``FOEMTrainer(device="cuda")`` for three
    minibatches of ``lda_config(stream_1k)`` on the same store, then one
    more step under ``torch.profiler`` — and serves a batch from the
-   trained store.
+   trained store;
+5. holds the two kernels of the topic-sharded sweep (``sharded_probe``,
+   ``sharded_fold``) against their plain versions at one rank's share of
+   the stream_1k width (K/mp = 2,500 of K = 10,000 lanes, all W = 141,043
+   rows, the 1,024 × 128 minibatch), dense and scheduled (A/mp = 4), and
+   measures where the fold's running φ̂(k) total drifts from its rows: the
+   kernel, and the plain version in float32 and in float64, from one
+   renormalised two-phase state;
+6. drives the topic-sharded path — ``foem_step_sharded`` on a
+   (data = 1, model = 4) mesh of four ranks sharing the card
+   (``spawn_mesh``, gloo), two minibatches, then
+   ``heldout_perplexity_sharded`` on 256 held-out documents.
 
 Each path's kernel launch counters are set to 0 just before it and read
 just after.  Any failed check exits non-zero before the result lines.  The
@@ -78,6 +89,27 @@ SWEEP_TOL_REASON = (
     "through 128 Gauss-Seidel columns")
 PHI_K_SUM_RTOL = 1e-4       # phi_k against sum_w phi_wk after a sweep:
 # two float32 sums of ~2e4 rows of ~1e4-token magnitude in different orders
+MP = 4                      # model ranks of the sharded phases
+K_SHARD = K_FULL // MP      # topic lanes per rank
+A_SHARD = A_SCHED // MP     # active lanes per word per rank
+# Sharded kernel vs plain tolerances (rtol, atol) beyond SWEEP_TOL's, and why.
+SHARD_TOL = {"s": (1e-4, 0.0), "prev_mass": (1e-4, 1e-6),
+             "live": (1e-4, 1e-6), "u": (1e-4, 0.0)}
+SHARD_TOL_REASON = (
+    "s and u are positive sums of 2,500 lane terms taken in another order "
+    "(~1e-6 relative) carried through 128 Gauss-Seidel columns (rtol 1e-4, "
+    "as SWEEP_TOL); prev_mass and live are sums of probabilities (<= 1: "
+    "atol 1e-6); mu, residual, theta, phi_wk, phi_k as SWEEP_TOL")
+MU_SUM_ATOL = 1e-5          # dense sum_k mu over the 4 ranks against 1:
+# four float32 sums of 2,500 lanes (~1e-7 relative each) and their sum
+# phi mass growth over a sharded step against the minibatch's token count,
+# relative: the rows are float32 running totals of mostly small entries
+# (on an H100 they grew within 1.2e-5 of the token count); phase D sets
+# phi_k to their float64 sum rounded once per topic, whose half-ulp
+# roundings (ulp 4e-3 at ~5e4 tokens) over 1e4 topics add up to ~0.3 token
+MASS_RTOL = {"phi_rows_mass_growth": 1e-4, "phi_k_mass_growth": 1e-4}
+DRIFT64_ATOL = 1e-3         # tokens: the float64 fold's phi_k drift, a
+# difference of float64 sums of ~1.3e8 tokens (ulp 1.5e-8)
 
 
 class SmokeFailure(RuntimeError):
@@ -364,22 +396,26 @@ def serving_phase(torch, store, gen, report):
     report["serving"] = rec
 
 
-def _sweep_bound_ms(D, L, K, rows_used, live_tokens, lanes, A,
-                    loglik) -> tuple:
-    """Least time of one sweep on these inputs: each input read once and
-    each output written once — μ (D·L·K) in, μ_new and the residual out,
-    θ̂ and the touched φ̂ rows in and out, φ̂(k), the token ids and counts
-    (+ the active sets and λ_w mask) — against ≈ 21 float32 operations
-    per computed (token, lane) entry (+ 7 per (live token, topic) for the
-    stop rule)."""
-    nbytes = (3 * D * L * K * 4 + 2 * D * L * 4 + 2 * D * K * 4
-              + 2 * rows_used * K * 4 + 2 * K * 4)
-    if A:
-        nbytes += rows_used * A * 4 + D * L
-    flops = 21 * lanes + (7 * live_tokens * K if loglik else 0)
+def _bound(nbytes, flops) -> tuple:
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / FP32_FLOPS * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def _sweep_bound_ms(D, L, K, rows_used, live_tokens, lanes, A,
+                    loglik, extra_bytes=0) -> tuple:
+    """Least time of one sweep on these inputs: each input read once and
+    each output written once — μ (D·L·K) in, μ_new and the residual out,
+    θ̂ and the touched φ̂ rows in and out, φ̂(k), the token ids and counts
+    (+ the active sets and λ_w mask, + ``extra_bytes``) — against ≈ 21
+    float32 operations per computed (token, lane) entry (+ 7 per (token,
+    topic) of ``live_tokens`` for the stop rule)."""
+    nbytes = (3 * D * L * K * 4 + 2 * D * L * 4 + 2 * D * K * 4
+              + 2 * rows_used * K * 4 + 2 * K * 4 + extra_bytes)
+    if A:
+        nbytes += rows_used * A * 4 + D * L
+    flops = 21 * lanes + (7 * live_tokens * K if loglik else 0)
+    return _bound(nbytes, flops)
 
 
 def sweep_kernel_phase(torch, dev, store, report):
@@ -465,6 +501,7 @@ def sweep_kernel_phase(torch, dev, store, report):
                                       rtol=PHI_K_SUM_RTOL)),
                   f"{name} sweep: phi_k is not the sum of the phi rows "
                   f"{errors(got[4], got[3].sum(0))}")
+            drift = phi_k_drift(torch, args[5], args[4], got[4], got[3])
             del got
             ms = cuda_time_ms(lambda: fn(*args, **vkw), 3)
             plain_ms = cuda_time_ms(lambda: ref(*args, **vkw), 1)
@@ -475,7 +512,8 @@ def sweep_kernel_phase(torch, dev, store, report):
                 A_SCHED if extra is not None else 0, loglik)
             rec = {"variant": name + (" +loglik" if loglik else ""),
                    "kernel": fn.__name__, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": by, "errors": errs}
+                   "bound_ms": bound, "bound_by": by,
+                   "phi_k_drift_tokens": drift, "errors": errs}
             variants.append(rec)
             print("sweep kernel " + json.dumps(rec))
             torch.cuda.empty_cache()
@@ -580,6 +618,405 @@ def training_phase(torch, store, report):
                           "profiled": profiled, "served_ppl": ppl}
 
 
+def phi_slice(cap, lo, hi):
+    """Columns [lo, hi) of the store phase's φ̂ (the same generator and
+    seed), built block by block: the whole (cap, K) model never exists."""
+    import numpy as np
+
+    from repro_torch.data import trained_like_phi_blocks
+    from repro_torch.launch.serve import TrafficGenerator
+
+    ranks = TrafficGenerator(vocab_size=cap, doc_len=DOC_LEN,
+                             seed=7).word_ranks()
+    return np.concatenate([b[:, lo:hi] for b in trained_like_phi_blocks(
+        cap, K_FULL, ranks=ranks, seed=0)])
+
+
+def phi_k_drift(torch, ptot_in, phi_in, ptot_out, phi_out) -> float:
+    """How far a call's φ̂(k) growth strays from its rows' growth, in
+    tokens (float64 sums): 0 in exact arithmetic, since every Δ goes into
+    both."""
+    def tot(t):
+        return float(t.double().sum())
+
+    return ((tot(ptot_out) - tot(ptot_in)) - (tot(phi_out) - tot(phi_in)))
+
+
+def fold_drift_witness(torch, wid, cnt, folded, kw) -> dict:
+    """Where φ̂(k) drifts in a two-phase sweep.  From the dense fold's
+    output, phase D as four equal shards would run it (Σ_k μ = 1 over the
+    shards), then one more fold — the kernel, its plain version in float32
+    and in float64 — against its own probe's remainder.  Each call's
+    φ̂(k) drift against its rows, and the rows' growth (the shift of the
+    shard's mass that phase D takes back)."""
+    from repro_torch.kernels.gs_sweep import segment_sum
+    from repro_torch.kernels.sharded_sweep import (
+        sharded_fold, sharded_fold_reference, sharded_probe,
+    )
+
+    mu_new, _, theta, phi, _, live, _ = folded
+    mu1 = mu_new / (MP * live).clamp_min(1e-30)[..., None]
+    delta = (mu1 - mu_new) * cnt[..., None]
+    theta1 = theta + delta.sum(1)
+    phi1 = phi + segment_sum(delta.reshape(-1, K_SHARD), wid, phi.shape[0])
+    del delta
+    state = (wid, cnt, mu1, theta1, phi1,
+             phi1.sum(0, dtype=torch.float64).float())
+    s1, _ = sharded_probe(*state, **kw)
+    rem = s1 * (MP - 1)
+    out = {"mean_phi_k": float(state[5].double().mean())}
+    for name, fn, dtype in (("kernel_f32", sharded_fold, torch.float32),
+                            ("plain_f32", sharded_fold_reference,
+                             torch.float32),
+                            ("plain_f64", sharded_fold_reference,
+                             torch.float64)):
+        args = [x.to(dtype) if x.is_floating_point() else x
+                for x in state + (rem,)]
+        got = fn(*args, **kw)
+        out[f"drift_{name}"] = phi_k_drift(torch, args[5], args[4], got[4],
+                                           got[3])
+        out[f"rows_growth_{name}"] = float(got[3].double().sum()
+                                           - args[4].double().sum())
+        del got, args
+        torch.cuda.empty_cache()
+    check(abs(out["drift_plain_f64"]) <= DRIFT64_ATOL,
+          f"the float64 fold's phi_k drifts from its rows by "
+          f"{out['drift_plain_f64']} tokens")
+    return out
+
+
+def _check_close(name, key, a, b, tol) -> dict:
+    import torch
+
+    rtol, atol = tol
+    err = errors(a, b)
+    check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+          f"{name}: {key} disagrees with the plain version {err} beyond "
+          f"rtol {rtol} / atol {atol}")
+    return err
+
+
+def sharded_kernel_phase(torch, dev, cap, report):
+    """Both sharded sweep kernels against their plain versions at one
+    rank's share of the stream_1k width: the 1,024 × 128 minibatch over all
+    ``cap`` rows of a K/mp = 2,500-lane φ̂ slice, dense from the minibatch
+    start, scheduled (A/mp = 4) after one dense sweep; the cross-shard
+    columns are the probe's own sums as three peers would send them."""
+    import numpy as np
+
+    from repro_torch.core import em, scheduling
+    from repro_torch.core.types import uniform_responsibilities
+    from repro_torch.kernels.gs_sweep import gs_sweep
+    from repro_torch.kernels.scheduled_sweep import scheduled_sweep
+    from repro_torch.kernels.sharded_sweep import (
+        sharded_fold, sharded_fold_reference, sharded_probe,
+        sharded_probe_reference,
+    )
+    from repro_torch.launch.serve import TrafficGenerator
+    from repro_torch.sparse import MinibatchStream
+
+    gen = TrafficGenerator(vocab_size=cap, doc_len=DOC_LEN, seed=3)
+    mb = next(iter(MinibatchStream(gen.corpus(D_TRAIN), D_TRAIN,
+                                   bucket_len=L_TRAIN, seed=0)))
+    D, L, K = D_TRAIN, L_TRAIN, K_SHARD
+    wid = torch.from_numpy(mb.word_ids).to(dev)
+    cnt = torch.from_numpy(mb.counts).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    mu = uniform_responsibilities(g, (D, L, K)) / MP   # one rank's share
+    theta = em.fold_theta(mu, cnt)
+    phi = torch.from_numpy(phi_slice(cap, 0, K)).to(dev)
+    phi += em.fold_phi(mu, cnt, wid, cap)[0]
+    ptot = phi.sum(0)
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=W_FULL * 0.01)
+    live = mb.counts > 0
+    rows_used = len(np.unique(mb.word_ids[live]))
+    live_tok = int(live.sum())
+    print(f"sharded kernel shapes: D={D} L={L} K/mp={K} W={cap} "
+          f"live tokens={live_tok} rows touched={rows_used} A/mp={A_SHARD}")
+    print(f"sharded tolerance (rtol, atol): {json.dumps(SHARD_TOL)}: "
+          f"{SHARD_TOL_REASON}")
+    variants = []
+
+    def measure(name, kernel, fn, ref, args, vkw, outs, bound, gather):
+        got = fn(*args, **vkw)
+        torch.cuda.synchronize()
+        want = ref(*args, **vkw)
+        errs = {}
+        for key, a, b in zip(outs, got, want):
+            if a is not None:
+                tol = SHARD_TOL.get(key) or SWEEP_TOL[key]
+                errs[key] = _check_close(name, key, a, b, tol)
+        del want
+        again = fn(*args, **vkw)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)
+                  if x is not None),
+              f"{name}: two launches on the same inputs differ")
+        del again
+        ms = cuda_time_ms(lambda: fn(*args, **vkw), 3)
+        plain_ms = cuda_time_ms(lambda: ref(*args, **vkw), 1)
+        rec = {"variant": name, "kernel": kernel, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound[0],
+               "bound_by": bound[1], "gather_ms": gather, "errors": errs}
+        variants.append(rec)
+        print("sharded kernel " + json.dumps(rec))
+        return got
+
+    def probe_bound(lanes_read, sched):
+        # μ, θ̂ and the φ̂ row read at the computed (token, lane) entries
+        # (dense: every token, all lanes; θ̂ and the touched rows once),
+        # φ̂(k), ids and counts (+ the active sets and mask), s (+ p) out;
+        # ≈ 12 float32 operations per computed entry
+        nbytes = (lanes_read * 4 * (3 if sched else 1) + K * 4
+                  + 2 * D * L * 4 + D * L * 4 * (2 if sched else 1))
+        if sched:
+            nbytes += rows_used * A_SHARD * 4 + D * L
+        else:
+            nbytes += D * K * 4 + rows_used * K * 4
+        return _bound(nbytes, 12 * lanes_read)
+
+    def fold_bound(sched, loglik):
+        lanes = A_SHARD * live_tok if sched else D * L * K
+        extra = D * L * 4 * (3 if sched else 2) + (D * L * 4 if loglik
+                                                   else 0)
+        return _sweep_bound_ms(D, L, K, rows_used, D * L, lanes,
+                               A_SHARD if sched else 0, loglik, extra)
+
+    outs_p = ("s", "prev_mass")
+    outs_f = ("mu", "residual", "theta", "phi_wk", "phi_k", "live", "u")
+    base = (wid, cnt, mu, theta, phi, ptot)
+    s, _ = measure("probe dense", "sharded_probe", sharded_probe,
+                   sharded_probe_reference, base, kw, outs_p,
+                   probe_bound(D * L * K, False),
+                   D * L * K * 4 / HBM_BYTES_PER_S * 1e3)
+    rem = s * (MP - 1)
+    fold_gather = live_tok * K * 4 / HBM_BYTES_PER_S * 1e3
+    for loglik in (False, True):
+        warm = measure("fold dense" + (" +loglik" if loglik else ""),
+                       "sharded_fold", sharded_fold, sharded_fold_reference,
+                       base + (rem,), dict(kw, emit_loglik=loglik), outs_f,
+                       fold_bound(False, loglik), fold_gather)
+    zero = torch.zeros_like(rem)
+    got = sharded_fold(*base, zero, **kw)
+    want = gs_sweep(*base, **kw)
+    for key, a, b in zip(outs_f[:5], got, want):
+        _check_close("fold dense, remainder 0 vs gs_sweep", key, a, b,
+                     SWEEP_TOL[key])
+    check(float(got[1][cnt == 0].abs().max()) == 0.0,
+          "fold dense: a zero-count slot has a residual")
+    del got, want
+    drift = fold_drift_witness(torch, wid, cnt, warm, kw)
+    print("sharded fold drift " + json.dumps(drift))
+
+    # the scheduled state: one dense sweep's residuals ranked per rank
+    sched = scheduling.residuals_from_sweep(warm[1], wid, cap)
+    wt = scheduling.select_active_topics(sched.r_wk, A_SHARD)
+    act = cnt > 0
+    post = (wid, cnt, warm[0], warm[2], warm[3], warm[4])
+    del warm, sched
+    act_tok = int(act.sum())
+    s, pm = measure("probe scheduled A/mp=4", "sharded_probe", sharded_probe,
+                    sharded_probe_reference, post + (wt, act), kw, outs_p,
+                    probe_bound(act_tok * A_SHARD, True),
+                    act_tok * A_SHARD * 4 / HBM_BYTES_PER_S * 1e3)
+    fargs = post + (s * (MP - 1), pm * MP, wt, act)
+    for loglik in (False, True):
+        got = measure("fold scheduled A/mp=4" + (" +loglik" if loglik
+                                                 else ""),
+                      "sharded_fold", sharded_fold, sharded_fold_reference,
+                      fargs, dict(kw, emit_loglik=loglik), outs_f,
+                      fold_bound(True, loglik),
+                      live_tok * A_SHARD * 4 / HBM_BYTES_PER_S * 1e3)
+        check(float(got[1][cnt == 0].abs().max()) == 0.0,
+              "fold scheduled: a zero-count slot has a residual")
+        del got
+    got = sharded_fold(*post, zero, pm, wt, act, **kw)
+    want = scheduled_sweep(*post, wt, act, **kw)
+    for key, a, b in zip(outs_f[:5], got, want):
+        _check_close("fold scheduled, remainder 0 vs scheduled_sweep", key,
+                     a, b, SWEEP_TOL[key])
+    print("sharded kernel: fold with remainder 0 equals gs_sweep and "
+          "scheduled_sweep within SWEEP_TOL; zero-count slots carry no "
+          "residual; two launches give the same bits")
+    report["sharded_variants"] = variants
+    report["sharded_fold_drift"] = drift
+    del got, want, post, fargs, mu, theta, phi, ptot, base
+    torch.cuda.empty_cache()
+
+
+def _sharded_rank(mesh, cap, minibatches, heldout):
+    """One rank of the sharded training phase: its φ̂ slice, two
+    ``foem_step_sharded`` minibatches (the second under the profiler on
+    rank 0), the held-out perplexity, then the checks that need the
+    mesh."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.core import em
+    from repro_torch.core.foem_sharded import (
+        foem_step_sharded, heldout_perplexity_sharded,
+    )
+    from repro_torch.core.types import (
+        GlobalStats, LocalState, MinibatchData, SweepPlan,
+    )
+    from repro_torch.kernels.sharded_sweep import sharded_fold, sharded_probe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, dev = mesh.model.index, mesh.device
+    t0 = time.perf_counter()
+    phi = torch.from_numpy(phi_slice(cap, m * K_SHARD,
+                                     (m + 1) * K_SHARD)).to(dev)
+    slice_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(lda_config(lda_shape("stream_1k")),
+                              topk_shards=MP)
+    stats = GlobalStats(phi, phi.sum(0, dtype=torch.float64).float(),
+                        torch.zeros((), dtype=torch.int32))
+    del phi
+    gen = torch.Generator().manual_seed(0)
+
+    def mass(st):
+        pk, rows = mesh.model.all_reduce(
+            st.phi_k.double().sum().reshape(1),
+            st.phi_wk.double().sum().reshape(1))
+        return float(pk[0]), float(rows[0])
+
+    steps = []
+    sharded_probe.launches = 0            # counts of the main path only
+    sharded_fold.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for i, (wid, cnt) in enumerate(minibatches):
+        before = mass(stats)
+        launched = (sharded_probe.launches, sharded_fold.launches)
+        batch = MinibatchData(torch.from_numpy(wid), torch.from_numpy(cnt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = lambda: foem_step_sharded(gen, batch, stats, cfg, mesh)  # noqa
+        prof = None
+        if i == len(minibatches) - 1 and m == 0:
+            (stats, ppl, sweeps), wall_ms, by_op, busy_ms = device_profile(
+                torch, step)
+            prof = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                    "device_busy_share": busy_ms / wall_ms if by_op else None,
+                    "device_ms_by_op": {k[:80]: v for k, v in
+                                        list(by_op.items())[:10]}}
+        else:
+            stats, ppl, sweeps = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = mass(stats)
+        steps.append({
+            "step": i + 1, "sweeps": sweeps, "train_ppl": ppl,
+            "wall_s": wall, "tokens": float(cnt.sum()),
+            "phi_k_mass_growth": after[0] - before[0],
+            "phi_rows_mass_growth": after[1] - before[1],
+            "probe_launches": sharded_probe.launches - launched[0],
+            "fold_launches": sharded_fold.launches - launched[1],
+            "profiled_rank0": prof})
+    launches = {"sharded_probe": sharded_probe.launches,
+                "sharded_fold": sharded_fold.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    w, est, ev = heldout
+    t0 = time.perf_counter()
+    held = heldout_perplexity_sharded(
+        gen, MinibatchData(torch.from_numpy(w), torch.from_numpy(est)),
+        MinibatchData(torch.from_numpy(w), torch.from_numpy(ev)), stats,
+        cfg, mesh)
+    held_s = time.perf_counter() - t0
+
+    # one dense two-phase sweep from a fresh μ0: Σ_k μ over the ranks is 1
+    wid = torch.from_numpy(minibatches[0][0]).to(dev)
+    cnt = torch.from_numpy(minibatches[0][1]).to(dev)
+    g = torch.empty((D_TRAIN, L_TRAIN, K_SHARD), device=dev).uniform_(
+        0.5, 1.5, generator=torch.Generator(device=dev).manual_seed(m))
+    (gs,) = mesh.model.all_reduce(g.sum(-1, keepdim=True))
+    mu0 = g / gs
+    del g, gs
+    phi_w = stats.phi_wk + em.fold_phi(mu0, cnt, wid, cap)[0]
+    r = em.gs_sweep_with_residuals(
+        MinibatchData(wid, cnt), LocalState(mu0, em.fold_theta(mu0, cnt)),
+        phi_w, phi_w.sum(0), cfg, plan=SweepPlan(axis_name=mesh.model))
+    (mu_sum,) = mesh.model.all_reduce(r.mu.sum(-1))
+    mu_err = float((mu_sum[cnt > 0] - 1.0).abs().max())
+    return {"rank": mesh.rank, "slice_s": slice_s, "steps": steps,
+            "launches": launches, "peak_device_gb": peak / 1e9,
+            "heldout_ppl": held, "heldout_s": held_s, "mu_sum_err": mu_err,
+            "max_sweeps": cfg.max_sweeps,
+            "warmup_sweeps": max(1, cfg.warmup_sweeps)}
+
+
+def sharded_training_phase(torch, cap, report):
+    """The topic-sharded main path: four ranks of a (1, 4) mesh share the
+    card, each with its 2,500-lane slice of the stream_1k model over all
+    rows, two 1,024 × 128 minibatches of foem_step_sharded, then
+    heldout_perplexity_sharded on the serving phase's held-out batch."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.launch.serve import TrafficGenerator
+    from repro_torch.sparse import MinibatchStream
+
+    gen = TrafficGenerator(vocab_size=cap, doc_len=DOC_LEN, seed=17)
+    mbs = [(mb.word_ids, mb.counts) for mb in MinibatchStream(
+        gen.corpus(2 * D_TRAIN), D_TRAIN, bucket_len=L_TRAIN, seed=0)]
+    gc.collect()
+    torch.cuda.empty_cache()        # the ranks need the card's memory
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(_sharded_rank, 1, MP, device="cuda",
+                       args=(cap, mbs, report["heldout"]), timeout=900)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        for st in r["steps"]:
+            check(r["warmup_sweeps"] <= st["sweeps"] <= r["max_sweeps"],
+                  f"rank {r['rank']} step {st['step']} ran {st['sweeps']} "
+                  f"sweeps")
+            check(np.isfinite(st["train_ppl"])
+                  and 1.0 < st["train_ppl"] < W_FULL,
+                  f"rank {r['rank']} train perplexity {st['train_ppl']}")
+            check(st["probe_launches"] == st["fold_launches"] == st["sweeps"],
+                  f"rank {r['rank']} step {st['step']}: {st['sweeps']} "
+                  f"sweeps but {st['probe_launches']} probe and "
+                  f"{st['fold_launches']} fold kernel calls (a plain "
+                  "version ran)")
+            for key, rtol in MASS_RTOL.items():
+                rel = abs(st[key] - st["tokens"]) / st["tokens"]
+                check(rel <= rtol,
+                      f"step {st['step']}: {key} {st[key]} against "
+                      f"{st['tokens']} tokens (relative {rel})")
+        check(all(v > 0 for v in r["launches"].values()),
+              f"rank {r['rank']} did not launch both sharded kernels "
+              f"{r['launches']}")
+        check(r["mu_sum_err"] <= MU_SUM_ATOL,
+              f"rank {r['rank']}: sum_k mu over the ranks is off 1 by "
+              f"{r['mu_sum_err']}")
+        check(np.isfinite(r["heldout_ppl"]) and 1.0 < r["heldout_ppl"]
+              < W_FULL, f"held-out perplexity {r['heldout_ppl']}")
+    check(len({r["heldout_ppl"] for r in ranks}) == 1
+          and len({tuple(s["train_ppl"] for s in r["steps"])
+                   for r in ranks}) == 1,
+          "the ranks disagree on a perplexity")
+    for i in range(len(mbs)):
+        rec = {k: v for k, v in ranks[0]["steps"][i].items()}
+        rec["wall_s_by_rank"] = [r["steps"][i]["wall_s"] for r in ranks]
+        rec["peak_device_gb_by_rank"] = [r["peak_device_gb"] for r in ranks]
+        print("sharded step " + json.dumps(rec))
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    rec = {"ranks": MP, "mesh_s": wall,
+           "slice_build_s_by_rank": [r["slice_s"] for r in ranks],
+           "heldout_ppl": ranks[0]["heldout_ppl"],
+           "heldout_s": ranks[0]["heldout_s"],
+           "mu_sum_max_err": max(r["mu_sum_err"] for r in ranks),
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "launches": launches}
+    print("sharded training " + json.dumps(rec))
+    report["sharded_training"] = rec
+
+
 def main() -> int:
     import torch
 
@@ -619,6 +1056,10 @@ def main() -> int:
         serving_phase(torch, store, gen, report)
         sweep_kernel_phase(torch, dev, store, report)
         training_phase(torch, store, report)
+        cap = report["store_capacity"]
+        del store
+        sharded_kernel_phase(torch, dev, cap, report)
+        sharded_training_phase(torch, cap, report)
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
@@ -656,6 +1097,34 @@ def main() -> int:
             # μ_new, the sweep's per-token output (all outputs are in the
             # "sweep kernel" lines)
             "max_abs_err": max(v["errors"]["mu"]["max_abs"] for v in mine),
+            "ms": base["ms"],
+            "plain_ms": base["plain_ms"],
+            "bound_ms": base["bound_ms"],
+            "bound_by": base["bound_by"],
+            "library_ms": None,
+        })
+    for name, source, replaces in (
+            ("sharded_probe", "src/repro_torch/kernels/csrc/sharded_sweep.cu",
+             "src/repro/kernels/sharded_sweep.py:174"),
+            ("sharded_fold", "src/repro_torch/kernels/csrc/sharded_sweep.cu",
+             "src/repro/kernels/sharded_sweep.py:414")):
+        mine = [v for v in report["sharded_variants"] if v["kernel"] == name]
+        # the scheduled call without the stop rule: 18 of a step's ~20
+        # sweeps are scheduled (all variants are in the "sharded kernel"
+        # lines)
+        base = [v for v in mine if "scheduled" in v["variant"]][0]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": report["sharded_training"]["launches"][name],
+            # the probe's (D, L) sums; the fold's μ_new, its per-token
+            # output, as for the unsharded sweeps
+            "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
+                               if name == "sharded_probe"
+                               else v["errors"]["mu"]["max_abs"]
+                               for v in mine),
             "ms": base["ms"],
             "plain_ms": base["plain_ms"],
             "bound_ms": base["bound_ms"],

@@ -25,16 +25,7 @@ from repro_torch.core.types import (
     LDAConfig, LocalState, MinibatchData, SweepPlan, SweepResult,
 )
 from repro_torch.kernels import ops as kops
-
-
-def segment_sum(rows: torch.Tensor, seg: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """(N, K) rows summed into (num_segments, K) by the (N,) segment ids —
-    ``jax.ops.segment_sum`` with a fixed accumulation order on every device
-    (``index_put_`` with accumulation; no atomics)."""
-    out = torch.zeros((num_segments,) + tuple(rows.shape[1:]),
-                      dtype=rows.dtype, device=rows.device)
-    return out.index_put_((seg.reshape(-1).long(),), rows, accumulate=True)
+from repro_torch.kernels.gs_sweep import segment_sum
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ Every sweep goes through ``kernels.ops.sweep``: the dense and scheduled
 Hopper kernels on the card, their plain versions on the CPU.  The inner
 loop is a Python loop that synchronises with the device once per check
 sweep (one scalar) and nowhere else.  Only the column-serial fused sweep
-(B = L) is ported; the coarse-block and ``"scan"`` paths raise.
+(B = L) is ported; the coarse-block and ``"scan"`` paths raise, except
+under a topic-sharded plan, which always takes the dispatch
+(``core/foem_sharded.py``).
 """
 from __future__ import annotations
 
@@ -78,19 +80,40 @@ def scheduled_iem_sweep(
     passed to ``ops.sweep``; the active sets come from a sort and are in
     range by construction.
 
+    Under a topic-sharded ``plan`` (``foem_sharded``: the rank's K/mp
+    lanes, ``cfg.topk_shards == mp``) the selection runs on the rank's
+    *local* residual slice — top-(A/mp) local ids, whose union over the
+    ranks is the balanced size-A active set — with λ_w < 1 ranking words by
+    the eq. 37 residual summed over the model axis (one ``all_reduce``), so
+    that every rank derives the same word mask; the sweep then always takes
+    the dispatch, whatever the block count.
+
     Returns ``(local, phi, ptot, scheduler, loglik-or-None)``.
     """
     A = cfg.active_topics
     if A <= 0:
         raise ValueError("scheduled_iem_sweep requires cfg.active_topics > 0")
-    em._require_fused(cfg, batch.word_ids.shape[1])
+    sharded = plan is not None and plan.axis_name is not None
+    if not sharded:
+        em._require_fused(cfg, batch.word_ids.shape[1])
     W = vocab_size if vocab_size is not None else cfg.W
-    word_topics = sched_lib.select_active_topics(
-        scheduler.r_wk, A, cfg.topk_shards)                        # (Wv, A)
+    if sharded:
+        # scheduler.r_wk is the (W, K/mp) local slice: a plain local
+        # top-(A/mp) IS the rank's group of the grouped selection
+        word_topics = sched_lib.select_active_topics(
+            scheduler.r_wk, max(1, A // max(1, cfg.topk_shards)))  # (Wv, A/mp)
+    else:
+        word_topics = sched_lib.select_active_topics(
+            scheduler.r_wk, A, cfg.topk_shards)                    # (Wv, A)
+    r_w = scheduler.r_w
+    if sharded and cfg.active_words_frac < 1.0:
+        # the λ_w ranking needs the GLOBAL eq. 37 residual: a rank-local
+        # threshold would freeze a word on one rank and not another
+        (r_w,) = plan.axis_name.all_reduce(r_w)
     word_thresh = sched_lib.select_active_words_threshold(
-        scheduler, cfg.active_words_frac)
+        SchedulerState(r_wk=scheduler.r_wk, r_w=r_w), cfg.active_words_frac)
     token_active = (
-        scheduler.r_w[batch.word_ids.long()] >= word_thresh
+        r_w[batch.word_ids.long()] >= word_thresh
     ) & (batch.counts > 0)                                         # (D, L)
     r = kops.sweep(
         batch.word_ids, batch.counts, local.mu, local.theta_dk,

@@ -10,7 +10,7 @@ their previous residual estimate (priority-queue semantics); active entries
 are *replaced* with the freshly measured residual.  The partial
 renormalisation (eq. 38) preserves the inactive topics' mass.
 
-The residual segment sums go through ``em.segment_sum``, whose order is
+The residual segment sums go through ``gs_sweep.segment_sum``, whose order is
 fixed on every device: a flipped last bit in r_w(k) could change an active
 set, and with it the rest of the minibatch.  The topic-shift detector comes
 with the lifelong slice.
@@ -21,15 +21,25 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.em import segment_sum
 from repro_torch.core.types import LDAConfig, SchedulerState
+from repro_torch.kernels.gs_sweep import segment_sum
+
+
+#: Entries per sort call in ``_top_ids``: a whole (W, K/mp) residual slice
+#: at the stream_1k width (3.5·10⁸ entries) would take 4 GB of sort output.
+SORT_BLOCK = 1 << 24
 
 
 def _top_ids(r: torch.Tensor, k: int) -> torch.Tensor:
     """Ids of the ``k`` largest entries along the last axis, the lower id
     first among equal values — ``jax.lax.top_k``'s order.  ``torch.topk``
     promises no order on ties, so this is a stable descending sort.  Ties
-    are common: all-equal scheduler rows and all-zero residual rows."""
+    are common: all-equal scheduler rows and all-zero residual rows.  Rows
+    are sorted ``SORT_BLOCK`` entries at a time."""
+    if r.ndim > 1 and r.numel() > SORT_BLOCK:
+        rows = max(1, SORT_BLOCK // (r.numel() // r.shape[0]))
+        return torch.cat([_top_ids(r[i:i + rows], k)
+                          for i in range(0, r.shape[0], rows)])
     return torch.sort(r, dim=-1, descending=True, stable=True).indices[..., :k]
 
 

@@ -18,7 +18,7 @@ the same.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -167,14 +167,19 @@ def from_numpy(state, device="cpu"):
 class SweepPlan:
     """Execution plan for ``kernels.ops.sweep`` — where and how a sweep runs.
 
-    ``axis_name`` names the mesh axis of a topic-sharded sweep, which this
-    slice of the port refuses (``ops.sweep`` raises ``ContractError``): the
-    sharded engine comes with the port's sharded slice.  An unsharded plan
-    changes nothing: CUDA tensors run the Hopper kernels, CPU tensors their
-    plain PyTorch versions.
+    ``axis_name`` is the model axis of a topic-sharded sweep: the
+    ``launch.mesh.MeshAxis`` ``mesh.model`` of the rank's mesh, which
+    carries the process group that the JAX package names by a string
+    (a string is refused with ``ContractError``).  With it set, the sweep
+    runs the two-phase engine on the rank's K/mp topic lanes
+    (``ops.sweep``); the JAX package's per-column psum hooks mode
+    (``two_phase=False``) is not ported yet.  Without it the plan changes
+    nothing.  Either way CUDA tensors run the Hopper kernels and CPU tensors
+    their plain PyTorch versions: the JAX package's ``impl`` choice has no
+    counterpart.
     """
 
-    axis_name: Optional[str] = None
+    axis_name: Optional[Any] = None   # launch.mesh.MeshAxis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,12 +189,13 @@ class InferPlan:
     ``phi_dtype`` picks the *storage* dtype of the frozen, read-only φ
     block: ``"float32"`` (default), ``"bfloat16"``, or ``"int8"`` with
     symmetric per-row scales (``theta_sweep.quantize_phi``); the kernel
-    dequantizes on read and computes in float32.  ``axis_name`` names the
-    mesh axis of a topic-sharded plan, which this slice of the port refuses
-    (``ops.infer`` raises): sharded inference comes with the sharded slice.
+    dequantizes on read and computes in float32.  ``axis_name`` is the
+    model axis (``launch.mesh.MeshAxis``) of a topic-sharded fit, which
+    runs in plain PyTorch with its reductions over that axis (see
+    ``ops.infer``) and takes float32 φ only.
     """
 
-    axis_name: Optional[str] = None
+    axis_name: Optional[Any] = None   # launch.mesh.MeshAxis
     phi_dtype: str = "float32"  # float32 | bfloat16 | int8
 
     def __post_init__(self):

@@ -7,11 +7,15 @@ header is compiled, so a build takes seconds.  The build happens at first
 use, on the machine with the card, into ``_build/`` next to this file
 (listed in ``.gitignore``); the library's name carries a hash of its source,
 the shared headers and the flags, so an edited source is rebuilt.  Nothing
-here runs at import time.
+here runs at import time.  Several processes may build at once — the ranks
+of a ``launch.mesh.spawn_mesh`` — so :func:`build` holds an exclusive
+``fcntl`` lock on ``_build/.lock`` while it looks for and compiles
+libraries: the first process builds, the others find the libraries built.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -28,7 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: Every CUDA source of the port, by kernel name.
-KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep")
+KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep", "sharded_sweep")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -62,6 +66,12 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
     The compiler's resource report (``-Xptxas -v``) is kept beside each
     library as ``<library>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when the file closes
+        return _build_locked(names)
+
+
+def _build_locked(names: Sequence[str]) -> Dict[str, float]:
     jobs = {}
     out = {}
     for name in names:

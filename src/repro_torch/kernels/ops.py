@@ -9,9 +9,14 @@ the port of ``repro.analysis.validate``):
   ``foem`` warm-up and scheduled sweeps, the streaming trainer through
   ``foem_minibatch``) routes through it.  Each call is one
   :func:`gs_sweep.gs_sweep` or :func:`scheduled_sweep.scheduled_sweep`
-  call: the Hopper kernel on the card, its plain version on the CPU.
+  call — or, under a topic-sharded plan, the two-phase engine
+  (:func:`sharded_sweep.sharded_probe`, one ``all_reduce``,
+  :func:`sharded_sweep.sharded_fold`, one ``all_reduce``, the exact
+  renorm): the Hopper kernels on the card, their plain versions on the CPU.
 * :func:`infer` — the frozen-φ serving fit, in chunks of one
-  :func:`theta_sweep.theta_sweep` call each, with its convergence stop.
+  :func:`theta_sweep.theta_sweep` call each, with its convergence stop; a
+  topic-sharded plan runs the fit in plain PyTorch with its reductions over
+  the model axis.
 """
 from __future__ import annotations
 
@@ -21,8 +26,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import InferPlan, InferResult, SweepPlan, SweepResult
-from repro_torch.kernels.gs_sweep import gs_sweep
+from repro_torch.kernels.gs_sweep import gs_sweep, segment_sum
 from repro_torch.kernels.scheduled_sweep import scheduled_sweep
+from repro_torch.kernels.sharded_sweep import (
+    sharded_fold,
+    sharded_probe,
+    token_lane_masks,
+)
 from repro_torch.kernels.theta_sweep import (
     PHI_DTYPES,
     quantize_phi,
@@ -48,6 +58,17 @@ def _require(ok: bool, msg: str) -> None:
 def _is_int(t: torch.Tensor) -> bool:
     return not (t.dtype.is_floating_point or t.dtype.is_complex
                 or t.dtype == torch.bool)
+
+
+def _check_plan(plan) -> None:
+    """A sharded plan names its model axis by a ``launch.mesh.MeshAxis``."""
+    axis = getattr(plan, "axis_name", None)
+    _require(
+        axis is None or hasattr(axis, "all_reduce"),
+        f"a topic-sharded plan takes the model axis of a launch.mesh.Mesh "
+        f"(mesh.model), which carries its process group, not "
+        f"{type(axis).__name__} {axis!r}",
+    )
 
 
 def _check_word_topics(word_topics, num_rows: int, num_topics: int) -> None:
@@ -92,10 +113,11 @@ def validate_infer_args(
         phi_dtype in PHI_DTYPES,
         f"phi_dtype must be one of {PHI_DTYPES}, got {phi_dtype!r}",
     )
+    _check_plan(plan)
     _require(
-        plan is None or plan.axis_name is None,
-        "a topic-sharded InferPlan (axis_name set) is not ported yet: "
-        "sharded inference comes with the port's sharded slice",
+        plan is None or plan.axis_name is None or phi_dtype == "float32",
+        f"a topic-sharded InferPlan takes float32 phi, not {phi_dtype}: its "
+        "fit is plain PyTorch and quantization is a kernel storage format",
     )
     _require(
         word_ids.ndim == 2 and _is_int(word_ids),
@@ -148,15 +170,11 @@ def validate_sweep_args(
 
     Shape/dtype-only: no tensor value is read.
     """
-    _require(
-        plan is None or plan.axis_name is None,
-        "a topic-sharded SweepPlan (axis_name set) is not ported yet: the "
-        "sharded sweep engine comes with the port's sharded slice",
-    )
+    _check_plan(plan)
     _require(
         norm_psum is None and renorm_psum is None,
         "norm_psum/renorm_psum reduction hooks are not ported yet: they "
-        "come with the port's sharded slice",
+        "come with a later slice of the port, with the hooks mode",
     )
     _require(
         word_ids.ndim == 2 and _is_int(word_ids),
@@ -233,6 +251,37 @@ def _tensor(x) -> torch.Tensor:
     return torch.as_tensor(x)
 
 
+def _infer_chunk_sharded(word_ids, est_counts, ev_counts, theta, phi_norm,
+                         word_topics, *, alpha_m1, k_alpha, num_sweeps, axis):
+    """``num_sweeps`` frozen-φ Jacobi sweeps + the eq. 21 phase on the
+    rank's topic lanes, in plain PyTorch: the port of the JAX package's
+    ``ops._infer_chunk_portable`` with ``axis_name`` set.  The θ̂ normaliser
+    and the per-token μ normaliser are summed over the model ``axis`` every
+    sweep (two ``all_reduce``s), the θ̂ normaliser and the pre-log eq. 21
+    likelihood once more at the end of the chunk; ``k_alpha`` is the global
+    K·(α−1).  Returns the rank's θ̂ slice and both splits' per-token
+    log-likelihood partials (already reduced over the axis)."""
+    rows = phi_norm[word_ids.long()]                          # (D, L, K)
+    rows_fit = rows
+    if word_topics is not None:
+        rows_fit = rows * token_lane_masks(word_ids, word_topics,
+                                           rows.shape[-1])
+
+    def normalize(theta):
+        (den,) = axis.all_reduce(theta.sum(-1, keepdim=True))
+        return (theta + alpha_m1) / (den + k_alpha).clamp_min(1e-30)
+
+    for _ in range(num_sweeps):
+        num = normalize(theta)[:, None, :] * rows_fit         # (D, L, K)
+        (denom,) = axis.all_reduce(num.sum(-1, keepdim=True))
+        mu = num / denom.clamp_min(1e-30)
+        theta = torch.einsum("dlk,dl->dk", mu, est_counts)
+    (lik,) = axis.all_reduce(torch.einsum("dlk,dk->dl", rows,
+                                          normalize(theta)))
+    ll = torch.log(lik.clamp_min(1e-30))                      # full support
+    return theta, est_counts * ll, ev_counts * ll
+
+
 def infer(
     word_ids,                  # (D, L) int — rows into phi_norm
     est_counts,                # (D, L) estimation (80%) split counts
@@ -271,7 +320,17 @@ def infer(
     * ``plan.phi_dtype`` selects the serving *storage* dtype of the frozen
       φ block: ``"bfloat16"``/``"int8"`` quantize once, before the loop
       (``theta_sweep.quantize_phi``), and every chunk reads the same stored
-      values.  A sharded plan raises ``ContractError``.
+      values.
+    * ``plan.axis_name``, the model axis (``launch.mesh.MeshAxis``) of a
+      topic-sharded mesh, fits on the rank's K/mp lanes of θ̂ and φ: every
+      rank of the axis calls ``infer`` with its slices, the returned
+      ``theta`` is its slice and the logliks are already reduced over the
+      axis.  That fit is plain PyTorch on every device, with its
+      reductions as ``all_reduce``s (:func:`_infer_chunk_sharded`): the
+      θ-sweep kernel normalises each token over all K lanes inside one
+      launch, and that normaliser cannot be split across ranks — as in
+      the JAX package, where a sharded infer plan takes no Pallas kernel.
+      It takes float32 φ only.
     * ``word_ids`` outside [0, W_s) or ``word_topics`` outside [0, K)
       raise ``ContractError`` on every device, before any launch.
     """
@@ -306,10 +365,28 @@ def infer(
         word_topics = on_dev(word_topics, torch.int32)
     check_index_ranges(word_ids, word_topics, phi_norm.shape[0],
                        theta.shape[1])
-    # Quantize the frozen φ block ONCE, outside the loop: every chunk reads
-    # the same stored values.  The f32 path never touches phi_norm.
-    phi_store, phi_scale = quantize_phi(on_dev(phi_norm, torch.float32),
-                                        phi_dtype)
+    axis = plan.axis_name if plan is not None else None
+    if axis is not None:
+        phi_read = on_dev(phi_norm, torch.float32)
+        k_alpha = theta.shape[1] * axis.size * alpha_m1     # global K·(α−1)
+
+        def chunk(theta):
+            return _infer_chunk_sharded(
+                word_ids, est_counts, ev, theta, phi_read, word_topics,
+                alpha_m1=alpha_m1, k_alpha=k_alpha, num_sweeps=check_every,
+                axis=axis)
+    else:
+        # Quantize the frozen φ block ONCE, outside the loop: every chunk
+        # reads the same stored values.  The f32 path never touches
+        # phi_norm.
+        phi_store, phi_scale = quantize_phi(on_dev(phi_norm, torch.float32),
+                                            phi_dtype)
+
+        def chunk(theta):
+            return theta_sweep(
+                word_ids, est_counts, ev, theta, phi_store, word_topics,
+                phi_scale, alpha_m1=alpha_m1, num_sweeps=check_every,
+            )
 
     ntok_est = est_counts.sum().clamp_min(1.0)
     last_ppl = torch.tensor(float("inf"), device=dev)
@@ -317,10 +394,7 @@ def infer(
     ev_ll_tok = torch.zeros_like(est_counts)
     sweeps = 0
     for _ in range(n_chunks):
-        theta, est_ll_tok, ev_ll_tok = theta_sweep(
-            word_ids, est_counts, ev, theta, phi_store, word_topics,
-            phi_scale, alpha_m1=alpha_m1, num_sweeps=check_every,
-        )
+        theta, est_ll_tok, ev_ll_tok = chunk(theta)
         sweeps += check_every
         est_ll = est_ll_tok.sum()
         if rel_tol > 0:
@@ -335,6 +409,80 @@ def infer(
         ev_loglik=ev_ll_tok.sum(),
         ev_loglik_doc=ev_ll_tok.sum(-1),
     )
+
+
+def _assemble_sharded_loglik(counts, u_glob, th_den):
+    """The stop-rule value from the reduced pieces: the log AFTER the
+    cross-shard sum, counts-weighted over the rank's tokens."""
+    lik = (u_glob / th_den[:, None]).clamp_min(1e-30)
+    return (counts * torch.log(lik)).sum()
+
+
+def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
+                     token_active, *, alpha_m1, beta_m1, wb, axis,
+                     compute_loglik) -> SweepResult:
+    """The two-phase sharded sweep (the JAX package's
+    ``ops._sweep_two_phase``), on the rank's K/mp topic lanes:
+
+      A. :func:`sharded_probe` → the rank's (D, L) normaliser partials
+      B. ONE ``all_reduce`` of the stacked partials over the model ``axis``
+      C. :func:`sharded_fold` consuming them (own share live, peers' one
+         phase stale)
+      D. one more ``all_reduce`` of the live masses (+ the pre-log loglik
+         partials and Σθ̂ with ``compute_loglik``) and the exact renorm
+         folded into the statistics: dense Σ_k μ = 1 over all ranks,
+         scheduled eq. 38's global target; the φ̂ correction is the
+         deterministic :func:`segment_sum` over the rank's W rows, and
+         φ̂(k) the sum of the corrected rows.
+    """
+    scheduled = word_topics is not None
+    D, L, K = mu.shape
+    kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb)
+    # ---- phase A: probe (Jacobi, sweep-start stats) ----
+    s, pm = sharded_probe(word_ids, counts, mu, theta, phi_wk, phi_k,
+                          word_topics, token_active, **kw)
+    # ---- phase B: one reduction of the normaliser partials ----
+    if scheduled:
+        s_glob, pm_glob = axis.all_reduce(s, pm)
+    else:
+        (s_glob,), pm_glob = axis.all_reduce(s), None
+    remainder = s_glob - s          # peers' share; own share stays live
+    # ---- phase C: shard-local Gauss-Seidel fold ----
+    mu_new, res, theta_o, phi_o, ptot_o, live, u = sharded_fold(
+        word_ids, counts, mu, theta, phi_wk, phi_k, remainder, pm_glob,
+        word_topics, token_active, **kw, emit_loglik=compute_loglik)
+    del s, s_glob, remainder
+    # ---- phase D: exact renorm + stop-rule assembly (one reduction) ----
+    ll = None
+    if compute_loglik:
+        th_den = theta_o.sum(-1) + K * alpha_m1   # → global Σθ̂ + K(α−1)
+        live_glob, u_glob, th_den = axis.all_reduce(live, u, th_den)
+        ll = _assemble_sharded_loglik(counts, u_glob, th_den)
+    else:
+        (live_glob,) = axis.all_reduce(live)
+    if scheduled:
+        # rescale the active lanes' mass to eq. 38's exact global target:
+        # μ + mask·μ·(scale − 1), the mask's zeros written in place
+        scale = pm_glob / live_glob.clamp_min(1e-30)          # (D, L)
+        corr = mu_new * (scale[..., None] - 1.0)
+        corr.mul_(token_lane_masks(word_ids, word_topics, K, token_active))
+        mu_corr = mu_new + corr
+        del corr
+    else:
+        scale = 1.0 / live_glob.clamp_min(1e-30)
+        mu_corr = mu_new * scale[..., None]
+    # Δ = x·(μ_corr − μ) into μ's own (dead) buffer: one (D, L, K) fewer
+    delta = torch.sub(mu_corr, mu_new, out=mu_new).mul_(counts[..., None])
+    theta_o = theta_o + delta.sum(1)
+    phi_o.add_(segment_sum(delta.reshape(D * L, K), word_ids,
+                           phi_wk.shape[0]))
+    # φ̂(k) re-summed from the rows (accumulated in float64, rounded once),
+    # where the JAX package adds the correction to the fold's running
+    # total: a topic's per-column adds round alike in float32 against its
+    # large total, so the running total drifts from the rows, sweep after
+    # sweep, by more than a random walk would
+    ptot_o = phi_o.sum(0, dtype=torch.float64).to(phi_o.dtype)
+    return SweepResult(mu_corr, theta_o, phi_o, ptot_o, res, ll)
 
 
 def sweep(
@@ -372,9 +520,17 @@ def sweep(
     * Argument contracts are checked eagerly (``ContractError``): shapes
       and dtypes, and — unless ``check_indices=False``, for a caller that
       has checked them already — ``word_ids`` in [0, W_s) and
-      ``word_topics`` in [0, K), at one device sync.  A sharded ``plan``
-      and the ``norm_psum``/``renorm_psum`` hooks are refused: they come
-      with the sharded slice.
+      ``word_topics`` in [0, K), at one device sync.
+    * ``plan.axis_name``, the model axis (``launch.mesh.MeshAxis``) of a
+      topic-sharded mesh: every rank of the axis calls ``sweep`` with its
+      K/mp lanes of μ, θ̂, φ̂ and φ̂(k) (and, scheduled, its shard-local
+      active lanes), and the two-phase engine runs
+      (:func:`_sweep_two_phase`): probe kernel, one ``all_reduce``, fold
+      kernel, one ``all_reduce``, exact renorm.  ``compute_loglik`` then
+      gives the global-over-lanes eq. 3 loglik of the rank's documents.
+      The raw ``norm_psum``/``renorm_psum`` hooks of the JAX package's
+      per-column hooks mode are not ported yet and raise
+      ``ContractError``.
     * The process-wide fault plan's ``PRE_PROBE`` point fires first
       (``runtime.faults.fire_active``).
     """
@@ -407,6 +563,11 @@ def sweep(
     if check_indices:
         check_index_ranges(word_ids, word_topics, phi_wk.shape[0],
                            mu.shape[-1])
+    if plan is not None and plan.axis_name is not None:
+        return _sweep_two_phase(
+            word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
+            token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
+            axis=plan.axis_name, compute_loglik=compute_loglik)
     kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
               emit_loglik=compute_loglik)
     args = (word_ids, counts, mu, theta, phi_wk, phi_k)

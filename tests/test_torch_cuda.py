@@ -17,6 +17,12 @@ column, with and without the stop-rule phase; they, the PyTorch segment
 sums of the trainer (``fold_phi``, ``residuals_from_sweep``,
 ``scheduler_update_from_sweep``) and a short training run with prefetch on
 and off must be bitwise repeatable on the card.
+
+The sharded sweep's kernels (``sharded_probe``, ``sharded_fold``) are held
+against their plain versions at an odd shard width K/mp, A/mp = 1 and
+A/mp = K/mp, with duplicate words in a column and injected cross-shard
+remainders; two launches give the same bits; with remainder 0 the fold is
+the ``gs_sweep``/``scheduled_sweep`` kernel.
 """
 import numpy as np
 import pytest
@@ -29,6 +35,12 @@ from repro_torch.kernels.gs_sweep import gs_sweep, gs_sweep_reference
 from repro_torch.kernels.scheduled_sweep import (
     scheduled_sweep,
     scheduled_sweep_reference,
+)
+from repro_torch.kernels.sharded_sweep import (
+    sharded_fold,
+    sharded_fold_reference,
+    sharded_probe,
+    sharded_probe_reference,
 )
 from repro_torch.kernels.theta_sweep import (
     SMEM_BUDGET,
@@ -312,3 +324,99 @@ def test_training_prefetch_bitwise_on_card(cuda, tmp_path):
         out.append((store.dense_phi().copy(), store.phi_k.copy()))
     np.testing.assert_array_equal(out[0][0], out[1][0])
     np.testing.assert_array_equal(out[0][1], out[1][1])
+
+
+# ---------------------------------------------------------------------------
+# The two-phase sharded sweep's kernels
+# ---------------------------------------------------------------------------
+
+def _sharded_inputs(D, L, K, W, A, dev, seed=0):
+    """``_sweep_inputs`` plus the cross-shard columns: peers' numerator
+    sums (remainder) and, scheduled, a global prev mass above the local."""
+    args = _sweep_inputs(D, L, K, W, A, dev, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    rem = torch.from_numpy(rng.gamma(1.0, 0.05, (D, L)).astype(np.float32))
+    pm = None
+    if A:
+        pm = sharded_probe_reference(*args[:6], *args[6:], **SWEEP_KW)[1]
+        pm = pm + torch.from_numpy(
+            rng.random((D, L)).astype(np.float32) * 0.5).to(dev)
+    return args, rem.to(dev), pm
+
+
+def _fold_args(args, rem, pm):
+    return (*args[:6], rem, pm, *args[6:])
+
+
+@pytest.mark.parametrize("D,L,K,W,A", [
+    (7, 9, 13, 5, 0),          # odd K/mp, many duplicates per column
+    (33, 6, 625, 40, 0),       # stream_1k over 16 ranks: K/mp not /32
+    (16, 8, 257, 9, 1),        # A/mp = 1
+    (10, 5, 48, 6, 48),        # A/mp = K/mp
+    (40, 7, 2500, 30, 4),      # stream_1k over 4 ranks
+])
+@pytest.mark.parametrize("loglik", [False, True])
+def test_sharded_kernels_match_plain(cuda, D, L, K, W, A, loglik):
+    args, rem, pm = _sharded_inputs(D, L, K, W, A, cuda, seed=K + A)
+    before = sharded_probe.launches
+    got = sharded_probe(*args, **SWEEP_KW)
+    torch.cuda.synchronize()
+    assert sharded_probe.launches == before + 1
+    want = sharded_probe_reference(*args, **SWEEP_KW)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=1e-6)
+    if A:
+        torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=1e-6)
+    before = sharded_fold.launches
+    fargs = _fold_args(args, rem, pm)
+    got = sharded_fold(*fargs, **SWEEP_KW, emit_loglik=loglik)
+    torch.cuda.synchronize()
+    assert sharded_fold.launches == before + 1
+    want = sharded_fold_reference(*fargs, **SWEEP_KW, emit_loglik=loglik)
+    _check_sweep(got[:5] + (None,), want[:5] + (None,))
+    torch.testing.assert_close(got[5], want[5], rtol=2e-5, atol=1e-6,
+                               msg="live mass")
+    if loglik:
+        torch.testing.assert_close(got[6], want[6], rtol=2e-5, atol=0.0,
+                                   msg="loglik u")
+    else:
+        assert got[6] is None
+
+
+@pytest.mark.parametrize("A", [0, 4])
+def test_sharded_kernels_bitwise_repeatable(cuda, A):
+    args, rem, pm = _sharded_inputs(64, 12, 777, 8, A, cuda, seed=3)
+    for fn, a in ((sharded_probe, args),
+                  (sharded_fold, _fold_args(args, rem, pm))):
+        kw = dict(SWEEP_KW, emit_loglik=True) if fn is sharded_fold \
+            else SWEEP_KW
+        x, y = fn(*a, **kw), fn(*a, **kw)
+        for p, q in zip(x, y):
+            assert (p is None and q is None) or torch.equal(p, q)
+
+
+@pytest.mark.parametrize("A", [0, 3])
+def test_sharded_fold_zero_remainder_is_the_sweep_kernel(cuda, A):
+    """remainder 0 and the local prev mass: the fold kernel gives what the
+    unsharded sweep kernel gives, within the sweep tolerance."""
+    args = _sweep_inputs(24, 9, 301, 7, A, cuda, seed=9)
+    zero = torch.zeros_like(args[1])
+    pm = sharded_probe(*args, **SWEEP_KW)[1]
+    got = sharded_fold(*_fold_args(args, zero, pm), **SWEEP_KW)
+    want = (scheduled_sweep if A else gs_sweep)(*args, **SWEEP_KW)
+    _check_sweep(got[:5] + (None,), want[:5] + (None,))
+
+
+@pytest.mark.parametrize("A", [0, 3])
+def test_sharded_fold_zero_count_slots_inert(cuda, A):
+    args, rem, pm = _sharded_inputs(12, 6, 100, 7, A, cuda, seed=5)
+    cnt = args[1]
+    cnt[:4] = 0.0
+    mu, res, theta, phi, ptot, live, _ = sharded_fold(
+        *_fold_args(args, rem, pm), **SWEEP_KW)
+    assert float(res[cnt == 0].abs().max()) == 0.0
+    torch.testing.assert_close(theta[:4], args[3][:4], rtol=0, atol=0)
+    torch.testing.assert_close(phi.sum(0), ptot, rtol=1e-5, atol=1e-3)
+    if A:
+        act = args[7]
+        assert torch.equal(mu[~act], args[2][~act])
+        assert float(live[~act].abs().max()) == 0.0

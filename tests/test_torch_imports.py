@@ -5,8 +5,9 @@
 * No file of the port, nor ``chip_smoke.py``, has an import statement
   naming ``jax``/``jaxlib`` or ``repro``.
 * The entry points — serving (``TopicServer``, ``ops.infer``, the serve
-  CLI) and training (``FOEMTrainer``, ``ops.sweep``, ``foem_minibatch``,
-  the train CLI) — default to ``device="cuda"`` and raise on a host
+  CLI), training (``FOEMTrainer``, ``ops.sweep``, ``foem_minibatch``,
+  the train CLI) and the sharded step's meshes (``make_host_mesh``,
+  ``spawn_mesh``) — default to ``device="cuda"`` and raise on a host
   without a GPU instead of falling back to the CPU.
 """
 import ast
@@ -51,7 +52,30 @@ def test_port_modules_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15     # every module was walked
+    assert int(out.stdout.strip()) >= 17     # every module was walked
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.launch.mesh",
+    "repro_torch.core.foem_sharded",
+    "repro_torch.kernels.sharded_sweep",
+])
+def test_sharded_slice_modules_stand_alone(name):
+    """The sharded slice's modules import without JAX, and the kernel's
+    CUDA source is one of the build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.kernels import build\n"
+        "assert 'sharded_sweep' in build.KERNELS\n"
+        "assert (build.CSRC / 'sharded_sweep.cu').exists()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -140,3 +164,15 @@ def test_cuda_tensors_never_fall_back():
     with pytest.raises(ValueError, match="cuda or cpu"):
         gs_sweep(t.int(), t, t[..., None], t, t, t[0], alpha_m1=0.01,
                  beta_m1=0.01, wb=1.0)
+
+
+def test_sharded_entry_points_default_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.launch.mesh import make_host_mesh, spawn_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn_mesh(print, 1, 2)
+    assert make_host_mesh(device="cpu").device.type == "cpu"

@@ -35,7 +35,17 @@ order:
 6. drives the topic-sharded path — ``foem_step_sharded`` on a
    (data = 1, model = 4) mesh of four ranks sharing the card
    (``spawn_mesh``, gloo), two minibatches, then
-   ``heldout_perplexity_sharded`` on 256 held-out documents.
+   ``heldout_perplexity_sharded`` on 256 held-out documents;
+7. holds the two E-step kernels of the coarse-block / scan sweeps, BEM and
+   SEM (``fused_estep``, ``topk_estep``) against their plain versions at
+   the stream_1k width: a block of ``iem_blocks=8`` (T = 16,384 tokens)
+   with the exclusion, SEM's T = 131,072 tokens without it, a ragged T;
+   A = 16 active lanes with pad lanes and inactive tokens;
+8. drives the coarse-block and SEM paths on the same store —
+   ``FOEMTrainer(device="cuda")`` with ``iem_blocks=8`` for two minibatches,
+   one with ``sweep_impl="scan"``, one more blocked step under
+   ``torch.profiler``, then ``algorithm="sem"`` for two minibatches — and
+   serves the held-out batch from the trained store.
 
 Each path's kernel launch counters are set to 0 just before it and read
 just after.  Any failed check exits non-zero before the result lines.  The
@@ -110,6 +120,22 @@ MU_SUM_ATOL = 1e-5          # dense sum_k mu over the 4 ranks against 1:
 MASS_RTOL = {"phi_rows_mass_growth": 1e-4, "phi_k_mass_growth": 1e-4}
 DRIFT64_ATOL = 1e-3         # tokens: the float64 fold's phi_k drift, a
 # difference of float64 sums of ~1.3e8 tokens (ulp 1.5e-8)
+IEM_BLOCKS = 8              # the coarse-block cells: L = 128 in 8 blocks
+# E-step kernel vs plain tolerances (rtol, atol) and why.
+ESTEP_TOL = {"mu": (1e-5, 1e-6), "residual": (1e-5, 1e-5),
+             "delta": (1e-5, 1e-6)}
+ESTEP_TOL_REASON = (
+    "one E-step: mu = num / sum over K = 1e4 (A = 16) float32 terms summed "
+    "in another order, a few 1e-7 relative apart (rtol 1e-5); mu is a "
+    "probability (atol 1e-6); residual = counts*|mu - mu_old| and delta = "
+    "counts*(mu - mu_prev) carry mu's error times up to 4 tokens (atol "
+    "1e-5 / 1e-6)")
+STEP_MASS_RTOL = 1e-4       # rows' growth against the step's tokens: float32
+# row sums of ~25,000 rows (as MASS_RTOL)
+PHI_K_ROWS_ATOL = 1.0       # tokens: the FOEM store's phi_k growth against
+# its rows' growth, both float64 sums of the same float32 increments
+SEM_PHI_K_RTOL = 1e-4       # SEM stores the JAX package's float32 phi_k
+# (its total cast to float32 and the minibatch's float32 sum added)
 
 
 class SmokeFailure(RuntimeError):
@@ -133,6 +159,31 @@ def cuda_time_ms(fn, reps: int) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_graph_time_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed between two events, so the host's cost of each call
+    (checks, allocations, the launch) drops out.  Each call's outputs are
+    dropped before the next, so the graph's pool reuses their memory."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()                          # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    torch.cuda.empty_cache()
     return start.elapsed_time(end) / reps
 
 
@@ -162,6 +213,16 @@ def device_profile(torch, fn):
     busy_us += 0.0 if cur is None else cur[1] - cur[0]
     by_op = dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
     return out, wall_ms, by_op, busy_us / 1e3
+
+
+def top_ops(by_op: dict, n: int) -> dict:
+    """The ``n`` largest device times by operation, names cut to 80
+    characters; the times of names that the cut makes equal (template
+    variants of one kernel) are summed."""
+    out = {}
+    for name, ms in by_op.items():
+        out[name[:80]] = out.get(name[:80], 0.0) + ms
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
 
 
 def errors(got, want) -> dict:
@@ -361,8 +422,7 @@ def serving_phase(torch, store, gen, report):
                 "sweeps": srv.last_sweeps,
                 "device_busy_ms": busy_ms if by_op else None,
                 "device_busy_share": busy_ms / wall_ms if by_op else None,
-                "device_ms_by_op": {k[:80]: v for k, v in
-                                    list(by_op.items())[:10]}}
+                "device_ms_by_op": top_ops(by_op, 10)}
     print("profiled batch " + json.dumps(profiled) if by_op else
           "profiled batch: device time not measured (no device events)")
     est, ev = split_heldout_counts(c, np.random.default_rng(5))
@@ -600,8 +660,7 @@ def training_phase(torch, store, report):
                 "device_busy_ms": busy_ms if by_op else None,
                 "device_busy_share": busy_ms / wall_ms if by_op else None,
                 "device_ms_by_group": groups,
-                "device_ms_by_op": {k[:80]: v for k, v in
-                                    list(by_op.items())[:12]}}
+                "device_ms_by_op": top_ops(by_op, 12)}
     print("profiled training step " + json.dumps(profiled) if by_op else
           "profiled training step: device time not measured "
           "(no device events)")
@@ -899,8 +958,7 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
                 torch, step)
             prof = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                     "device_busy_share": busy_ms / wall_ms if by_op else None,
-                    "device_ms_by_op": {k[:80]: v for k, v in
-                                        list(by_op.items())[:10]}}
+                    "device_ms_by_op": top_ops(by_op, 10)}
         else:
             stats, ppl, sweeps = step()
         torch.cuda.synchronize()
@@ -1017,6 +1075,340 @@ def sharded_training_phase(torch, cap, report):
     report["sharded_training"] = rec
 
 
+def _estep_bound(T, K, D, exclude, residual) -> tuple:
+    """Least time of one fused_estep call: φ̂ rows (and exclude, μ_old) in,
+    μ (and the residual) out, θ̂ (D, K) once, φ̂(k) and counts; ≈ 12
+    float32 operations per (token, topic)."""
+    slabs = 2 + (1 if exclude else 0) + (2 if residual else 0)
+    nbytes = slabs * T * K * 4 + D * K * 4 + K * 4 + T * 4
+    return _bound(nbytes, 12 * T * K)
+
+
+def estep_kernel_phase(torch, dev, store, report):
+    """Both E-step kernels against their plain versions at the stream_1k
+    width: one 1,024 × 128 minibatch from the store with a fresh μ folded
+    in; a block of iem_blocks = 8 (16 columns, T = 16,384) with the
+    exclusion and θ̂ one row per document, SEM's T = 131,072 without it, a
+    ragged T; then the active-set E-step at A = 16 on both T."""
+    import numpy as np
+
+    from repro_torch.core import em, scheduling
+    from repro_torch.core.types import uniform_responsibilities
+    from repro_torch.kernels.foem_estep import (
+        fused_estep, fused_estep_reference,
+    )
+    from repro_torch.kernels.topk_estep import (
+        topk_estep, topk_estep_reference,
+    )
+    from repro_torch.launch.serve import TrafficGenerator
+    from repro_torch.sparse import MinibatchStream
+
+    gen = TrafficGenerator(vocab_size=store.capacity, doc_len=DOC_LEN,
+                           seed=23)
+    mb = next(iter(MinibatchStream(gen.corpus(D_TRAIN), D_TRAIN,
+                                   bucket_len=L_TRAIN, seed=0)))
+    D, L, K = D_TRAIN, L_TRAIN, K_FULL
+    Ws = len(mb.local_vocab)
+    wid = torch.from_numpy(mb.local_word_ids).to(dev)
+    cnt = torch.from_numpy(mb.counts).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    mu = uniform_responsibilities(g, (D, L, K))
+    theta = em.fold_theta(mu, cnt)
+    phi = torch.from_numpy(store.fetch_rows(mb.local_vocab)).to(dev)
+    phi += em.fold_phi(mu, cnt, wid, Ws)[0]
+    ptot = phi.sum(0)
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=W_FULL * 0.01)
+    blk = L // IEM_BLOCKS
+    print(f"estep kernel shapes: D={D} L={L} K={K} W_s={Ws} block "
+          f"columns={blk} (iem_blocks={IEM_BLOCKS}) A={A_SCHED}")
+    print(f"estep tolerance (rtol, atol): {json.dumps(ESTEP_TOL)}: "
+          f"{ESTEP_TOL_REASON}")
+    lines = []
+
+    def compare(name, fn, ref, args, fkw, outs, bound):
+        got = fn(*args, **fkw)
+        torch.cuda.synchronize()
+        want = ref(*args, **fkw)
+        errs = {}
+        for key, a, b in zip(outs, got, want):
+            if a is not None:
+                errs[key] = _check_close(name, key, a, b, ESTEP_TOL[key])
+        del want
+        again = fn(*args, **fkw)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)
+                  if x is not None),
+              f"{name}: two launches on the same inputs differ")
+        del again
+        ms = cuda_time_ms(lambda: fn(*args, **fkw), 5)
+        plain_ms = cuda_time_ms(lambda: ref(*args, **fkw), 1)
+        # ms above is the wrapper's rate, which the host sets when the
+        # kernel is short; graph_ms is the kernel's own device time
+        graph_ms = cuda_graph_time_ms(lambda: fn(*args, **fkw),
+                                      2 if args[1].numel() > 1 << 28 else 5)
+        rec = {"variant": name, "kernel": fn.__name__, "ms": ms,
+               "graph_ms": graph_ms,
+               "plain_ms": plain_ms, "bound_ms": bound[0],
+               "bound_by": bound[1], "errors": errs, "bitwise_repeat": True}
+        lines.append(rec)
+        return got, rec
+
+    # the first block of an iem_blocks = 8 sweep: T = D·blk tokens, the
+    # exclusion x·μ_old, θ̂ one row per document (G = blk)
+    T = D * blk
+    mu_b = mu[:, :blk].reshape(T, K)
+    cnt_b = cnt[:, :blk].reshape(T).contiguous()
+    ex = cnt_b[:, None] * mu_b
+    rows = phi[wid[:, :blk].reshape(T).long()]
+    args = (theta, rows, ptot, ex, mu_b, cnt_b)
+    full, rec = compare(f"T={T} exclude, G={blk}, with residual", fused_estep,
+                        fused_estep_reference, args, kw,
+                        ("mu", "residual"), _estep_bound(T, K, D, True, True))
+    print("estep kernel " + json.dumps(rec))
+    # the blocked sweep's own call: no μ_old, no residual
+    main_args = (theta, rows, ptot, ex, None, None)
+    got, rec = compare(f"T={T} exclude, G={blk} (blocked sweep's call)",
+                       fused_estep, fused_estep_reference, main_args,
+                       kw, ("mu", "residual"),
+                       _estep_bound(T, K, D, True, False))
+    check(torch.equal(got[0], full[0]),
+          "fused_estep: mu without the residual differs from mu with it")
+    rec["mu_equals_residual_form"] = True
+    print("estep kernel " + json.dumps(rec))
+    report["estep_main"] = rec
+    # a ragged T: 15,344 tokens (959 documents' blocks), a multiple of no
+    # power of two above 16
+    Tr = T - blk * (D // 16 + 1)
+    rag_args = (theta[:Tr // blk].contiguous(), rows[:Tr], ptot, ex[:Tr],
+                mu_b[:Tr], cnt_b[:Tr])
+    rag, rec = compare(f"T={Tr} ragged, exclude, G={blk}", fused_estep,
+                       fused_estep_reference, rag_args, kw,
+                       ("mu", "residual"), _estep_bound(Tr, K, D, True, True))
+    check(all(torch.equal(a, b[:Tr]) for a, b in zip(rag, full)),
+          "fused_estep: a row's bits depend on T")
+    rec["rows_equal_full_call"] = True
+    print("estep kernel " + json.dumps(rec))
+    del full, got, rag, args, main_args, rag_args, ex, rows, mu_b
+    torch.cuda.empty_cache()
+
+    # SEM's shape: all D·L tokens, no exclusion, θ̂ one row per document
+    T = D * L
+    rows = phi[wid.reshape(-1).long()]
+    cnt_f = cnt.reshape(-1)
+    args = (theta, rows, ptot, None, mu.reshape(T, K), cnt_f)
+    got, rec = compare(f"T={T} no exclude, G={L}, with residual",
+                       fused_estep, fused_estep_reference, args,
+                       kw, ("mu", "residual"),
+                       _estep_bound(T, K, D, False, True))
+    sem_mu = fused_estep(theta, rows, ptot, None, None, None, **kw)[0]
+    check(torch.equal(sem_mu, got[0]),
+          "fused_estep: SEM's call (no residual) differs from the full form")
+    rec["mu_equals_no_residual_form"] = True
+    print("estep kernel " + json.dumps(rec))
+    del got, sem_mu, args, rows
+    torch.cuda.empty_cache()
+
+    # the active-set E-step on word-level top-16 sets, with pad lanes
+    # (5% of lanes with no μ_prev and no θ̂ mass) and 20% inactive tokens
+    r = torch.rand((Ws, K), device=dev, generator=g)
+    wt = scheduling.select_active_topics(r, A_SCHED)
+    del r
+    topk_lines = []
+    for cols in (blk, L):
+        T = D * cols
+        top = wt[wid[:, :cols].long()].long()                  # (D, c, A)
+        doc = torch.arange(D, device=dev)[:, None, None].expand_as(top)
+        w3 = wid[:, :cols].long()[..., None].expand_as(top)
+        mu_a = mu[:, :cols].gather(-1, top).reshape(T, A_SCHED)
+        th_a = theta[doc, top].reshape(T, A_SCHED)
+        pad = torch.rand(mu_a.shape, device=dev, generator=g) < 0.05
+        mu_a = mu_a.masked_fill(pad, 0.0)
+        th_a = th_a.masked_fill(pad, 0.0)
+        c = cnt[:, :cols].reshape(T).contiguous()
+        act = (c > 0) & (torch.rand(T, device=dev, generator=g) > 0.2)
+        targs = (th_a, phi[w3, top].reshape(T, A_SCHED),
+                 ptot[top].reshape(T, A_SCHED), mu_a, c, act)
+        nbytes = 6 * T * A_SCHED * 4 + T * 4 + T
+        got, rec = compare(f"T={T} A={A_SCHED}", topk_estep,
+                           topk_estep_reference, targs, kw,
+                           ("mu", "delta"),
+                           _bound(nbytes, 15 * T * A_SCHED))
+        part = topk_estep(*[x[:T // 3].contiguous() for x in targs], **kw)
+        check(all(torch.equal(a, b[:T // 3]) for a, b in zip(part, got)),
+              "topk_estep: a token's bits depend on T")
+        check(torch.equal(got[0][~act], mu_a[~act]),
+              "topk_estep: an inactive token's mu moved")
+        rec.update(rows_equal_full_call=True, pad_lanes=int(pad.sum()),
+                   inactive_tokens=int((~act).sum()))
+        print("topk kernel " + json.dumps(rec))
+        topk_lines.append(rec)
+        del got, part, targs, top, doc, w3, mu_a, th_a
+    report["estep_lines"] = lines
+    report["topk_main"] = topk_lines[0]
+    del mu, theta, phi, ptot, wt
+    torch.cuda.empty_cache()
+
+
+def blocked_training_phase(torch, store, report):
+    """The coarse-block and SEM paths at the stream_1k width on the store:
+    FOEMTrainer with iem_blocks = 8 for two minibatches, one minibatch with
+    sweep_impl = "scan", one blocked step under the profiler, then
+    algorithm = "sem" for two minibatches; the held-out batch served from
+    the trained store.  Every step checks the mass its rows and the store's
+    φ̂(k) gained."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.core import foem
+    from repro_torch.core.trainer import FOEMTrainer
+    from repro_torch.core.types import MinibatchData
+    from repro_torch.kernels.foem_estep import fused_estep
+    from repro_torch.kernels.topk_estep import topk_estep
+    from repro_torch.launch.serve import TopicServer, TrafficGenerator
+    from repro_torch.sparse import MinibatchStream
+
+    base = lda_config(lda_shape("stream_1k"))
+    cfgs = {"blocked": dataclasses.replace(base, iem_blocks=IEM_BLOCKS),
+            "scan": dataclasses.replace(base, sweep_impl="scan"),
+            "sem": base}
+    gen = TrafficGenerator(vocab_size=store.capacity, doc_len=DOC_LEN,
+                           seed=29)
+    mbs = list(MinibatchStream(gen.corpus(6 * D_TRAIN), D_TRAIN,
+                               bucket_len=L_TRAIN, seed=0))
+    check(len(mbs) == 6, f"{len(mbs)} minibatches, not 6")
+    warm = max(1, base.warmup_sweeps)
+    trainers = {}
+
+    def trainer(kind):
+        if kind not in trainers:
+            trainers[kind] = FOEMTrainer(
+                cfgs[kind], store, seed=0, prefetch_depth=0,
+                algorithm="sem" if kind == "sem" else "foem", device="cuda")
+        return trainers[kind]
+
+    def rows_mass(mb):
+        return float(store.fetch_rows(mb.local_vocab).sum(dtype=np.float64))
+
+    lines = []
+
+    def run(kind, mb, profiled=False):
+        before = (rows_mass(mb), float(store.phi_k.sum()),
+                  fused_estep.launches, topk_estep.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer(kind)
+        prof = None
+        if profiled:
+            m, wall_ms, by_op, busy_ms = device_profile(
+                torch, lambda: tr.step(mb))
+            groups = {}
+            for name, v in by_op.items():
+                key = ("fused_estep" if "fused_estep_kernel" in name else
+                       "topk_estep" if "topk_estep_kernel" in name else
+                       "sorted folds (index_put_)"
+                       if "indexing_backward" in name or "RadixSort" in name
+                       else "memcpy HtoD" if "HtoD" in name else
+                       "memcpy DtoH" if "DtoH" in name else
+                       "memcpy DtoD" if "DtoD" in name else "other")
+                groups[key] = groups.get(key, 0.0) + v
+            prof = {"wall_ms": wall_ms,
+                    "device_busy_ms": busy_ms if by_op else None,
+                    "device_busy_share": busy_ms / wall_ms if by_op
+                    else None,
+                    "device_ms_by_group": groups,
+                    "device_ms_by_op": top_ops(by_op, 12)}
+        else:
+            m = tr.step(mb)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tokens = float(mb.counts.sum())
+        rows_growth = rows_mass(mb) - before[0]
+        phi_k_growth = float(store.phi_k.sum()) - before[1]
+        rec = {"path": kind, "step": m.step, "sweeps": m.sweeps,
+               "train_ppl": m.train_ppl, "seconds": m.seconds,
+               "fetch_s": m.fetch_seconds, "compute_s": m.compute_seconds,
+               "writeback_s": m.writeback_seconds,
+               "fused_estep_launches": fused_estep.launches - before[2],
+               "topk_estep_launches": topk_estep.launches - before[3],
+               "peak_device_gb": peak, "tokens": tokens,
+               "rows_mass_growth": rows_growth,
+               "phi_k_mass_growth": phi_k_growth,
+               "phi_k_minus_rows_growth": phi_k_growth - rows_growth}
+        if prof is not None:
+            rec["profiled"] = prof
+        label = "sem step " if kind == "sem" else "blocked train step "
+        print(label + json.dumps(rec))
+        lines.append(rec)
+        check(warm <= m.sweeps <= base.max_sweeps if kind != "sem"
+              else 1 <= m.sweeps <= base.max_sweeps,
+              f"{kind} step {m.step} ran {m.sweeps} sweeps")
+        check(np.isfinite(m.train_ppl) and 1.0 < m.train_ppl < base.W,
+              f"{kind} step {m.step} train perplexity {m.train_ppl}")
+        check(rec["fused_estep_launches"] > 0,
+              f"{kind} step {m.step} launched no fused_estep kernel")
+        if kind != "sem":
+            check(rec["topk_estep_launches"] > 0,
+                  f"{kind} step {m.step} launched no topk_estep kernel")
+        rel = abs(rows_growth - tokens) / tokens
+        check(rel <= STEP_MASS_RTOL,
+              f"{kind} step {m.step}: rows grew {rows_growth} for {tokens} "
+              f"tokens (relative {rel})")
+        if kind == "sem":
+            rel = abs(phi_k_growth - rows_growth) / tokens
+            check(rel <= SEM_PHI_K_RTOL,
+                  f"sem step {m.step}: phi_k grew {phi_k_growth}, the rows "
+                  f"{rows_growth} (relative {rel})")
+        else:
+            check(abs(phi_k_growth - rows_growth) <= PHI_K_ROWS_ATOL,
+                  f"{kind} step {m.step}: phi_k grew {phi_k_growth}, the "
+                  f"rows {rows_growth}")
+
+    # where the coarse blocks start: the first minibatch's perplexity
+    # after the warm-up sweeps alone, blocked and column-serial, from the
+    # μ₀ a fresh trainer draws (these calls are not the path's run)
+    mb = mbs[0]
+    rows = store.fetch_rows(mb.local_vocab)
+    warm_ppl = {}
+    for name, cfg in (("iem_blocks=8", cfgs["blocked"]),
+                      ("column-serial", base)):
+        gen0 = torch.Generator(device="cuda").manual_seed(0)
+        r = foem.foem_minibatch(
+            gen0, MinibatchData(mb.local_word_ids, mb.counts), rows,
+            store.phi_k.astype(np.float32),
+            dataclasses.replace(cfg, max_sweeps=warm),
+            vocab_size=base.W, device="cuda")
+        warm_ppl[name] = float(r.diag.final_train_ppl)
+        del r
+    del rows
+    print("blocked warm-up " + json.dumps(
+        {"warmup_sweeps": warm, "train_ppl_after_warmup": warm_ppl}))
+
+    fused_estep.launches = 0              # counts of the main path only
+    topk_estep.launches = 0
+    t0 = time.perf_counter()
+    for kind, mb, profiled in (("blocked", mbs[0], False),
+                               ("blocked", mbs[1], False),
+                               ("scan", mbs[2], False),
+                               ("blocked", mbs[3], True),
+                               ("sem", mbs[4], False),
+                               ("sem", mbs[5], False)):
+        run(kind, mb, profiled)
+    wall = time.perf_counter() - t0
+    launches = {"fused_estep": fused_estep.launches,
+                "topk_estep": topk_estep.launches}
+    check(all(v > 0 for v in launches.values()),
+          f"the blocked/SEM paths did not launch both E-step kernels "
+          f"{launches}")
+    w, est, ev = report["heldout"]
+    _, ppl = TopicServer(store, base, device="cuda").evaluate(w, est, ev)
+    check(np.isfinite(ppl) and 1.0 < ppl < base.W,
+          f"eq. 21 perplexity {ppl} of the trained store")
+    rec = {"steps": len(lines), "wall_s": wall, "launches": launches,
+           "served_eq21_ppl": ppl}
+    print("blocked/sem training " + json.dumps(rec))
+    report["blocked_training"] = dict(rec, lines=lines)
+
+
 def main() -> int:
     import torch
 
@@ -1057,9 +1449,11 @@ def main() -> int:
         sweep_kernel_phase(torch, dev, store, report)
         training_phase(torch, store, report)
         cap = report["store_capacity"]
-        del store
         sharded_kernel_phase(torch, dev, cap, report)
         sharded_training_phase(torch, cap, report)
+        estep_kernel_phase(torch, dev, store, report)
+        blocked_training_phase(torch, store, report)
+        del store
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
@@ -1129,6 +1523,30 @@ def main() -> int:
             "plain_ms": base["plain_ms"],
             "bound_ms": base["bound_ms"],
             "bound_by": base["bound_by"],
+            "library_ms": None,
+        })
+    for name, source, replaces, main, lines in (
+            ("fused_estep", "src/repro_torch/kernels/csrc/fused_estep.cu",
+             "src/repro/kernels/foem_estep.py:64", report["estep_main"],
+             [v for v in report["estep_lines"]
+              if v["kernel"] == "fused_estep"]),
+            ("topk_estep", "src/repro_torch/kernels/csrc/topk_estep.cu",
+             "src/repro/kernels/topk_estep.py:53", report["topk_main"],
+             [v for v in report["estep_lines"]
+              if v["kernel"] == "topk_estep"])):
+        # the blocked sweep's call at T = 16,384 (all calls are in the
+        # "estep kernel" / "topk kernel" lines); the error is μ's
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": report["blocked_training"]["launches"][name],
+            "max_abs_err": max(v["errors"]["mu"]["max_abs"] for v in lines),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
             "library_ms": None,
         })
     kernels = {"kernels": entries}

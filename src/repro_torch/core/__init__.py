@@ -1,9 +1,10 @@
 """Core library of the PyTorch port: the paper's EM for LDA.
 
 The typed containers, the E-step, folds and sweeps (``em``), the residual
-scheduler (``scheduling``), the FOEM inner loop (``foem``), the streaming
-trainer (``trainer``), held-out inference (§2.4 / eq. 21, ``perplexity``)
-and the disk-backed parameter store (``streaming``).
+scheduler (``scheduling``), the FOEM inner loop (``foem``), the SEM baseline
+(``sem``), the streaming trainer (``trainer``), held-out inference (§2.4 /
+eq. 21, ``perplexity``) and the disk-backed parameter store
+(``streaming``).
 """
 from repro_torch.core.types import (
     GlobalStats,
@@ -18,7 +19,7 @@ from repro_torch.core.types import (
     from_numpy,
     uniform_responsibilities,
 )
-from repro_torch.core import em, foem, perplexity, scheduling
+from repro_torch.core import em, foem, perplexity, scheduling, sem
 from repro_torch.core.streaming import (
     CacheStats,
     HotRowCache,
@@ -45,6 +46,7 @@ __all__ = [
     "foem",
     "perplexity",
     "scheduling",
+    "sem",
     "CacheStats",
     "FOEMTrainer",
     "HotRowCache",

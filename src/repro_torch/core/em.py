@@ -1,31 +1,41 @@
 """EM building blocks for LDA (PyTorch port of ``repro.core.em``).
 
 * ``estep``             — eq. (11)/(13): responsibilities from sufficient
-                          stats, with optional IEM self-exclusion.
+                          stats, with optional IEM self-exclusion, through
+                          the fused E-step kernel (``ops.fused_estep``).
 * ``fold_theta`` / ``fold_phi`` / ``fold_phi_delta`` — M-step folds.
-* ``blocked_iem_sweep`` / ``gs_sweep_with_residuals`` — the column-serial
-                          Gauss-Seidel sweep (paper Fig. 2 at B = L) through
-                          ``kernels.ops.sweep``.  Coarse blocks and the
-                          ``"scan"`` sweep are not ported yet and raise.
+* ``bem_sweep``         — one synchronous Jacobi sweep (paper Fig. 1).
+* ``blocked_iem_sweep`` / ``iem_sweep`` — paper Fig. 2: the token columns in
+                          B sequential blocks, each block's E-step vectorized
+                          (Jacobi) and its statistics folded before the next
+                          block reads them (Gauss-Seidel across blocks).  At
+                          B = L with ``sweep_impl="fused"`` one
+                          ``ops.sweep`` call (``gs_sweep_with_residuals``);
+                          coarse blocks and ``sweep_impl="scan"`` run the
+                          blocked scan over ``estep``.
+* ``bem_fit`` / ``iem_fit`` — whole-corpus drivers (tests, benchmarks).
 * ``normalize_theta`` / ``normalize_phi`` — eq. (9) / eq. (10).
 * ``map_log_likelihood`` / ``training_perplexity`` — eq. (3)'s data term.
+* ``iem_exact_numpy``   — the paper's serial per-non-zero IEM in NumPy; the
+                          oracle for tests.
 
-The segment sums (``fold_phi``, ``fold_phi_delta``) accumulate with
-``index_put_(accumulate=True)``, which adds duplicates in a fixed order on
-the CPU and, through a sort, on CUDA (``index_add_`` uses atomics there):
-the same inputs give the same bits on every run.
+The segment sums and the blocked scan's φ̂ fold go through
+``gs_sweep.segment_sum`` / ``gs_sweep.scatter_add_rows``, which add
+duplicates in a fixed order on every device (never with atomics): the same
+inputs give the same bits on every run.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import (
     LDAConfig, LocalState, MinibatchData, SweepPlan, SweepResult,
 )
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.gs_sweep import segment_sum
+from repro_torch.kernels.gs_sweep import scatter_add_rows, segment_sum
 
 
 # ---------------------------------------------------------------------------
@@ -35,26 +45,32 @@ from repro_torch.kernels.gs_sweep import segment_sum
 def estep(
     theta_rows: torch.Tensor,    # (D, 1|L, K) θ̂ broadcast over token slots
     phi_rows: torch.Tensor,      # (D, L, K)   φ̂ gathered at each token's word
-    phi_tot: torch.Tensor,       # (K,) or broadcastable — φ̂(k)
+    phi_tot: torch.Tensor,       # (K,) — φ̂(k)
     cfg: LDAConfig,
     *,
     exclude: Optional[torch.Tensor] = None,  # (D, L, K) counts·μ_old (eq. 13)
     vocab_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Responsibility update μ_{w,d}(k) — paper eq. (11) (BEM) / eq. (13)
-    (IEM).  Returns the *normalized* responsibilities, shape (D, L, K)."""
+    (IEM).  Returns the *normalized* responsibilities, shape (D, L, K).
+
+    One ``ops.fused_estep`` call over the D·L token rows on the tensors'
+    device: the fused E-step kernel on the card, its plain version on the
+    CPU.  A (D, 1, K) θ̂ goes in as one row per document (G = L tokens a
+    row), never broadcast to (D, L, K).
+    """
     W = cfg.W if vocab_size is None else vocab_size
-    th, ph, pt = theta_rows, phi_rows, phi_tot
-    if exclude is not None:
-        th = th - exclude
-        ph = ph - exclude
-        pt = pt - exclude
-    # stats are sums of non-negative terms, but subtraction can leave
-    # -1e-7s behind
-    th = th.clamp_min(0.0)
-    ph = ph.clamp_min(0.0)
-    num = (th + cfg.alpha_m1) * (ph + cfg.beta_m1) / (pt + W * cfg.beta_m1)
-    return num / num.sum(-1, keepdim=True).clamp_min(1e-30)
+    D, L, K = phi_rows.shape
+    if theta_rows.shape[1] not in (1, L):
+        raise ValueError(f"theta_rows must be (D, 1|L, K), got "
+                         f"{tuple(theta_rows.shape)}")
+    mu, _ = kops.fused_estep(
+        theta_rows.reshape(-1, K), phi_rows.reshape(D * L, K),
+        phi_tot.reshape(K),
+        None if exclude is None else exclude.reshape(D * L, K), None, None,
+        alpha_m1=cfg.alpha_m1, beta_m1=cfg.beta_m1, wb=W * cfg.beta_m1,
+    )
+    return mu.reshape(D, L, K)
 
 
 def gather_phi_rows(phi_wk: torch.Tensor,
@@ -103,15 +119,101 @@ def fold_phi_delta(
 # Sweeps
 # ---------------------------------------------------------------------------
 
-def _require_fused(cfg: LDAConfig, bucket_len: int,
-                   num_blocks: Optional[int] = None) -> None:
-    if cfg.resolve_blocks(bucket_len, num_blocks) != bucket_len \
-            or cfg.sweep_impl != "fused":
-        raise NotImplementedError(
-            "the port runs the column-serial fused sweep only (B = L, "
-            "sweep_impl='fused'); coarse blocks and the 'scan' sweep are "
-            "not ported yet"
-        )
+def bem_sweep(
+    batch: MinibatchData,
+    local: LocalState,
+    phi_wk: torch.Tensor,
+    phi_k: torch.Tensor,
+    cfg: LDAConfig,
+    *,
+    vocab_size: Optional[int] = None,
+) -> Tuple[LocalState, torch.Tensor, torch.Tensor]:
+    """One synchronous BEM sweep over a minibatch (paper Fig. 1 lines 4-7),
+    on the tensors' device.  ``phi_wk`` is the matrix the E-step reads; the
+    caller decides how Δφ̂ merges.  Returns ``(new_local, Δφ̂_wk, Δφ̂_k)``:
+    the *minibatch totals* Σ_d x μ (not increments)."""
+    W = vocab_size if vocab_size is not None else cfg.W
+    phi_rows = gather_phi_rows(phi_wk, batch.word_ids)
+    mu = estep(local.theta_dk[:, None, :], phi_rows, phi_k, cfg,
+               vocab_size=W)
+    del phi_rows
+    theta = fold_theta(mu, batch.counts)
+    d_wk, d_k = fold_phi(mu, batch.counts, batch.word_ids, phi_wk.shape[0])
+    return LocalState(mu=mu, theta_dk=theta), d_wk, d_k
+
+
+def _blocked_scan(
+    batch: MinibatchData,
+    local: LocalState,
+    phi_wk: torch.Tensor,
+    phi_k: torch.Tensor,
+    cfg: LDAConfig,
+    num_blocks: int,
+    W: int,
+) -> Tuple[LocalState, torch.Tensor, torch.Tensor]:
+    """The blocked scan of ``repro.core.em.blocked_iem_sweep``, returning
+    working copies ``(local, φ̂, φ̂(k))``.
+
+    The L columns split into ``num_blocks`` blocks of ⌈L/B⌉ columns (the
+    JAX package pads L to a multiple of B with zero-count slots, which
+    fold nothing; here the last block is simply narrower).  Per block: the
+    eq. 13 E-step against the current statistics (``estep``, θ̂ one row per
+    document), then Δ = x·μ_new − x·μ_old folds into θ̂, into the φ̂ rows
+    the block touches (``scatter_add_rows``: deterministic, no (W_s, K)
+    temporary — the JAX scan adds a dense ``segment_sum`` per block) and
+    into φ̂(k).
+    """
+    D, L = batch.word_ids.shape
+    K = phi_wk.shape[1]
+    blk = -(-L // num_blocks)
+    theta, ptot = local.theta_dk, phi_k
+    phi = phi_wk.clone()
+    mu_out = torch.empty_like(local.mu)
+    for c0 in range(0, L, blk):
+        c1 = min(c0 + blk, L)
+        wid = batch.word_ids[:, c0:c1]
+        cnt = batch.counts[:, c0:c1, None]
+        ex = cnt * local.mu[:, c0:c1]                       # (D, nb, K)
+        rows = gather_phi_rows(phi, wid)
+        mu_new = estep(theta[:, None, :], rows, ptot, cfg, exclude=ex,
+                       vocab_size=W)
+        del rows
+        d = (cnt * mu_new).sub_(ex)                         # x·μ_new − x·μ_old
+        del ex
+        theta = theta + d.sum(1)
+        scatter_add_rows(phi, wid, d.reshape(-1, K))
+        ptot = ptot + d.sum((0, 1))
+        mu_out[:, c0:c1] = mu_new
+        del d, mu_new
+    if not L:
+        theta, ptot = theta.clone(), ptot.clone()
+    return LocalState(mu=mu_out, theta_dk=theta), phi, ptot
+
+
+def iem_sweep(
+    batch: MinibatchData,
+    local: LocalState,
+    phi_wk: torch.Tensor,
+    phi_k: torch.Tensor,
+    cfg: LDAConfig,
+    *,
+    num_blocks: Optional[int] = None,
+    vocab_size: Optional[int] = None,
+) -> Tuple[LocalState, torch.Tensor, torch.Tensor]:
+    """One incremental-EM sweep in working-copy form: ``(local, φ̂', φ̂(k)')``.
+
+    B = L with ``sweep_impl="fused"`` is one column-serial ``ops.sweep``
+    call; a coarse B (``num_blocks`` or ``cfg.iem_blocks``) or
+    ``sweep_impl="scan"`` runs the blocked scan (:func:`_blocked_scan`).
+    """
+    L = batch.word_ids.shape[1]
+    W = vocab_size if vocab_size is not None else cfg.W
+    B = cfg.resolve_blocks(L, num_blocks)
+    if B == L and cfg.sweep_impl == "fused":
+        r = gs_sweep_with_residuals(batch, local, phi_wk, phi_k, cfg,
+                                    vocab_size=W)
+        return LocalState(mu=r.mu, theta_dk=r.theta), r.phi_wk, r.phi_k
+    return _blocked_scan(batch, local, phi_wk, phi_k, cfg, B, W)
 
 
 def blocked_iem_sweep(
@@ -124,15 +226,14 @@ def blocked_iem_sweep(
     num_blocks: Optional[int] = None,
     vocab_size: Optional[int] = None,
 ) -> Tuple[LocalState, torch.Tensor, torch.Tensor]:
-    """Blocked incremental-EM sweep — paper Fig. 2 at B = L, the only block
-    count the port runs: every token column is its own block
-    (column-serial Gauss-Seidel, documents vectorized), through the fused
-    sweep.  Returns the updated LocalState and the φ̂ *deltas* of this
-    sweep, ``(local, Δφ̂_wk, Δφ̂_k)``."""
-    _require_fused(cfg, batch.word_ids.shape[1], num_blocks)
-    r = gs_sweep_with_residuals(batch, local, phi_wk, phi_k, cfg,
-                                vocab_size=vocab_size, as_delta=True)
-    return LocalState(mu=r.mu, theta_dk=r.theta), r.phi_wk, r.phi_k
+    """Blocked incremental-EM sweep — paper Fig. 2 in B sequential column
+    blocks (``num_blocks`` or ``cfg.iem_blocks``; 0 means B = L).  Returns
+    the updated LocalState and the φ̂ *deltas* of this sweep,
+    ``(local, Δφ̂_wk, Δφ̂_k)`` — the JAX package's contract;
+    :func:`iem_sweep` is the same sweep returning working copies."""
+    loc, phi, ptot = iem_sweep(batch, local, phi_wk, phi_k, cfg,
+                               num_blocks=num_blocks, vocab_size=vocab_size)
+    return loc, phi - phi_wk, ptot - phi_k
 
 
 def gs_sweep_with_residuals(
@@ -236,3 +337,91 @@ def training_perplexity(
         batch, theta_dk, phi_wk, phi_k, cfg, vocab_size=vocab_size
     )
     return torch.exp(-ll / batch.counts.sum().clamp_min(1.0))
+
+
+# ---------------------------------------------------------------------------
+# Whole-corpus drivers (BEM, paper Fig. 1; IEM, Fig. 2) — tests, benchmarks
+# ---------------------------------------------------------------------------
+
+def _initial_stats(batch: MinibatchData, mu0: torch.Tensor, cfg: LDAConfig):
+    theta0 = fold_theta(mu0, batch.counts)
+    phi0, ptot0 = fold_phi(mu0, batch.counts, batch.word_ids, cfg.W)
+    return LocalState(mu0, theta0), phi0, ptot0
+
+
+def bem_fit(
+    batch: MinibatchData, mu0: torch.Tensor, cfg: LDAConfig, sweeps: int
+) -> Tuple[LocalState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run ``sweeps`` full BEM iterations on one (small) corpus, on the
+    tensors' device.  Returns ``(local, phi_wk, phi_k, loglik_per_sweep)``.
+    """
+    local, phi, ptot = _initial_stats(batch, mu0, cfg)
+    lls = []
+    for _ in range(sweeps):
+        local, phi, ptot = bem_sweep(batch, local, phi, ptot, cfg)
+        lls.append(map_log_likelihood(batch, local.theta_dk, phi, ptot, cfg))
+    return local, phi, ptot, torch.stack(lls) if lls else torch.zeros(0)
+
+
+def iem_fit(
+    batch: MinibatchData, mu0: torch.Tensor, cfg: LDAConfig, sweeps: int,
+    num_blocks: int = 0,
+) -> Tuple[LocalState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run ``sweeps`` incremental-EM iterations on one (small) corpus, on
+    the tensors' device (:func:`iem_sweep`; ``num_blocks == 0`` defers to
+    ``cfg.iem_blocks``, whose 0 means B = L).  Returns ``(local, phi_wk,
+    phi_k, loglik_per_sweep)``."""
+    local, phi, ptot = _initial_stats(batch, mu0, cfg)
+    lls = []
+    for _ in range(sweeps):
+        local, phi, ptot = iem_sweep(batch, local, phi, ptot, cfg,
+                                     num_blocks=num_blocks)
+        lls.append(map_log_likelihood(batch, local.theta_dk, phi, ptot, cfg))
+    return local, phi, ptot, torch.stack(lls) if lls else torch.zeros(0)
+
+
+# ---------------------------------------------------------------------------
+# Exact serial IEM oracle (paper Fig. 2) — NumPy, tests only
+# ---------------------------------------------------------------------------
+
+def iem_exact_numpy(
+    word_ids: np.ndarray,   # (D, L) int
+    counts: np.ndarray,     # (D, L) float
+    mu0: np.ndarray,        # (D, L, K)
+    cfg: LDAConfig,
+    sweeps: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Reference serial IEM: per-non-zero E/M alternation with
+    self-exclusion, in float64, visiting token columns left to right and
+    the documents of a column in order (the JAX package's oracle).  Equal
+    to the B = L sweep when each document's tokens touch disjoint words.
+    Returns ``(mu, theta, phi)``."""
+    D, L = word_ids.shape
+    K = cfg.K
+    mu = mu0.copy().astype(np.float64)
+    theta = np.einsum("dlk,dl->dk", mu, counts)
+    phi = np.zeros((cfg.W, K))
+    for d in range(D):
+        for l in range(L):
+            phi[word_ids[d, l]] += counts[d, l] * mu[d, l]
+    ptot = phi.sum(0)
+    for _ in range(sweeps):
+        for l in range(L):
+            for d in range(D):
+                c = counts[d, l]
+                if c == 0.0:
+                    continue
+                w = word_ids[d, l]
+                old = c * mu[d, l]
+                th = np.maximum(theta[d] - old, 0.0)
+                ph = np.maximum(phi[w] - old, 0.0)
+                pt = ptot - old
+                num = (th + cfg.alpha_m1) * (ph + cfg.beta_m1) / (
+                    pt + cfg.W * cfg.beta_m1)
+                mu_new = num / max(num.sum(), 1e-30)
+                new = c * mu_new
+                theta[d] += new - old
+                phi[w] += new - old
+                ptot += new - old
+                mu[d, l] = mu_new
+    return mu, theta, phi

@@ -10,13 +10,17 @@ topic-word statistics accumulate with the implicit 1/s learning rate (eq.
 33, ``rho_mode="accumulate"``) or the stepwise interpolation (eq. 20,
 ``rho_mode="stepwise"``).
 
-Every sweep goes through ``kernels.ops.sweep``: the dense and scheduled
-Hopper kernels on the card, their plain versions on the CPU.  The inner
-loop is a Python loop that synchronises with the device once per check
-sweep (one scalar) and nowhere else.  Only the column-serial fused sweep
-(B = L) is ported; the coarse-block and ``"scan"`` paths raise, except
-under a topic-sharded plan, which always takes the dispatch
-(``core/foem_sharded.py``).
+At B = L with ``sweep_impl="fused"`` (the default) every sweep goes
+through ``kernels.ops.sweep``: the dense and scheduled Hopper sweep kernels
+on the card, their plain versions on the CPU.  A coarse block count
+(``cfg.iem_blocks``) or ``sweep_impl="scan"`` runs the blocked scans: the
+dense one over ``em.estep`` (the fused E-step kernel), the scheduled one
+over ``ops.topk_estep`` (the active-set E-step kernel) with deterministic
+sorted folds, and a standalone ``em.training_perplexity`` on check sweeps.
+A topic-sharded plan always takes the dispatch
+(``core/foem_sharded.py``).  The inner loop is a Python loop that
+synchronises with the device once per check sweep (one scalar) and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.core.types import (
     uniform_responsibilities,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.gs_sweep import scatter_add_pairs, scatter_add_rows
 from repro_torch.runtime.device import Device, resolve_device
 
 
@@ -54,7 +59,7 @@ class FOEMMinibatchResult(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Scheduled (sparse) column-serial IEM sweep
+# Scheduled (sparse) IEM sweep
 # ---------------------------------------------------------------------------
 
 def scheduled_iem_sweep(
@@ -74,11 +79,16 @@ def scheduled_iem_sweep(
     """One dynamic-scheduling sweep: update only active (word, topic) entries.
 
     Selects each word's top-A topics by residual and the λ_w active words,
-    runs the scheduled sweep through ``kernels.ops.sweep`` (the fused B = L
-    path) on the device the tensors lie on, and refreshes the scheduler
-    from the sweep's eq. 36 replacement residuals.  ``check_indices`` is
-    passed to ``ops.sweep``; the active sets come from a sort and are in
-    range by construction.
+    then, on the device the tensors lie on:
+
+    * B = L with ``sweep_impl="fused"``: one ``kernels.ops.sweep`` call,
+      and the scheduler refresh from its eq. 36 replacement residuals.
+      ``check_indices`` is passed to ``ops.sweep``; the active sets come
+      from a sort and are in range by construction.
+    * a coarse block count or ``sweep_impl="scan"``: the blocked scan
+      (:func:`_blocked_scheduled_scan`) over ``ops.topk_estep``, then
+      ``scatter_residuals``/``update_residuals`` and, with
+      ``compute_loglik``, ``em.map_log_likelihood``.
 
     Under a topic-sharded ``plan`` (``foem_sharded``: the rank's K/mp
     lanes, ``cfg.topk_shards == mp``) the selection runs on the rank's
@@ -94,8 +104,6 @@ def scheduled_iem_sweep(
     if A <= 0:
         raise ValueError("scheduled_iem_sweep requires cfg.active_topics > 0")
     sharded = plan is not None and plan.axis_name is not None
-    if not sharded:
-        em._require_fused(cfg, batch.word_ids.shape[1])
     W = vocab_size if vocab_size is not None else cfg.W
     if sharded:
         # scheduler.r_wk is the (W, K/mp) local slice: a plain local
@@ -115,6 +123,22 @@ def scheduled_iem_sweep(
     token_active = (
         r_w[batch.word_ids.long()] >= word_thresh
     ) & (batch.counts > 0)                                         # (D, L)
+    L = batch.word_ids.shape[1]
+    B = cfg.resolve_blocks(L)
+    if not sharded and (B < L or cfg.sweep_impl != "fused"):
+        theta, phi, ptot, mu, abs_delta, token_topics = \
+            _blocked_scheduled_scan(batch, local, phi_wk, phi_k, word_topics,
+                                    token_active, cfg, B, W)
+        # residual refresh (replace touched, keep the rest) — §3.1
+        r_new, touched = sched_lib.scatter_residuals(
+            abs_delta, batch.word_ids, token_topics, phi_wk.shape[0], cfg.K)
+        scheduler = sched_lib.update_residuals(scheduler, r_new, touched)
+        del r_new, touched
+        loglik = None
+        if compute_loglik:
+            loglik = em.map_log_likelihood(batch, theta, phi, ptot, cfg,
+                                           vocab_size=W)
+        return LocalState(mu=mu, theta_dk=theta), phi, ptot, scheduler, loglik
     r = kops.sweep(
         batch.word_ids, batch.counts, local.mu, local.theta_dk,
         phi_wk, phi_k,
@@ -128,6 +152,50 @@ def scheduled_iem_sweep(
     )
     return (LocalState(mu=r.mu, theta_dk=r.theta), r.phi_wk, r.phi_k,
             scheduler, r.loglik)
+
+
+def _blocked_scheduled_scan(batch, local, phi_wk, phi_k, word_topics,
+                            token_active, cfg, num_blocks, W):
+    """The blocked scan of ``repro.core.foem.scheduled_iem_sweep``: the L
+    columns in ``num_blocks`` blocks of ⌈L/B⌉ (the last one narrower where
+    the JAX package pads with inert slots).  Per block, the active slices
+    θ̂_a, φ̂_a, φ̂(k)_a and μ_prev,a are gathered at each token's (A,) active
+    topics, ``ops.topk_estep`` runs on the block's D·blk tokens, and its
+    Δ folds into θ̂ over (doc, topic), into φ̂ over (word, topic) and into
+    φ̂(k) over topic (``scatter_add_pairs``/``scatter_add_rows``: duplicate
+    pairs add in a fixed order, never with atomics).  Returns
+    ``(θ̂, φ̂, φ̂(k), μ, |Δ| (D, L, A), token_topics (D, L, A))``; no input
+    is modified."""
+    D, L = batch.word_ids.shape
+    A = word_topics.shape[1]
+    blk = -(-L // num_blocks)
+    token_topics = word_topics[batch.word_ids.long()]          # (D, L, A)
+    theta, phi, ptot, mu = (
+        x.clone(memory_format=torch.contiguous_format)
+        for x in (local.theta_dk, phi_wk, phi_k, local.mu))
+    abs_delta = torch.empty((D, L, A), dtype=mu.dtype, device=mu.device)
+    drows = torch.arange(D, device=mu.device)[:, None, None]
+    kw = dict(alpha_m1=cfg.alpha_m1, beta_m1=cfg.beta_m1,
+              wb=W * cfg.beta_m1)
+    for c0 in range(0, L, blk):
+        c1 = min(c0 + blk, L)
+        top = token_topics[:, c0:c1].long()                    # (D, nb, A)
+        wid = batch.word_ids[:, c0:c1].long()[..., None].expand_as(top)
+        doc = drows.expand_as(top)
+        mu_prev_a = mu[:, c0:c1].gather(-1, top)
+        T = top.shape[0] * top.shape[1]
+        mu_new_a, delta = kops.topk_estep(
+            theta[doc, top].reshape(T, A), phi[wid, top].reshape(T, A),
+            ptot[top].reshape(T, A), mu_prev_a.reshape(T, A),
+            batch.counts[:, c0:c1].reshape(T),
+            token_active[:, c0:c1].reshape(T), **kw)
+        delta = delta.reshape(top.shape)
+        scatter_add_pairs(theta, doc, top, delta)
+        scatter_add_pairs(phi, wid, top, delta)
+        scatter_add_rows(ptot, top, delta.reshape(-1))
+        mu[:, c0:c1].scatter_(-1, top, mu_new_a.reshape(top.shape))
+        abs_delta[:, c0:c1] = delta.abs()
+    return theta, phi, ptot, mu, abs_delta, token_topics
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +223,14 @@ def foem_minibatch(
        training perplexity, checked on every ``ppl_check_every``-th sweep,
        moves by less than ``ppl_rel_tol`` relative, or ``max_sweeps``.
 
+    At B = L with ``sweep_impl="fused"`` the sweeps are ``ops.sweep`` calls
+    whose residuals and stop-rule loglik come out of the sweep itself.  A
+    coarse block count or ``sweep_impl="scan"`` runs the blocked scans
+    (``em.iem_sweep``, the blocked ``scheduled_iem_sweep``), initialises the
+    residuals post hoc (``full_sweep_residuals``) and measures the
+    perplexity with a standalone ``em.training_perplexity`` — as the JAX
+    package does.
+
     Inputs may be numpy arrays or tensors; they move to ``device`` (default
     ``"cuda"``, which raises without a GPU).  ``vocab_size`` is the global
     W of the smoothing mass.  The word ids are range-checked once, here;
@@ -172,7 +248,6 @@ def foem_minibatch(
     K = cfg.K
     W = vocab_size if vocab_size is not None else cfg.W
     Wv = phi_wk_in.shape[0]
-    em._require_fused(cfg, L)
     kops.check_index_ranges(batch.word_ids, None, Wv, K)
 
     if mu0 is None:
@@ -187,38 +262,59 @@ def foem_minibatch(
     local = LocalState(mu=mu0, theta_dk=theta0)
     ntok = batch.counts.sum().clamp_min(1.0)
     use_sched = cfg.active_topics > 0
+    use_fused = cfg.sweep_impl == "fused" and cfg.resolve_blocks(L) == L
     kw = dict(vocab_size=W, check_indices=False)
+
+    def train_ppl(local, phi, ptot):
+        return em.training_perplexity(batch, local.theta_dk, phi, ptot, cfg,
+                                      vocab_size=W)
 
     # ---- warm-up full sweeps (Fig. 4's unscheduled first iteration); the
     # last initialises the residual matrices and the stop rule's baseline
     warm = max(1, cfg.warmup_sweeps)
-    r = None
-    for i in range(warm):
-        r = em.gs_sweep_with_residuals(
-            batch, local, phi, ptot, cfg, compute_loglik=(i == warm - 1),
-            **kw)
-        local = LocalState(mu=r.mu, theta_dk=r.theta)
-        phi, ptot = r.phi_wk, r.phi_k
-    scheduler = sched_lib.residuals_from_sweep(r.residual, batch.word_ids, Wv)
-    last_ppl = torch.exp(-r.loglik / ntok)
-    del r
+    if use_fused:
+        r = None
+        for i in range(warm):
+            r = em.gs_sweep_with_residuals(
+                batch, local, phi, ptot, cfg,
+                compute_loglik=(i == warm - 1), **kw)
+            local = LocalState(mu=r.mu, theta_dk=r.theta)
+            phi, ptot = r.phi_wk, r.phi_k
+        scheduler = sched_lib.residuals_from_sweep(r.residual,
+                                                   batch.word_ids, Wv)
+        last_ppl = torch.exp(-r.loglik / ntok)
+        del r
+    else:
+        for _ in range(warm):
+            prev_mu = local.mu
+            local, phi, ptot = em.iem_sweep(batch, local, phi, ptot, cfg,
+                                            vocab_size=W)
+        scheduler = sched_lib.full_sweep_residuals(
+            local.mu, prev_mu, batch.counts, batch.word_ids, Wv)
+        del prev_mu
+        last_ppl = train_ppl(local, phi, ptot)
 
     t = warm
     while t < cfg.max_sweeps:
         check = (t + 1) % cfg.ppl_check_every == 0
+        ll = None
         if use_sched:
             local, phi, ptot, scheduler, ll = scheduled_iem_sweep(
                 batch, local, phi, ptot, scheduler, cfg,
-                compute_loglik=check, **kw)
-        else:
+                compute_loglik=check and use_fused, **kw)
+        elif use_fused:
             r = em.gs_sweep_with_residuals(
                 batch, local, phi, ptot, cfg, compute_loglik=check, **kw)
             local = LocalState(mu=r.mu, theta_dk=r.theta)
             phi, ptot, ll = r.phi_wk, r.phi_k, r.loglik
             del r
+        else:
+            local, phi, ptot = em.iem_sweep(batch, local, phi, ptot, cfg,
+                                            vocab_size=W)
         t += 1
         if check:
-            ppl = torch.exp(-ll / ntok)
+            ppl = (torch.exp(-ll / ntok) if use_fused
+                   else train_ppl(local, phi, ptot))
             done = bool(torch.abs(last_ppl - ppl)
                         < cfg.ppl_rel_tol * torch.abs(ppl))
             last_ppl = ppl

@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.types import LDAConfig, SchedulerState
-from repro_torch.kernels.gs_sweep import segment_sum
+from repro_torch.kernels.gs_sweep import scatter_add_pairs, segment_sum
 
 
 #: Entries per sort call in ``_top_ids``: a whole (W, K/mp) residual slice
@@ -123,7 +123,7 @@ def scatter_residuals(
     tidx = topic_ids.reshape(-1).long()
     summed = torch.zeros((num_words, num_topics), dtype=abs_delta.dtype,
                          device=abs_delta.device)
-    summed.index_put_((widx, tidx), abs_delta.reshape(-1), accumulate=True)
+    scatter_add_pairs(summed, widx, tidx, abs_delta)
     touched = torch.zeros((num_words, num_topics), dtype=torch.bool,
                           device=abs_delta.device)
     touched[widx, tidx] = True
@@ -176,7 +176,7 @@ def full_sweep_residuals(
     num_words: int,
 ) -> SchedulerState:
     """Residual init after a full (unscheduled) sweep — paper Fig. 4 —
-    measuring counts·|Δμ| post hoc."""
+    measuring counts·|Δμ| post hoc (one (D, L, K) temporary)."""
     return residuals_from_sweep(
-        counts[..., None] * (mu_new - mu_old).abs(), word_ids, num_words
-    )
+        (mu_new - mu_old).abs_().mul_(counts[..., None]), word_ids,
+        num_words)

@@ -11,6 +11,18 @@ Per minibatch:
      float64 accumulator), advance the stream cursor, optionally flush
      (the fault-tolerant restart point).
 
+``algorithm="sem"`` runs SEM's inner loop (``sem.sem_step``) in step 3
+instead, with its eq. 33 / eq. 20 merge on the local view.
+
+The FOEM topic totals.  The store's φ̂(k) grows by the step's row
+increment, summed in float64 over the W_s rows: words outside the
+minibatch do not change, so that is the exact change of Σ_w φ̂_w.  The JAX
+package stores the inner loop's float32 running total instead, which drifts
+from its rows (by +54 tokens in one dense sweep at the stream_1k width on
+an H100) and would walk the store's φ̂(k) away from its rows over a stream.
+SEM keeps the JAX package's arithmetic: under ``rho_mode="stepwise"`` its
+(1 − ρ) decay of φ̂(k) is global while the rows decay only over W_s.
+
 With ``prefetch_depth > 0``, stages 1-2 for minibatch s+1 run on a
 background thread while the device computes minibatch s, and stage 4's
 write-back is reconciled against in-flight fetches (see
@@ -27,9 +39,9 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import foem
+from repro_torch.core import foem, sem
 from repro_torch.core.streaming import ParameterStore, StreamPrefetcher
-from repro_torch.core.types import LDAConfig, MinibatchData
+from repro_torch.core.types import GlobalStats, LDAConfig, MinibatchData
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 from repro_torch.sparse.minibatch import Minibatch
@@ -56,15 +68,17 @@ class StepMetrics:
 
 
 class FOEMTrainer:
-    """Streaming FOEM with disk-backed parameters (the paper's full system).
+    """Streaming FOEM (or SEM) with disk-backed parameters (the paper's
+    full system).
 
     ``device`` (default ``"cuda"``, which raises without a GPU) runs the
     inner loop; its μ₀ draws come from a ``torch.Generator`` on that device
     seeded with ``seed``.  ``mu0_fn(minibatch)``, when given, supplies each
     step's (D, L, K) μ₀ instead (the cross-package tests pass the JAX
-    package's).  Only ``algorithm="foem"`` is ported (SEM comes with the
-    baselines slice); the snapshot publisher, the topic-shift detector and
-    its refresh sweeps come with the lifelong slice.
+    package's).  ``algorithm`` is ``"foem"`` or ``"sem"`` (SEM's steps
+    report ``residual_mass`` NaN: it has no residual scheduler).  The
+    snapshot publisher, the topic-shift detector and its refresh sweeps
+    come with the lifelong slice.
     """
 
     def __init__(
@@ -82,11 +96,8 @@ class FOEMTrainer:
     ):
         if store.K != cfg.K:
             raise ValueError("store/config topic count mismatch")
-        if algorithm != "foem":
-            raise NotImplementedError(
-                f"algorithm {algorithm!r} is not ported yet: the port's "
-                "trainer runs FOEM (SEM comes with the baselines slice)"
-            )
+        if algorithm not in ("foem", "sem"):
+            raise ValueError(f"unknown algorithm {algorithm!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.store = store
@@ -153,16 +164,31 @@ class FOEMTrainer:
         phi_k = torch.from_numpy(self.store.phi_k.astype(np.float32)).to(dev)
         mu0 = self.mu0_fn(mb) if self.mu0_fn is not None else None
         live_w = max(self.store.live_vocab, cfg.W)
-        res = foem.foem_minibatch(
-            self.generator, batch, rows, phi_k, cfg, vocab_size=live_w,
-            mu0=mu0, device=dev,
-        )
+        if self.algorithm == "sem":
+            stats = GlobalStats(rows, phi_k,
+                                torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+            res, _, diag = sem.sem_step(
+                self.generator, batch, stats, cfg, vocab_size=live_w,
+                mu0=mu0, device=dev)
+            res_mass = float("nan")         # no residual scheduler
+            # the JAX package's arithmetic (module docstring)
+            new_phi_k = res.phi_k.cpu().numpy().astype(np.float64)
+        else:
+            res = foem.foem_minibatch(
+                self.generator, batch, rows, phi_k, cfg, vocab_size=live_w,
+                mu0=mu0, device=dev,
+            )
+            diag = res.diag
+            res_mass = float(diag.residual_mass)
+            # the change of Σ_w φ̂_w: the rows' increment, summed in float64
+            new_phi_k = self.store.phi_k + (
+                res.phi_wk.sum(0, dtype=torch.float64)
+                - rows.sum(0, dtype=torch.float64)).cpu().numpy()
         new_rows = res.phi_wk.cpu().numpy()
-        new_phi_k = res.phi_k.cpu().numpy().astype(np.float64)  # RAM accumulator
-        ppl = float(res.diag.final_train_ppl)
-        res_mass = float(res.diag.residual_mass)
-        sweeps = int(res.diag.sweeps_run)
-        del res
+        ppl = float(diag.final_train_ppl)
+        sweeps = int(diag.sweeps_run)
+        del res, diag
         compute = time.perf_counter() - tc
 
         # post-fold: the local fold is complete but unpublished — a "kill"

@@ -11,12 +11,32 @@
                         ``csrc/scheduled_sweep.cu`` replacing
                         ``repro.kernels.scheduled_sweep.scheduled_sweep_pallas``
                         (both sweeps share ``csrc/sweep_common.cuh``)
+* ``sharded_sweep``   — the two-phase topic-sharded probe and fold;
+                        ``csrc/sharded_sweep.cu`` replacing
+                        ``repro.kernels.sharded_sweep.sharded_probe_pallas``
+                        and ``sharded_fold_pallas``
+* ``foem_estep``      — the fused (T, K) E-step of the coarse-block and
+                        ``"scan"`` sweeps, BEM and SEM;
+                        ``csrc/fused_estep.cu`` replacing
+                        ``repro.kernels.foem_estep.fused_estep_pallas``
+* ``topk_estep``      — the (T, A) active-set E-step of the blocked
+                        scheduled sweep; ``csrc/topk_estep.cu`` replacing
+                        ``repro.kernels.topk_estep.topk_estep_pallas``
 
 Each kernel's wrapper launches it on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; ``build.py`` compiles the CUDA sources with
 ``nvcc`` at first use.  ``ops.py`` is the dispatch layer the algorithm code
 calls.
 """
-from repro_torch.kernels import gs_sweep, ops, scheduled_sweep, theta_sweep
+from repro_torch.kernels import (
+    foem_estep,
+    gs_sweep,
+    ops,
+    scheduled_sweep,
+    sharded_sweep,
+    theta_sweep,
+    topk_estep,
+)
 
-__all__ = ["gs_sweep", "ops", "scheduled_sweep", "theta_sweep"]
+__all__ = ["foem_estep", "gs_sweep", "ops", "scheduled_sweep",
+           "sharded_sweep", "theta_sweep", "topk_estep"]

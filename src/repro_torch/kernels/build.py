@@ -32,7 +32,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: Every CUDA source of the port, by kernel name.
-KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep", "sharded_sweep")
+KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep", "sharded_sweep",
+           "fused_estep", "topk_estep")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -118,14 +118,40 @@ def gs_sweep_reference(
     return mu_out, res, theta, phi, ptot, loglik
 
 
+def scatter_add_rows(dst: torch.Tensor, ids: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """``dst[ids[i]] += rows[i]`` in place, for the (N,) ``ids`` and the
+    (N, ...) ``rows``; returns ``dst``.  Only the rows named by ``ids`` are
+    touched, and duplicate ids add in a fixed order — the same bits on every
+    run: on the CPU ``index_add_``, serial in index order (``index_put_``
+    with accumulation adds large inputs there with parallel atomics); on
+    CUDA ``index_put_`` with accumulation, which sorts the ids stably and
+    sums each run of duplicates in one place (``index_add_`` uses atomics
+    there)."""
+    ids = ids.reshape(-1).long()
+    if dst.device.type == "cpu":
+        return dst.index_add_(0, ids, rows)
+    return dst.index_put_((ids,), rows, accumulate=True)
+
+
+def scatter_add_pairs(dst: torch.Tensor, rows: torch.Tensor,
+                      cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``dst[rows[i], cols[i]] += vals[i]`` in place on a contiguous 2-D
+    ``dst``, through :func:`scatter_add_rows` on the flat int64 index: the
+    same fixed order, no int32 overflow at W·K > 2³¹."""
+    lin = rows.reshape(-1).long() * dst.shape[1] + cols.reshape(-1).long()
+    scatter_add_rows(dst.view(-1), lin, vals.reshape(-1))
+    return dst
+
+
 def segment_sum(rows: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """(N, K) rows summed into (num_segments, K) by the (N,) segment ids —
     ``jax.ops.segment_sum`` with a fixed accumulation order on every device
-    (``index_put_`` with accumulation; no atomics)."""
+    (:func:`scatter_add_rows` into zeros; no atomics)."""
     out = torch.zeros((num_segments,) + tuple(rows.shape[1:]),
                       dtype=rows.dtype, device=rows.device)
-    return out.index_put_((seg.reshape(-1).long(),), rows, accumulate=True)
+    return scatter_add_rows(out, seg, rows)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,11 @@ the port of ``repro.analysis.validate``):
   :func:`theta_sweep.theta_sweep` call each, with its convergence stop; a
   topic-sharded plan runs the fit in plain PyTorch with its reductions over
   the model axis.
+* :func:`fused_estep` / :func:`topk_estep` — the (T, K) E-step and the
+  (T, A) active-set E-step of the coarse-block and ``"scan"`` sweeps, BEM
+  and SEM (``em.estep``, ``foem.scheduled_iem_sweep``): one
+  :func:`foem_estep.fused_estep` or :func:`topk_estep.topk_estep` call each,
+  on the device the tensors lie on.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import InferPlan, InferResult, SweepPlan, SweepResult
+from repro_torch.kernels import foem_estep as _foem_estep
+from repro_torch.kernels import topk_estep as _topk_estep
 from repro_torch.kernels.gs_sweep import gs_sweep, segment_sum
 from repro_torch.kernels.scheduled_sweep import scheduled_sweep
 from repro_torch.kernels.sharded_sweep import (
@@ -41,9 +48,10 @@ from repro_torch.kernels.theta_sweep import (
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 
-__all__ = ["ContractError", "Device", "check_index_ranges", "infer",
-           "resolve_device", "sweep", "validate_infer_args",
-           "validate_sweep_args"]
+__all__ = ["ContractError", "Device", "check_index_ranges", "fused_estep",
+           "infer", "resolve_device", "sweep", "topk_estep",
+           "validate_estep_args", "validate_infer_args",
+           "validate_sweep_args", "validate_topk_args"]
 
 
 class ContractError(ValueError):
@@ -243,6 +251,123 @@ def check_index_ranges(word_ids, word_topics, num_rows: int,
             0 <= lo_v and hi_v < hi,
             f"{name} values must lie in [0, {hi}), got [{lo_v}, {hi_v}]",
         )
+
+
+def _check_same_device(named) -> None:
+    devices = {t.device for _, t in named if t is not None}
+    _require(
+        len(devices) == 1,
+        "all operands must lie on one device, got "
+        + ", ".join(f"{n}={t.device}" for n, t in named if t is not None),
+    )
+
+
+def validate_estep_args(theta_rows, phi_rows, phi_tot, exclude, mu_old,
+                        counts) -> None:
+    """Check every ``ops.fused_estep`` argument contract; raise
+    ContractError.  Shape/dtype/device only: no tensor value is read."""
+    _require(
+        phi_rows.ndim == 2,
+        f"phi_rows must be (T, K) gathered rows, got shape "
+        f"{tuple(phi_rows.shape)}",
+    )
+    T, K = phi_rows.shape
+    _require(
+        theta_rows.ndim == 2 and theta_rows.shape[1] == K,
+        f"theta_rows must be (T, K) or (T/G, K) with K = {K}, got "
+        f"{tuple(theta_rows.shape)}",
+    )
+    try:
+        _foem_estep.tokens_per_row(theta_rows.shape[0], T)
+    except ValueError as e:
+        raise ContractError(f"theta_rows: {e}") from None
+    _require(
+        tuple(phi_tot.shape) == (K,),
+        f"phi_tot must be (K,) = ({K},), got {tuple(phi_tot.shape)}",
+    )
+    for name, t in (("exclude", exclude), ("mu_old", mu_old)):
+        _require(
+            t is None or tuple(t.shape) == (T, K),
+            f"{name} must be (T, K) = ({T}, {K}), got "
+            f"{None if t is None else tuple(t.shape)}",
+        )
+    _require(
+        mu_old is None or (counts is not None
+                           and tuple(counts.shape) == (T,)),
+        f"with mu_old, counts must be (T,) = ({T},), got "
+        f"{None if counts is None else tuple(counts.shape)}",
+    )
+    named = [("theta_rows", theta_rows), ("phi_rows", phi_rows),
+             ("phi_tot", phi_tot), ("exclude", exclude), ("mu_old", mu_old),
+             ("counts", counts if mu_old is not None else None)]
+    bad = [f"{n}={t.dtype}" for n, t in named
+           if t is not None and t.dtype != torch.float32]
+    _require(not bad, "every fused_estep operand must be float32 (the "
+                      "E-step computes in float32), got " + ", ".join(bad))
+    _check_same_device(named)
+
+
+def fused_estep(theta_rows, phi_rows, phi_tot, exclude, mu_old, counts, *,
+                alpha_m1: float, beta_m1: float, wb):
+    """The fused (T, K) E-step (eq. 11, with the eq. 13 exclusion when
+    ``exclude`` is given): ``(mu_new, residual or None)``, on the device the
+    tensors lie on — the kernel on the card, its plain version on the CPU.
+    ``theta_rows`` is (T, K) or (T/G, K) with G consecutive tokens a row;
+    ``mu_old=None`` skips the residual.
+    Contracts are checked eagerly (``ContractError``)."""
+    validate_estep_args(theta_rows, phi_rows, phi_tot, exclude, mu_old,
+                        counts)
+    return _foem_estep.fused_estep(
+        theta_rows.contiguous(), phi_rows.contiguous(),
+        phi_tot.contiguous(),
+        None if exclude is None else exclude.contiguous(),
+        None if mu_old is None else mu_old.contiguous(),
+        None if mu_old is None else counts.contiguous(),
+        alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb))
+
+
+def validate_topk_args(theta_a, phi_a, ptot_a, mu_prev_a, counts,
+                       active) -> None:
+    """Check every ``ops.topk_estep`` argument contract; raise
+    ContractError.  Shape/dtype/device only."""
+    _require(
+        mu_prev_a.ndim == 2 and mu_prev_a.shape[1] >= 1,
+        f"mu_prev_a must be (T, A) with A >= 1, got "
+        f"{tuple(mu_prev_a.shape)}",
+    )
+    T, A = mu_prev_a.shape
+    for name, t in (("theta_a", theta_a), ("phi_a", phi_a),
+                    ("ptot_a", ptot_a)):
+        _require(
+            tuple(t.shape) == (T, A),
+            f"{name} must be (T, A) = ({T}, {A}), got {tuple(t.shape)}",
+        )
+    for name, t in (("counts", counts), ("active", active)):
+        _require(
+            tuple(t.shape) == (T,),
+            f"{name} must be (T,) = ({T},), got {tuple(t.shape)}",
+        )
+    named = [("theta_a", theta_a), ("phi_a", phi_a), ("ptot_a", ptot_a),
+             ("mu_prev_a", mu_prev_a), ("counts", counts)]
+    bad = [f"{n}={t.dtype}" for n, t in named if t.dtype != torch.float32]
+    _require(not bad, "theta_a/phi_a/ptot_a/mu_prev_a/counts must be "
+                      "float32, got " + ", ".join(bad))
+    _require(active.dtype == torch.bool,
+             f"active must be a bool mask, got {active.dtype}")
+    _check_same_device(named + [("active", active)])
+
+
+def topk_estep(theta_a, phi_a, ptot_a, mu_prev_a, counts, active, *,
+               alpha_m1: float, beta_m1: float, wb):
+    """The scheduled (T, A) active-set E-step (eq. 13 + eq. 38, the pad-lane
+    rule and the λ_w mask): ``(mu_new_a, delta)``, on the device the tensors
+    lie on — the kernel on the card, its plain version on the CPU.
+    Contracts are checked eagerly (``ContractError``)."""
+    validate_topk_args(theta_a, phi_a, ptot_a, mu_prev_a, counts, active)
+    c = [x.contiguous() for x in (theta_a, phi_a, ptot_a, mu_prev_a,
+                                  counts, active)]
+    return _topk_estep.topk_estep(*c, alpha_m1=alpha_m1, beta_m1=beta_m1,
+                                  wb=float(wb))
 
 
 def _tensor(x) -> torch.Tensor:

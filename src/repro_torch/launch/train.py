@@ -1,5 +1,5 @@
-"""Training driver — streaming FOEM with the disk-backed ParameterStore
-(PyTorch port of the LDA half of ``repro.launch.train``).
+"""Training driver — streaming FOEM (or SEM) with the disk-backed
+ParameterStore (PyTorch port of the LDA half of ``repro.launch.train``).
 
 Trains on a synthetic LDA corpus (``data.synthetic_lda_corpus``), one
 ``FOEMTrainer`` step per minibatch, then reports the eq. 21 held-out
@@ -8,7 +8,7 @@ in ``--workdir`` flushes every ``--ckpt-every`` steps; ``--resume`` continues
 from its minibatch cursor.  Run on a GPU host with
 
     PYTHONPATH=src python -m repro_torch.launch.train --workdir DIR \\
-        --steps 4 --topics 64 --vocab 3000
+        --steps 4 --topics 64 --vocab 3000 [--iem-blocks 4] [--algorithm sem]
 
 or on the host's CPU with ``--device cpu``.  Without ``--device cpu`` on a
 host with no GPU it exits with "no CUDA device".
@@ -40,6 +40,7 @@ def train_lda(args) -> float:
         vocab_size=args.vocab,
         active_topics=args.active_topics,
         max_sweeps=args.max_sweeps,
+        iem_blocks=args.iem_blocks,
     )
     corpus, _ = synthetic_lda_corpus(
         args.docs, args.vocab, args.topics,
@@ -54,7 +55,8 @@ def train_lda(args) -> float:
     )
     trainer = FOEMTrainer(
         cfg, store, seed=args.seed, checkpoint_every=args.ckpt_every,
-        prefetch_depth=args.prefetch_depth, device=dev,
+        algorithm=args.algorithm, prefetch_depth=args.prefetch_depth,
+        device=dev,
     )
     start = trainer.resume_step() if args.resume else 0
     if start:
@@ -100,6 +102,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--algorithm", default="foem", choices=["foem", "sem"])
     ap.add_argument("--topics", type=int, default=100)
     ap.add_argument("--vocab", type=int, default=5000)
     ap.add_argument("--docs", type=int, default=2000)
@@ -107,6 +110,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--minibatch", type=int, default=256)
     ap.add_argument("--active-topics", type=int, default=16)
     ap.add_argument("--max-sweeps", type=int, default=24)
+    ap.add_argument("--iem-blocks", type=int, default=0,
+                    help="0 = column-serial IEM folds (paper-faithful)")
     ap.add_argument("--buffer-rows", type=int, default=2048)
     ap.add_argument("--prefetch-depth", type=int, default=1,
                     help="minibatches fetched ahead of the device "

@@ -23,14 +23,29 @@ against their plain versions at an odd shard width K/mp, A/mp = 1 and
 A/mp = K/mp, with duplicate words in a column and injected cross-shard
 remainders; two launches give the same bits; with remainder 0 the fold is
 the ``gs_sweep``/``scheduled_sweep`` kernel.
+
+The E-step kernels (``fused_estep``, ``topk_estep``) are held against their
+plain versions at odd K (10,001) and A ∈ {1, 16, 32, 40}, with and without
+the exclusion and the residual, θ̂ in G-token groups, pad lanes and
+inactive tokens; two launches give the same bits and a row's bits do not
+depend on T.  The coarse-block and ``"scan"`` sweeps and SEM repeat bitwise
+on the card (their folds are sorted segment sums, not atomics), and the
+blocked and SEM trainers give the same store bits with prefetch on and off.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import em, scheduling
-from repro_torch.core.types import SchedulerState
+from repro_torch.core import em, foem, scheduling, sem
+from repro_torch.core.types import (
+    GlobalStats,
+    LDAConfig,
+    LocalState,
+    MinibatchData,
+    SchedulerState,
+)
 from repro_torch.kernels import ops
+from repro_torch.kernels.foem_estep import fused_estep, fused_estep_reference
 from repro_torch.kernels.gs_sweep import gs_sweep, gs_sweep_reference
 from repro_torch.kernels.scheduled_sweep import (
     scheduled_sweep,
@@ -49,6 +64,7 @@ from repro_torch.kernels.theta_sweep import (
     theta_sweep_reference,
     word_lane_masks,
 )
+from repro_torch.kernels.topk_estep import topk_estep, topk_estep_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -420,3 +436,234 @@ def test_sharded_fold_zero_count_slots_inert(cuda, A):
         act = args[7]
         assert torch.equal(mu[~act], args[2][~act])
         assert float(live[~act].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The E-step kernels of the coarse-block / scan sweeps, BEM and SEM
+# ---------------------------------------------------------------------------
+
+ESTEP_KW = dict(alpha_m1=0.01, beta_m1=0.01, wb=141_043 * 0.01)
+
+
+def _estep_inputs(T, K, G, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    th = rng.gamma(1.0, 3.0, (T // G, K)).astype(np.float32)
+    ph = rng.gamma(0.5, 2.0, (T, K)).astype(np.float32)
+    pt = (ph.sum(0) * 40).astype(np.float32)
+    mu = rng.dirichlet(np.ones(K), T).astype(np.float32)
+    cnt = rng.integers(0, 5, T).astype(np.float32)
+    ex = cnt[:, None] * mu
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return t(th), t(ph), t(pt), t(ex), t(mu), t(cnt)
+
+
+def _check_estep(got, want):
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-7,
+                               msg="mu")
+    if want[1] is not None:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6,
+                                   msg="residual")
+
+
+@pytest.mark.parametrize("T,K,G", [(37, 10_001, 1), (64, 10_001, 16),
+                                   (301, 257, 7), (5, 31, 5)])
+@pytest.mark.parametrize("exclude,residual", [(True, True), (False, True),
+                                              (True, False)])
+def test_fused_estep_matches_plain(cuda, T, K, G, exclude, residual):
+    th, ph, pt, ex, mu, cnt = _estep_inputs(T, K, G, cuda, seed=T + K)
+    args = (th, ph, pt, ex if exclude else None, mu if residual else None,
+            cnt if residual else None)
+    before = fused_estep.launches
+    got = fused_estep(*args, **ESTEP_KW)
+    torch.cuda.synchronize()
+    assert fused_estep.launches == before + 1
+    want = fused_estep_reference(*args, **ESTEP_KW)
+    _check_estep(got, want)
+    assert (got[1] is None) == (not residual)
+    again = fused_estep(*args, **ESTEP_KW)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None)
+
+
+def test_fused_estep_rows_independent_of_T(cuda):
+    th, ph, pt, ex, mu, cnt = _estep_inputs(96, 3001, 8, cuda, seed=2)
+    full = fused_estep(th, ph, pt, ex, mu, cnt, **ESTEP_KW)
+    part = fused_estep(th[:5].contiguous(), ph[:40].contiguous(), pt,
+                       ex[:40].contiguous(), mu[:40].contiguous(),
+                       cnt[:40].contiguous(), **ESTEP_KW)
+    for a, b in zip(part, full):
+        assert torch.equal(a, b[:40])
+    # (T, K) rows at an odd T
+    expanded = th.repeat_interleave(8, 0)
+    for a, b in zip(fused_estep(expanded[:37].contiguous(),
+                                ph[:37].contiguous(), pt,
+                                ex[:37].contiguous(), mu[:37].contiguous(),
+                                cnt[:37].contiguous(), **ESTEP_KW), full):
+        assert torch.equal(a, b[:37])
+
+
+def _topk_inputs(T, A, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    th = (rng.gamma(1.0, 3.0, (T, A))).astype(np.float32)
+    ph = (rng.gamma(0.5, 20.0, (T, A))).astype(np.float32)
+    pt = (rng.gamma(5.0, 1e4, (T, A)) + 1e3).astype(np.float32)
+    mu = (rng.dirichlet(np.ones(A), T) * 0.7).astype(np.float32)
+    lanes = rng.random((T, A)) < 0.15                       # pad lanes
+    mu[lanes] = 0.0
+    th[lanes] = 0.0
+    cnt = rng.integers(0, 4, T).astype(np.float32)
+    act = (rng.random(T) > 0.3) & (cnt > 0)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return [t(th), t(ph), t(pt), t(mu), t(cnt), t(act)]
+
+
+@pytest.mark.parametrize("T,A", [(1000, 1), (16_384, 16), (333, 32),
+                                 (77, 40)])
+def test_topk_estep_matches_plain(cuda, T, A):
+    args = _topk_inputs(T, A, cuda, seed=T + A)
+    before = topk_estep.launches
+    got = topk_estep(*args, **ESTEP_KW)
+    torch.cuda.synchronize()
+    assert topk_estep.launches == before + 1
+    want = topk_estep_reference(*args, **ESTEP_KW)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    act = args[5]
+    assert torch.equal(got[0][~act], args[3][~act])
+    assert float(got[1][~act].abs().max()) == 0.0
+    again = topk_estep(*args, **ESTEP_KW)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    part = topk_estep(*[x[:T // 3].contiguous() for x in args], **ESTEP_KW)
+    assert torch.equal(part[0], got[0][:T // 3])
+
+
+@pytest.mark.parametrize("blocks,impl,A", [(3, "fused", 0), (0, "scan", 0),
+                                           (3, "fused", 4), (0, "scan", 4)])
+def test_blocked_sweeps_bitwise_repeatable(cuda, blocks, impl, A):
+    """The blocked scans fold duplicate (word, topic) pairs through sorted
+    segment sums: the same bits on every run."""
+    args = _sweep_inputs(64, 12, 777, 8, A, cuda, seed=3)
+    wid, cnt, mu, theta, phi, ptot = args[:6]
+    cfg = LDAConfig(num_topics=777, vocab_size=2000, iem_blocks=blocks,
+                    sweep_impl=impl, active_topics=max(A, 1))
+    batch, local = MinibatchData(wid, cnt), LocalState(mu, theta)
+    outs = []
+    for _ in range(2):
+        if A:
+            gen = torch.Generator(device=cuda).manual_seed(1)
+            r = torch.rand((8, 777), device=cuda, generator=gen)
+            loc, p, pk, sc, _ = foem.scheduled_iem_sweep(
+                batch, local, phi, ptot, SchedulerState(r, r.sum(-1)), cfg)
+            outs.append((loc.mu, loc.theta_dk, p, pk, sc.r_wk))
+        else:
+            loc, p, pk = em.iem_sweep(batch, local, phi, ptot, cfg)
+            outs.append((loc.mu, loc.theta_dk, p, pk))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_sem_step_bitwise_repeatable_and_plain_close(cuda):
+    rng = np.random.default_rng(4)
+    D, L, K, W = 16, 10, 1001, 30
+    wid = rng.integers(0, W, (D, L)).astype(np.int32)
+    cnt = rng.integers(0, 4, (D, L)).astype(np.float32)
+    phi = (rng.gamma(1.0, 1.0, (W, K)) * 5).astype(np.float32)
+    mu0 = rng.dirichlet(np.ones(K), (D, L)).astype(np.float32)
+    cfg = LDAConfig(num_topics=K, vocab_size=W, max_sweeps=6,
+                    ppl_check_every=2)
+    stats = GlobalStats(phi, phi.sum(0), np.int32(0))
+    runs = [sem.sem_step(None, MinibatchData(wid, cnt), stats, cfg, mu0=mu0,
+                         device=dev) for dev in (cuda, cuda, "cpu")]
+    assert runs[0][2].sweeps_run == runs[1][2].sweeps_run
+    for a, b in zip(runs[0][0][:2], runs[1][0][:2]):
+        assert torch.equal(a, b)
+    assert runs[0][2].sweeps_run == runs[2][2].sweeps_run
+    torch.testing.assert_close(runs[0][0].phi_wk.cpu(), runs[2][0].phi_wk,
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("algorithm,blocks", [("foem", 3), ("sem", 0)])
+def test_blocked_and_sem_training_prefetch_bitwise_on_card(cuda, tmp_path,
+                                                           algorithm, blocks):
+    """The coarse-block FOEM trainer and the SEM trainer on the card:
+    prefetch depth 0 and 1 give the same store bits."""
+    from repro_torch.core import FOEMTrainer, ParameterStore
+    from repro_torch.data import synthetic_lda_corpus
+    from repro_torch.sparse import MinibatchStream
+
+    corpus, _ = synthetic_lda_corpus(120, 150, 5, mean_doc_len=30, seed=11)
+    out = []
+    before = (fused_estep.launches, topk_estep.launches)
+    for depth in (0, 1):
+        cfg = LDAConfig(num_topics=5, vocab_size=150, max_sweeps=6,
+                        active_topics=2, ppl_check_every=2,
+                        iem_blocks=blocks)
+        store = ParameterStore(str(tmp_path / f"d{depth}"), num_topics=5,
+                               vocab_capacity=150, buffer_rows=64)
+        tr = FOEMTrainer(cfg, store, seed=0, prefetch_depth=depth,
+                         algorithm=algorithm, device=cuda)
+        ms = tr.fit_stream(iter(MinibatchStream(corpus, 40, seed=0,
+                                                epochs=None)), max_steps=4)
+        assert len(ms) == 4
+        out.append((store.dense_phi().copy(), store.phi_k.copy()))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    assert fused_estep.launches > before[0]
+    if algorithm == "foem":
+        assert topk_estep.launches > before[1]
+
+
+@pytest.mark.parametrize("blocks,impl,A", [(3, "fused", 0), (0, "scan", 0),
+                                           (3, "fused", 4), (0, "scan", 4)])
+def test_blocked_sweeps_match_the_cpu(cuda, blocks, impl, A):
+    """The blocked scans on the card (kernels, sorted CUDA folds) against
+    the same scans on the CPU (plain versions, serial folds)."""
+    args = _sweep_inputs(48, 12, 333, 9, 0, cuda, seed=8)
+    wid, cnt, mu, theta, phi, ptot = args
+    cfg = LDAConfig(num_topics=333, vocab_size=2000, iem_blocks=blocks,
+                    sweep_impl=impl, active_topics=max(A, 1))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        batch = MinibatchData(wid.to(dev), cnt.to(dev))
+        local = LocalState(mu.to(dev), theta.to(dev))
+        if A:
+            r = torch.from_numpy(np.random.default_rng(2).gamma(
+                1.0, 1.0, (9, 333)).astype(np.float32)).to(dev)
+            loc, p, pk, sc, _ = foem.scheduled_iem_sweep(
+                batch, local, phi.to(dev), ptot.to(dev),
+                SchedulerState(r, r.sum(-1)), cfg)
+            outs.append([x.cpu() for x in (loc.mu, loc.theta_dk, p, pk,
+                                           sc.r_wk)])
+        else:
+            loc, p, pk = em.iem_sweep(batch, local, phi.to(dev),
+                                      ptot.to(dev), cfg)
+            outs.append([x.cpu() for x in (loc.mu, loc.theta_dk, p, pk)])
+    for a, b in zip(*outs):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("blocks,impl,A", [(4, "fused", 3), (0, "scan", 3),
+                                           (4, "fused", 0)])
+def test_blocked_foem_minibatch_matches_the_cpu(cuda, blocks, impl, A):
+    """A coarse-block / scan inner loop on the card runs the CPU's number of
+    sweeps to the same statistics (K = 8, A = 3: no near-ties in the
+    top-A selection)."""
+    rng = np.random.default_rng(5)
+    D, L, K, W = 32, 12, 8, 60
+    wid = rng.integers(0, W, (D, L)).astype(np.int32)
+    cnt = rng.integers(1, 5, (D, L)).astype(np.float32)
+    cnt[:, -2:] = 0.0
+    phi = (rng.gamma(1.0, 1.0, (W, K)) * 4).astype(np.float32)
+    mu0 = rng.dirichlet(np.ones(K), (D, L)).astype(np.float32)
+    cfg = LDAConfig(num_topics=K, vocab_size=W, max_sweeps=9,
+                    ppl_check_every=3, active_topics=A, iem_blocks=blocks,
+                    sweep_impl=impl)
+    got, want = (foem.foem_minibatch(None, MinibatchData(wid, cnt), phi,
+                                     phi.sum(0), cfg, mu0=mu0, device=dev)
+                 for dev in (cuda, "cpu"))
+    assert got.diag.sweeps_run == want.diag.sweeps_run
+    torch.testing.assert_close(got.phi_wk.cpu(), want.phi_wk, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(got.diag.final_train_ppl.cpu(),
+                               want.diag.final_train_ppl, rtol=1e-4, atol=0)

@@ -8,7 +8,8 @@
   CLI), training (``FOEMTrainer``, ``ops.sweep``, ``foem_minibatch``,
   the train CLI) and the sharded step's meshes (``make_host_mesh``,
   ``spawn_mesh``) — default to ``device="cuda"`` and raise on a host
-  without a GPU instead of falling back to the CPU.
+  without a GPU instead of falling back to the CPU (SEM's and the
+  coarse-block trainer's: ``tests/test_torch_blocked.py``).
 """
 import ast
 import os
@@ -71,6 +72,29 @@ def test_sharded_slice_modules_stand_alone(name):
         "from repro_torch.kernels import build\n"
         "assert 'sharded_sweep' in build.KERNELS\n"
         "assert (build.CSRC / 'sharded_sweep.cu').exists()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("repro_torch.kernels.foem_estep", "fused_estep"),
+    ("repro_torch.kernels.topk_estep", "topk_estep"),
+    ("repro_torch.core.sem", "fused_estep"),
+])
+def test_blocked_slice_modules_stand_alone(name, kernel):
+    """The coarse-block/SEM slice's modules import without JAX, and their
+    kernels' CUDA sources are among the build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.kernels import build\n"
+        f"assert {kernel!r} in build.KERNELS\n"
+        f"assert (build.CSRC / '{kernel}.cu').exists()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

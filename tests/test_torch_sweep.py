@@ -20,6 +20,8 @@ import torch
 from repro.core import em as jem
 from repro.core import scheduling as jsched
 from repro.core.types import LDAConfig as JLDAConfig
+from repro.core.types import LocalState as JLocalState
+from repro.core.types import MinibatchData as JMinibatchData
 from repro.core.types import SchedulerState as JSchedulerState
 from repro.kernels import ops as jops
 from repro_torch.core import em, scheduling
@@ -300,11 +302,20 @@ def test_blocked_iem_sweep_delta_contract():
     np.testing.assert_allclose(dwk.sum(0).numpy(), dk.numpy(), atol=1e-4)
     np.testing.assert_allclose(loc.theta_dk.sum(-1).numpy(),
                                s["cnt"].sum(1), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        em.blocked_iem_sweep(batch, local, torch.from_numpy(s["phi"]),
-                             torch.from_numpy(s["ptot"]),
-                             LDAConfig(num_topics=K, vocab_size=W,
-                                       iem_blocks=2))
+    # coarse blocks: the blocked scan, held against the JAX package's
+    coarse = em.blocked_iem_sweep(batch, local, torch.from_numpy(s["phi"]),
+                                  torch.from_numpy(s["ptot"]),
+                                  LDAConfig(num_topics=K, vocab_size=W,
+                                            iem_blocks=2))
+    want = jem.blocked_iem_sweep(
+        JMinibatchData(jnp.asarray(s["wid"]), jnp.asarray(s["cnt"])),
+        JLocalState(jnp.asarray(s["mu"]), jnp.asarray(s["theta"])),
+        jnp.asarray(s["phi"]), jnp.asarray(s["ptot"]),
+        JLDAConfig(num_topics=K, vocab_size=W, iem_blocks=2))
+    _close(coarse[0].mu.numpy(), want[0].mu, "mu, 2 blocks")
+    _close(coarse[0].theta_dk.numpy(), want[0].theta_dk, "theta, 2 blocks")
+    _close(coarse[1].numpy(), want[1], "delta phi_wk, 2 blocks")
+    _close(coarse[2].numpy(), want[2], "delta phi_k, 2 blocks")
 
 
 @pytest.mark.parametrize("frac", [1.0, 0.6])

@@ -22,6 +22,10 @@
 * ``topk_estep``      — the (T, A) active-set E-step of the blocked
                         scheduled sweep; ``csrc/topk_estep.cu`` replacing
                         ``repro.kernels.topk_estep.topk_estep_pallas``
+* ``flash_attention`` — blockwise online-softmax grouped-query attention,
+                        the attention core of the LM's prefill and decode;
+                        ``csrc/flash_attention.cu`` replacing
+                        ``repro.kernels.flash_attention.flash_attention``
 
 Each kernel's wrapper launches it on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; ``build.py`` compiles the CUDA sources with
@@ -29,6 +33,7 @@ PyTorch version on CPU tensors; ``build.py`` compiles the CUDA sources with
 calls.
 """
 from repro_torch.kernels import (
+    flash_attention,
     foem_estep,
     gs_sweep,
     ops,
@@ -38,5 +43,5 @@ from repro_torch.kernels import (
     topk_estep,
 )
 
-__all__ = ["foem_estep", "gs_sweep", "ops", "scheduled_sweep",
-           "sharded_sweep", "theta_sweep", "topk_estep"]
+__all__ = ["flash_attention", "foem_estep", "gs_sweep", "ops",
+           "scheduled_sweep", "sharded_sweep", "theta_sweep", "topk_estep"]

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 )
 #: Every CUDA source of the port, by kernel name.
 KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep", "sharded_sweep",
-           "fused_estep", "topk_estep")
+           "fused_estep", "topk_estep", "flash_attention")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -22,6 +22,10 @@ the port of ``repro.analysis.validate``):
   and SEM (``em.estep``, ``foem.scheduled_iem_sweep``): one
   :func:`foem_estep.fused_estep` or :func:`topk_estep.topk_estep` call each,
   on the device the tensors lie on.
+* :func:`attention` — grouped-query attention over the flattened
+  (BH, S, d) head layout, the core of the LM's ``attention_apply`` in
+  prefill and decode: one :func:`flash_attention.flash_attention` call, on
+  the device the tensors lie on.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import InferPlan, InferResult, SweepPlan, SweepResult
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import foem_estep as _foem_estep
 from repro_torch.kernels import topk_estep as _topk_estep
 from repro_torch.kernels.gs_sweep import gs_sweep, segment_sum
@@ -48,14 +53,15 @@ from repro_torch.kernels.theta_sweep import (
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 
-__all__ = ["ContractError", "Device", "check_index_ranges", "fused_estep",
-           "infer", "resolve_device", "sweep", "topk_estep",
-           "validate_estep_args", "validate_infer_args",
-           "validate_sweep_args", "validate_topk_args"]
+__all__ = ["ContractError", "Device", "attention", "check_index_ranges",
+           "fused_estep", "infer", "resolve_device", "sweep", "topk_estep",
+           "validate_attention_args", "validate_estep_args",
+           "validate_infer_args", "validate_sweep_args",
+           "validate_topk_args"]
 
 
 class ContractError(ValueError):
-    """An ``ops.sweep``/``ops.infer`` argument violates a launch contract."""
+    """An ``ops`` entry point's argument violates a launch contract."""
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -368,6 +374,34 @@ def topk_estep(theta_a, phi_a, ptot_a, mu_prev_a, counts, active, *,
                                   counts, active)]
     return _topk_estep.topk_estep(*c, alpha_m1=alpha_m1, beta_m1=beta_m1,
                                   wb=float(wb))
+
+
+def validate_attention_args(q, k, v, *, window: int, q_offset: int) -> None:
+    """Check every ``ops.attention`` argument contract — the kernel's
+    (``flash_attention.check_kernel_args``: shapes, ``BH % BHkv == 0``, one
+    type of float32 / bfloat16, head dim in [1, 128], one device,
+    contiguity), a window >= 0 and an int32-safe q_offset — on every
+    device; raise ContractError.  No tensor value is read."""
+    try:
+        _flash.check_kernel_args(q, k, v)
+    except ValueError as e:
+        raise ContractError(str(e)) from None
+    _require(int(window) >= 0, f"window must be >= 0 (0 = none), got {window}")
+    _require(abs(int(q_offset)) < 2 ** 30,
+             f"q_offset must lie in (-2^30, 2^30), got {q_offset}")
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0):
+    """Grouped-query attention over the flattened (BH, Sq, d) query heads
+    and (BHkv, Sk, d) KV heads (query head h reads KV head h // (BH //
+    BHkv)), causal and / or within a sliding ``window``, query row i at
+    position ``i + q_offset``: the kernel on the card, its plain version on
+    the CPU.  The port of the JAX package's ``ops.attention``.
+    Contracts are checked eagerly (``ContractError``)."""
+    validate_attention_args(q, k, v, window=window, q_offset=q_offset)
+    return _flash.flash_attention(q, k, v, causal=causal, window=int(window),
+                                  q_offset=int(q_offset))
 
 
 def _tensor(x) -> torch.Tensor:

@@ -31,6 +31,13 @@ inactive tokens; two launches give the same bits and a row's bits do not
 depend on T.  The coarse-block and ``"scan"`` sweeps and SEM repeat bitwise
 on the card (their folds are sorted segment sums, not atomics), and the
 blocked and SEM trainers give the same store bits with prefetch on and off.
+
+The attention kernel (``flash_attention``) is held against its plain
+version at head dims 17, 32, 120 and 128, Sq = 1 (decode), ragged Sq and
+Sk, a sliding window, MQA and non-causal, in float32 and bfloat16; two
+launches give the same bits and a query row's bits do not depend on Sq;
+the reduced granite and danube LMs' prefill and decode on the card agree
+with the CPU's.
 """
 import numpy as np
 import pytest
@@ -45,6 +52,10 @@ from repro_torch.core.types import (
     SchedulerState,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
 from repro_torch.kernels.foem_estep import fused_estep, fused_estep_reference
 from repro_torch.kernels.gs_sweep import gs_sweep, gs_sweep_reference
 from repro_torch.kernels.scheduled_sweep import (
@@ -667,3 +678,93 @@ def test_blocked_foem_minibatch_matches_the_cpu(cuda, blocks, impl, A):
                                atol=1e-4)
     torch.testing.assert_close(got.diag.final_train_ppl.cpu(),
                                want.diag.final_train_ppl, rtol=1e-4, atol=0)
+
+
+# (rtol, atol) of the attention kernel against its plain version: float32
+# scores and sums in another order; in bfloat16 the output is rounded to
+# 8 bits (an ulp is 7.8e-3 at 1) and p is rounded at another running max
+ATTN_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (8e-3, 1.6e-2)}
+
+
+def _attn_inputs(BH, BHkv, Sq, Sk, d, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((n, s, d), generator=g, device=dev).to(dtype)
+            for n, s in ((BH, Sq), (BHkv, Sk), (BHkv, Sk))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("BH,BHkv,Sq,Sk,d,causal,window,qoff", [
+    (4, 2, 64, 64, 32, True, 0, 0),
+    (8, 2, 70, 70, 120, True, 24, 0),        # ragged, window, d = 120
+    (8, 8, 1, 300, 128, True, 0, 250),       # decode in a deeper cache
+    (32, 8, 1, 4096, 120, True, 4096, 4095),  # danube's ring decode
+    (6, 1, 45, 77, 128, True, 0, 32),        # MQA, ragged Sq and Sk
+    (4, 2, 33, 97, 64, False, 0, 0),         # non-causal
+    (2, 1, 20, 20, 17, True, 0, 0),          # an odd head dim
+    (4, 2, 16, 40, 32, True, 4, 60),         # every row fully masked
+])
+def test_flash_attention_matches_plain(cuda, dtype, BH, BHkv, Sq, Sk, d,
+                                       causal, window, qoff):
+    q, k, v = _attn_inputs(BH, BHkv, Sq, Sk, d, dtype, cuda, Sq + Sk + d)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_reference(q, k, v, **kw)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert torch.equal(flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_row_bits_independent_of_sq(cuda, dtype):
+    """A decode call (Sq = 1, the 16-row tile) gives the bits of the same
+    row in a prefill call (64-row tiles, a wider band of key tiles)."""
+    q, k, v = _attn_inputs(32, 8, 200, 200, 128, dtype, cuda, 1)
+    full = flash_attention(q, k, v, causal=True, window=150)
+    for i in (0, 63, 64, 130, 199):
+        one = flash_attention(q[:, i:i + 1].contiguous(), k, v, causal=True,
+                              window=150, q_offset=i)
+        assert torch.equal(one, full[:, i:i + 1])
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b"])
+def test_reduced_lm_prefill_and_decode_match_the_cpu(cuda, name):
+    """The reduced LM (float32) on the card through the kernel, against
+    the same weights on the CPU through the plain version."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models.lm import tree_map
+
+    cfg = ARCHS[name].reduced()
+    m_cpu, m_gpu = build(cfg, device="cpu"), build(cfg, device=cuda)
+    p_cpu = m_cpu.init_params(torch.Generator().manual_seed(0))
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    # danube's ring (32 slots) wraps during the decode steps
+    B, S, T = 2, 24, 40
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, T)))
+    out = []
+    for m, p in ((m_gpu, p_gpu), (m_cpu, p_cpu)):
+        before = flash_attention.launches
+        logits, pre = m.prefill(p, {"tokens": tok[:, :S]})
+        cache = m.init_cache(B, T)
+        for j in cache:
+            for n in ("k", "v"):
+                cache[j][n][:, :, :, :S] = pre[j][n]
+        steps = []
+        for t in range(S, T):
+            lg, cache = m.decode_step(p, cache, {"tokens": tok[:, t:t + 1]},
+                                      t)
+            steps.append(lg)
+        launched = flash_attention.launches - before
+        out.append((logits.cpu(), torch.cat(steps, 1).cpu(), launched))
+    (lg_g, dec_g, n_g), (lg_c, dec_c, n_c) = out
+    assert n_g == cfg.num_layers * (1 + T - S) and n_c == 0
+    torch.testing.assert_close(lg_g, lg_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dec_g, dec_c, rtol=1e-4, atol=1e-4)

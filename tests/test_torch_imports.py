@@ -6,8 +6,9 @@
   naming ``jax``/``jaxlib`` or ``repro``.
 * The entry points — serving (``TopicServer``, ``ops.infer``, the serve
   CLI), training (``FOEMTrainer``, ``ops.sweep``, ``foem_minibatch``,
-  the train CLI) and the sharded step's meshes (``make_host_mesh``,
-  ``spawn_mesh``) — default to ``device="cuda"`` and raise on a host
+  the train CLI), the sharded step's meshes (``make_host_mesh``,
+  ``spawn_mesh``) and the LM's serving path (``LM``, ``build``,
+  ``params_from_jax``) — default to ``device="cuda"`` and raise on a host
   without a GPU instead of falling back to the CPU (SEM's and the
   coarse-block trainer's: ``tests/test_torch_blocked.py``).
 """
@@ -95,6 +96,33 @@ def test_blocked_slice_modules_stand_alone(name, kernel):
         "from repro_torch.kernels import build\n"
         f"assert {kernel!r} in build.KERNELS\n"
         f"assert (build.CSRC / '{kernel}.cu').exists()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.models.lm",
+    "repro_torch.models.convert",
+    "repro_torch.configs.registry",
+])
+def test_lm_slice_modules_stand_alone(name):
+    """The LM serving slice's modules import without JAX, the registry's
+    config modules too, and the attention kernel's CUDA source is one of
+    the build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.configs.registry import ARCHS\n"
+        "assert all(ARCHS[n].family == 'dense' for n in ARCHS)\n"
+        "from repro_torch.kernels import build\n"
+        "assert 'flash_attention' in build.KERNELS\n"
+        "assert (build.CSRC / 'flash_attention.cu').exists()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -200,3 +228,23 @@ def test_sharded_entry_points_default_to_the_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spawn_mesh(print, 1, 2)
     assert make_host_mesh(device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import LM, build, params_from_jax
+
+    cfg = ARCHS["granite-8b"].reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"w": np.zeros((2, 2), np.float32)})
+    # the explicit CPU choice runs the plain path
+    m = build(cfg, device="cpu")
+    p = m.init_params(torch.Generator().manual_seed(0))
+    logits, _ = m.prefill(p, {"tokens": torch.zeros((1, 3), dtype=torch.long)})
+    assert logits.device.type == "cpu" and logits.shape == (1, 3, 512)

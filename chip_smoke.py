@@ -50,11 +50,13 @@ order:
    serving path's shapes (bf16): granite-8b prefill (8 prompts × 32 query
    heads over 8 KV heads, S = 2,048, d = 128, causal) and decode (Sq = 1 at
    q_offset 2,048..2,079 in a 4,096-slot cache), danube-3-4b (d = 120,
-   window 4,096, S = 6,144) and its ring-ordered decode call, ragged Sq/Sk
-   and MQA at small size, and the prefill_32k length (B = 1, S = 32,768;
-   its last 128 rows checked); each with its bound and the time of one
-   ``scaled_dot_product_attention`` call on the same inputs (a yardstick
-   the port never calls);
+   window 4,096, S = 6,144) and its ring-ordered decode call (which must
+   equal the absolute-position call bitwise), ragged Sq/Sk and MQA at small
+   size, and the prefill_32k length (B = 1, S = 32,768; its last 128 rows
+   checked); each with its bound, its share of the bound and the time of
+   one ``scaled_dot_product_attention`` call on the same inputs (a
+   yardstick the port never calls); after the build it counts the
+   tensor-core instructions (HGMMA, HMMA) in the attention library's SASS;
 10. drives the dense LM's serving path — ``build(granite-8b)`` at full width
    (36 layers, bf16, seeded random weights) prefills 8 prompts of 2,048
    tokens and takes 32 greedy ``decode_step``s into a 4,096-slot cache
@@ -1499,6 +1501,28 @@ def _library_attention(torch, q, k, v, B, causal_square, mask):
     return call, call().view(BH, Sq, d)
 
 
+def _shares(bound_ms, ms, library_ms) -> dict:
+    """The kernel's share of its bound and its time over the library
+    call's (None without one)."""
+    return {"share_of_bound": bound_ms / ms,
+            "vs_library": None if library_ms is None else ms / library_ms}
+
+
+def attention_sass_counts() -> dict:
+    """Tensor-core instructions in the built attention library's SASS
+    (``cuobjdump --dump-sass``): HGMMA (wgmma), HMMA (mma.sync)."""
+    from repro_torch.kernels import build
+
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "--dump-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    return {name: len(re.findall(rf"\b{name}\b", sass))
+            for name in ("HGMMA", "HMMA")}
+
+
 def attention_kernel_phase(torch, dev, report):
     """The flash-attention kernel against its plain version at the LM
     serving path's shapes: granite-8b prefill (8 × 32 heads over 8 × 8, S =
@@ -1546,8 +1570,9 @@ def attention_kernel_phase(torch, dev, report):
                                            - got.float()).abs().max().item()
             rec["library_ms"] = cuda_time_ms(call, reps)
         bound = _attn_bound(q, k, pairs, kv_rows)
-        rec.update(bound_ms=bound[0], bound_by=bound[1], errors={"o": err},
-                   bitwise_repeat=True)
+        rec.update(bound_ms=bound[0], bound_by=bound[1],
+                   **_shares(bound[0], ms, rec["library_ms"]),
+                   errors={"o": err}, bitwise_repeat=True)
         print("attention kernel " + json.dumps(rec))
         lines.append(rec)
         return got, rec
@@ -1583,15 +1608,19 @@ def attention_kernel_phase(torch, dev, report):
     # the ring of the last 4,096 positions rolled into position order, the
     # query at q_offset = Wc - 1: the same keys as the absolute call above
     kr, vr = k[:, Sd - W:].contiguous(), v[:, Sd - W:].contiguous()
+    kp = torch.arange(W, device=dev)
+    ring_mask = ((kp <= W - 1) & (kp > W - 1 - W))[None, None, None]
     ring, _ = run("danube ring decode", q[:, -1:].contiguous(), kr, vr,
                   dict(causal=True, window=W, q_offset=W - 1), 1,
-                  W, W, graph=True, reps=20)
+                  W, W, library=(False, ring_mask), graph=True, reps=20)
     _check_close("danube ring decode", "o vs absolute", ring.float(),
                  full[:, -1:].float(), ATTN_TOL["bfloat16"])
-    lines[-1]["equals_absolute_call_bitwise"] = bool(
-        torch.equal(ring, full[:, -1:]))
-    print("attention ring decode vs the absolute-position call: bitwise "
-          f"{lines[-1]['equals_absolute_call_bitwise']}")
+    same = bool(torch.equal(ring, full[:, -1:]))
+    print(f"attention ring decode vs the absolute-position call: bitwise "
+          f"{same}")
+    check(same, "danube ring decode: the ring-ordered call's bits differ "
+          "from the absolute-position call's")
+    lines[-1]["equals_absolute_call_bitwise"] = same
     del q, k, v, kr, vr, full, ring
     torch.cuda.empty_cache()
 
@@ -1628,6 +1657,7 @@ def attention_kernel_phase(torch, dev, report):
            "kv": list(k.shape), "causal": True, "ms": ms,
            "plain_ms_last_128_rows": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound[0], "bound_by": bound[1],
+           **_shares(bound[0], ms, lib_ms),
            "errors": {"o_last_128_rows": err},
            "last_rows_equal_tail_call": True}
     print("attention kernel " + json.dumps(rec))
@@ -1861,6 +1891,11 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass = attention_sass_counts()
+    print("attention kernel sass (tensor-core instructions): "
+          + json.dumps(sass))
+    check(sass["HGMMA"] > 0, "the attention library has no HGMMA (wgmma) "
+          "instruction: its bf16 path is not on the tensor cores")
 
     dev = torch.device("cuda")
     report = {}

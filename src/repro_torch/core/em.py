@@ -263,7 +263,8 @@ def gs_sweep_with_residuals(
         phi_wk, phi_k,
         alpha_m1=cfg.alpha_m1, beta_m1=cfg.beta_m1, wb=W * cfg.beta_m1,
         compute_loglik=compute_loglik, plan=plan,
-        check_indices=check_indices, device=local.mu.device,
+        check_indices=check_indices, debug_checks=cfg.debug_checks,
+        device=local.mu.device,
     )
     if as_delta:
         r = r._replace(phi_wk=r.phi_wk - phi_wk, phi_k=r.phi_k - phi_k)

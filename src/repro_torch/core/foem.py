@@ -145,7 +145,8 @@ def scheduled_iem_sweep(
         alpha_m1=cfg.alpha_m1, beta_m1=cfg.beta_m1, wb=W * cfg.beta_m1,
         word_topics=word_topics, token_active=token_active,
         compute_loglik=compute_loglik, plan=plan,
-        check_indices=check_indices, device=local.mu.device,
+        check_indices=check_indices, debug_checks=cfg.debug_checks,
+        device=local.mu.device,
     )
     scheduler = sched_lib.scheduler_update_from_sweep(
         scheduler, r.residual, batch.word_ids, word_topics

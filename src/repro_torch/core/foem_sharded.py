@@ -213,7 +213,8 @@ def foem_step_sharded(
     ``cfg.topk_shards`` must equal the model axis size, which must divide K
     and ``cfg.active_topics`` (else ``ValueError``).  Only the two-phase
     engine is ported: ``cfg.sharded_impl == "hooks"`` raises
-    ``ContractError``.
+    ``ContractError``, as does ``cfg.debug_checks`` (the sanitizer is not
+    ported yet).
 
     ``faults`` (or the process-wide active plan) fires ``PRE_PROBE`` once
     per model shard, on every rank, before the step: a ``kill`` raises
@@ -222,6 +223,7 @@ def foem_step_sharded(
     sweeps).  The inner sweeps then run with no active plan, as the JAX
     package's traced sweeps see none.
     """
+    kops.refuse_debug_checks(cfg.debug_checks, "foem_step_sharded")
     if cfg.sharded_impl != "two_phase":
         raise kops.ContractError(
             f"sharded_impl={cfg.sharded_impl!r}: the per-column psum hooks "
@@ -310,7 +312,8 @@ def heldout_perplexity_sharded(
     res = kops.infer(
         wid, est_c, theta0, phi_norm, alpha_m1=cfg.alpha_m1, ev_counts=ev_c,
         word_topics=wt, max_sweeps=fit_sweeps, check_every=check,
-        rel_tol=tol, plan=InferPlan(axis_name=mesh.model), device=dev)
+        rel_tol=tol, plan=InferPlan(axis_name=mesh.model),
+        debug_checks=cfg.debug_checks, device=dev)
     # ev_loglik is reduced over the model axis already: only data remains
     ll, ntok = mesh.data.all_reduce(res.ev_loglik.reshape(1),
                                     ev_c.sum().reshape(1))

@@ -123,6 +123,7 @@ def infer_heldout(
         check_every=cfg.ppl_check_every if check_every is None else check_every,
         rel_tol=cfg.ppl_rel_tol if rel_tol is None else rel_tol,
         plan=InferPlan(phi_dtype=phi_dtype),
+        debug_checks=cfg.debug_checks,
         device=dev,
     )
     return res

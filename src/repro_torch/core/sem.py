@@ -62,8 +62,10 @@ def sem_step(
     package's), else it is drawn from ``generator``.  Inputs may be numpy
     arrays or tensors; they move to ``device`` (default ``"cuda"``, which
     raises without a GPU).  On a local (W_s, K) view ``vocab_size`` carries
-    the global W of the smoothing mass.
+    the global W of the smoothing mass.  ``cfg.debug_checks`` raises
+    ``ContractError`` (the sanitizer is not ported yet).
     """
+    kops.refuse_debug_checks(cfg.debug_checks, "sem_step")
     dev = resolve_device(device)
     wid = torch.as_tensor(batch.word_ids).to(device=dev, dtype=torch.int32)
     counts = torch.as_tensor(batch.counts).to(device=dev, dtype=cfg.dtype)

@@ -42,6 +42,7 @@ import torch
 from repro_torch.core import foem, sem
 from repro_torch.core.streaming import ParameterStore, StreamPrefetcher
 from repro_torch.core.types import GlobalStats, LDAConfig, MinibatchData
+from repro_torch.kernels import ops as kops
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 from repro_torch.sparse.minibatch import Minibatch
@@ -98,6 +99,7 @@ class FOEMTrainer:
             raise ValueError("store/config topic count mismatch")
         if algorithm not in ("foem", "sem"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
+        kops.refuse_debug_checks(cfg.debug_checks, "FOEMTrainer")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.store = store

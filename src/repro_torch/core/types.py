@@ -59,7 +59,9 @@ class LDAConfig:
     tau0: float = 1.0
     kappa: float = 0.9
     rho_mode: str = "accumulate"  # "accumulate" (FOEM eq. 33) | "stepwise" (SEM eq. 20)
-    # --- numerical-invariant checks (no port consumer yet) ---
+    # --- numerical-invariant checks: the sanitizer is not ported yet, so
+    # True raises ContractError at the entry points (ops.infer, ops.sweep,
+    # FOEMTrainer, TopicServer, sem_step, foem_step_sharded) ---
     debug_checks: bool = False
     dtype: torch.dtype = torch.float32
 

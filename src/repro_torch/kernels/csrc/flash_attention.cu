@@ -21,58 +21,93 @@
 //
 // Bound on this card. Prefill is bounded by operations: a causal granite-8b
 // layer (B = 8, 32 heads, S = 2,048, d = 128) is 2.7e11 flops over 0.2 GB of
-// q, k, v and o. Decode (Sq = 1 against a 2,048–4,096-deep cache) is bounded
-// by bytes: every visible key and value is read once, ≈ 4 operations a byte.
+// q, k, v and o, which the bf16 tensor cores do in 0.28 ms at their peak.
+// Decode (Sq = 1 against a 2,048–4,096-deep cache) is bounded by bytes:
+// every visible key and value is read once, ≈ 4 operations a byte.
 //
-// Design, simple and exact first (no tensor cores, no TMA: later work).
-// * A CTA takes one KV head and a tile of BQ rows of the (i, g) pairs of its
-//   G query heads, row r = i·G + g. The G heads that share a KV head share
-//   its K/V tiles, which are read once per tile of rows and not G times; a
-//   decode step (Sq = 1) is G rows, so it runs the BQ = 16 form and warps
-//   without a live row skip the arithmetic.
-// * A loop over the key tiles (BK = 64) takes the place of the TPU's
-//   sequential KV grid axis. Only tiles inside the rows' causal / window band
-//   are visited: a tile that the mask hides entirely would leave m, l and
-//   acc unchanged, so the skip is exact (the TPU code visits every tile).
-//   Decode thus reads cache_pos + 1 keys, not the whole cache.
-// * K and V tiles are staged in shared memory as float32 (K with an XOR
-//   swizzle of its 16-byte chunks, so a warp's float4 reads of 32 keys are
-//   conflict-free); Q stays staged for the CTA's life. 112 KB at d = 128:
-//   two CTAs an SM. Rows of 16-byte multiples (d = 32, 120, 128 in bf16)
-//   are staged with 16-byte loads, each thread's issued before any is used,
-//   so a tile costs about one memory latency; other d load element-wise.
-// * Each warp owns BQ/8 rows (its scores, online-softmax carries and
-//   accumulators live in registers); a lane owns keys lane and lane + 32 of
-//   a tile and output columns 4·lane..4·lane+3 (at d = 128). p goes through
-//   a warp-private shared row, so only the K/V staging needs block barriers.
-// * Row maxima and sums are warp butterflies: every lane gets the same bits,
-//   and the order of every sum is fixed, so two launches give the same bits.
+// Rules both paths keep.
+// * A CTA takes one KV head and a tile of rows of the (i, g) pairs of its G
+//   query heads, row r = i·G + g. The G heads that share a KV head share
+//   its K/V tiles, which are read once per tile of rows and not G times.
+// * A loop over key tiles (BK = 64 keys in float32, 128 in bf16) takes the
+//   place of the TPU's sequential KV grid axis. Only tiles inside the rows'
+//   causal / window band are visited, from the band's first BK-aligned
+//   tile: a tile that the mask hides entirely from a row leaves its m, l
+//   and acc unchanged, so the skip is exact and a row's bits do not depend
+//   on the other rows of its CTA (the TPU code visits every tile). Decode
+//   reads the keys up to cache_pos, not the whole cache.
+// * Row maxima and sums are butterflies and trees in a fixed order: every
+//   lane gets the same bits and two launches give the same bits. No
+//   atomics.
 // * The heaviest row tiles (the causal band's end) are launched first.
+//
+// float32 (CUDA cores). K and V tiles are staged in shared memory (K with an
+// XOR swizzle of its 16-byte chunks, so a warp's float4 reads of 32 keys are
+// conflict-free); Q stays staged for the CTA's life; 256 threads, BQ = 64
+// rows (16 for a decode step, Sq·G <= 16). Each warp owns BQ/8 rows; a lane
+// owns keys lane and lane + 32 of a tile and output columns 4·lane.. (at
+// d = 128); p goes through a warp-private shared row. Rows of 16-byte
+// multiples are staged with 16-byte loads, each thread's issued before any
+// is used. Scores and p·v are fmaf chains: the tensor cores' TF32 would
+// round the inputs to 10 bits.
+//
+// bfloat16 (tensor cores: wgmma, TMA, warp specialisation).
+// * Threads: NWG consumer warpgroups of 64 rows each, then a producer
+//   warpgroup whose first warp fills the K/V ring. Prefill (Sq·G > 16)
+//   takes NWG = 2 (128 rows; setmaxnreg moves the producer's registers to
+//   the consumers: 24 against 240 a thread); a decode step's G rows are
+//   padded into one 64-row tile (NWG = 1: decode is bound by bytes, and the
+//   padding rows cost no bytes). Both forms run the same per-row
+//   arithmetic (the same instructions, tile shape, BK and order of key
+//   tiles), so a row's bits do not depend on Sq: a decode row equals the
+//   same row of a prefill call.
+// * Shared tiles are bf16 in the 128-byte-swizzled layout that TMA writes
+//   and wgmma reads: blocks of 64 columns (128 bytes a row; d <= 64 pads to
+//   one block, d <= 128 to two), chunk c of row r at c ^ (r mod 8). Columns
+//   past d and key rows past Sk are zeros, which is exact (d = 120, 17). A
+//   ring of three stages of 128 keys (64 KB of K and V at d = 128) and Q:
+//   225 KB for prefill, 209 KB for decode, one CTA an SM.
+// * The producer: when k and v have 16-byte-aligned bases and rows (d a
+//   multiple of 8), one lane issues TMA loads of each 128-key × 64-column
+//   block (3-D maps over (d, Sk, BHkv), whose out-of-bounds fill supplies
+//   the zeros) against a full barrier that counts the bytes; otherwise the
+//   warp's 32 lanes load elements into the same swizzled layout. Consumers
+//   free a stage through its empty barrier. The consumers load Q once
+//   (cp.async when aligned; rows r = i·G + g are not one TMA box).
+// * Consumers: S = Q·Kᵀ by wgmma m64n128k16 from shared memory (both
+//   K-major) into float32 registers; scale, mask (only on tiles that some
+//   row of the warp does not wholly see) and the online softmax on the
+//   accumulator fragment (a row lives in a quad of lanes: a tree over the
+//   thread's 32 columns, then two shuffles), p = 2^(s·log2 e − m·log2 e)
+//   by ex2.approx; P to bf16 in registers is the A operand of wgmma
+//   m64n{64,128}k16 against V (MN-major B) accumulating into acc, which is
+//   rescaled only when a row's max moved (a factor 1 is exact). Software
+//   pipeline: tile t + 1's scores are issued with tile t's p·v, and t + 1's
+//   softmax runs while p·v is on the tensor cores. The epilogue divides
+//   and stores bf16.
+#include <cuda.h>             // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;         // float32 path
 constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 64;               // keys a tile
+constexpr int kBK = 64;               // keys a tile, float32 path
+constexpr int kBKT = 128;             // keys a tile, bf16 path
 constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
 
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 // p rounded to v's type, as the TPU kernel's p.astype(v.dtype)
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -113,15 +148,6 @@ __device__ __forceinline__ void put16(float* tile, int r, int cc,
                                          __uint_as_float(raw.y),
                                          __uint_as_float(raw.z),
                                          __uint_as_float(raw.w)));
-}
-template <int DP, bool SWZ>
-__device__ __forceinline__ void put16(float* tile, int r, int cc,
-                                      uint4 raw, const __nv_bfloat16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
-  put4<DP, SWZ>(tile, r, 2 * cc, make_float4(a.x, a.y, b.x, b.y));
-  put4<DP, SWZ>(tile, r, 2 * cc + 1, make_float4(c.x, c.y, e.x, e.y));
 }
 
 // Stage rows [0, n) × columns [0, d) of one or two (n, d) blocks into shared
@@ -437,6 +463,698 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* o,
                           q_offset, scale, st);
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (wgmma), TMA, warp specialisation
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// arrive and expect `bytes` of TMA traffic before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one TMA box (c0, c1, c2) of a 3-D map into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+// generic-proxy stores to shared memory, visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving register uses across an async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (encoded in 16-byte units)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (m64 x n128, float32) = A · B (accumulate = 0) or d + A · B, A and B
+// bf16 in shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x n64, float32) += A · B, A bf16 in registers (a fragment), B
+// bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (m64 x n128, float32) += A · B, A bf16 in registers (a fragment), B
+// bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Byte offset of 16-byte chunk `ch` (columns 8·ch..8·ch+7) of row r in a
+// swizzled tile of R rows: 64-column blocks of R rows × 128 bytes, chunk c
+// of row r at c ^ (r mod 8) — what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
+// into a 1024-byte-aligned block, and what a 128-byte-swizzle descriptor
+// reads.
+__device__ __forceinline__ uint32_t swz(int R, int r, int ch) {
+  return (uint32_t)((ch >> 3) * R * 128 + r * 128 +
+                    (((ch & 7) ^ (r & 7)) << 4));
+}
+
+// Columns 8·ch..8·ch+7 of a row, element by element, zeros past column d.
+__device__ __forceinline__ uint4 load_chunk(const __nv_bfloat16* row, int ch,
+                                            int d) {
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = 8 * ch + 2 * e;
+    const uint32_t lo = c < d ? __bfloat16_as_ushort(row[c]) : 0u;
+    const uint32_t hi = c + 1 < d ? __bfloat16_as_ushort(row[c + 1]) : 0u;
+    w[e] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Rows [0, R) × DP columns of a swizzled tile, by threads t, t + nt, ...:
+// row r < n from row_ptr(r), zeros past column d and for r >= n. With
+// `async` (d a multiple of 8, 16-byte-aligned rows) each 16-byte chunk is a
+// cp.async, all of them in flight before the wait; otherwise element loads.
+template <int DP, typename RowPtr>
+__device__ __forceinline__ void stage_rows(uint8_t* tile, int R, int n, int d,
+                                           bool async, RowPtr row_ptr, int t,
+                                           int nt) {
+  constexpr int CPR = DP / 8;                 // chunks a row
+  for (int idx = t; idx < R * CPR; idx += nt) {
+    const int r = idx / CPR, ch = idx % CPR;
+    uint8_t* dst = tile + swz(R, r, ch);
+    if (async && r < n && 8 * ch < d)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_u32(dst)),
+                   "l"(row_ptr(r) + 8 * ch)
+                   : "memory");
+    else
+      *reinterpret_cast<uint4*>(dst) =
+          r < n ? load_chunk(row_ptr(r), ch, d) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (async) asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {        // 2^x, 0 below 2^-126
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One key tile's scores of a thread's two rows h = 0, 1 (fragment element
+// 4j + 2h + e is key column 8j + 2·quad + e of the tile). With MASK, column
+// 8j + e + 2·quad is visible iff a[h] <= 8j + e < b[h] (a, b shifted by
+// 2·quad); without, every column is. Scale and mask the scores (NEG_INF),
+// then the online softmax: the row max (a tree over the thread's columns,
+// then lanes ^1, ^2 of the quad), alpha = exp(m − m_new), p = exp(s − m_new)
+// as 2^(s·log2 e − m_new·log2 e) left in sc, summed unrounded into l by a
+// fixed tree (the same lanes). A visible column's arithmetic is the same
+// with and without MASK.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBKT / 2],
+                                             const int (&a)[2],
+                                             const int (&b)[2], float scale,
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int NJ = kBKT / 8;                // 8-column groups a tile
+  auto visible = [&](int h, int c) { return c >= a[h] && c < b[h]; };
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * h + e;
+        const float v = __fmul_rn(sc[x], scale);
+        sc[x] = !MASK || visible(h, 8 * j + e) ? v : kNegInf;
+      }
+  float mx[2], nm[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      t[j] = fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+#pragma unroll
+    for (int w = NJ / 2; w > 0; w /= 2)    // constant trip counts: unrolled
+#pragma unroll
+      for (int j = 0; j < NJ / 2; ++j)
+        if (j < w) t[j] = fmaxf(t[2 * j], t[2 * j + 1]);
+    mx[h] = t[0];
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(~0u, mx[h], o));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], mx[h]);
+    alpha[h] = ex2(__fmul_rn(__fsub_rn(m[h], m_new), kLog2e));
+    nm[h] = __fmul_rn(m_new, -kLog2e);
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * h + e;
+        const float p = ex2(__fmaf_rn(sc[x], kLog2e, nm[h]));
+        sc[x] = !MASK || visible(h, 8 * j + e) ? p : 0.f;
+      }
+  float ps[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      t[j] = __fadd_rn(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+#pragma unroll
+    for (int w = NJ / 2; w > 0; w /= 2)
+#pragma unroll
+      for (int j = 0; j < NJ / 2; ++j)
+        if (j < w) t[j] = __fadd_rn(t[2 * j], t[2 * j + 1]);
+    ps[h] = t[0];
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ps[h] = __fadd_rn(ps[h], __shfl_xor_sync(~0u, ps[h], o));
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    l[h] = __fadd_rn(__fmul_rn(alpha[h], l[h]), ps[h]);
+}
+
+// p (a tile's sc after softmax_tile) rounded to bf16 as the A fragments of
+// the 16-key steps: pa[4kk..4kk + 3] of step kk hold columns 16kk.. =
+// fragment groups 2kk and 2kk + 1, i.e. sc[8kk..8kk + 7] in pairs
+__device__ __forceinline__ void pack_p(const float (&sc)[kBKT / 2],
+                                       uint32_t (&pa)[kBKT / 4]) {
+#pragma unroll
+  for (int x = 0; x < kBKT / 4; ++x)
+    pa[x] = pack_bf16(sc[2 * x], sc[2 * x + 1]);
+}
+
+template <int NWG, int STAGES, int DP>
+constexpr size_t bf16_smem_bytes() {
+  // 1,024 bytes of slack to align the swizzled tiles, Q, the K/V ring, and
+  // a full and an empty barrier a stage
+  return 1024 + (size_t)NWG * 64 * DP * 2 +
+         (size_t)STAGES * 2 * kBKT * DP * 2 + (size_t)STAGES * 2 * 8;
+}
+
+template <int NWG, int STAGES, int DP>
+__global__ void __launch_bounds__(NWG * 128 + 128, 1)
+    flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ o, int group,
+                                int sq, int sk, int d, int causal, int window,
+                                int q_offset, float scale, int ntiles, int tma,
+                                int qvec) {
+  constexpr int ROWS = NWG * 64;              // query rows a CTA
+  constexpr int NA = DP / 2;                  // acc floats a consumer thread
+  constexpr int NS = kBKT / 2;                // score floats a thread
+  constexpr int KSTEPS = kBKT / 16;           // 16-key steps of p·v
+  constexpr int BLK = kBKT * 128;             // BK keys × 64 columns
+  constexpr int TBYTES = kBKT * DP * 2;       // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = Qs + ROWS * DP * 2;           // [STAGES] tiles
+  uint8_t* Vs = Ks + STAGES * TBYTES;         // [STAGES] tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * TBYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int hk = blockIdx.x / ntiles;
+  const int tile = ntiles - 1 - (int)(blockIdx.x % ntiles);
+  const int r0 = tile * ROWS;         // sq·group < 2^31 (the launcher checks)
+  const int nrows = min(ROWS, sq * group - r0);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(full + s), tma ? 1 : 32);
+      mbar_init(smem_u32(empty + s), NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the band of keys some row of this tile sees, from its first BK-aligned
+  // tile
+  const int i_lo = r0 / group;
+  const int i_hi = (r0 + nrows - 1) / group;
+  long long k_begin = 0, k_end = sk;
+  if (causal) k_end = min(k_end, (long long)i_hi + q_offset + 1);
+  if (window > 0)
+    k_begin = max(k_begin, (long long)i_lo + q_offset - window + 1);
+  const long long kfirst = k_begin < k_end ? (k_begin / kBKT) * kBKT : k_end;
+  const int ntile = (int)((k_end - kfirst + kBKT - 1) / kBKT);
+
+  if (tid >= NWG * 128) {
+    // producer warpgroup: its registers go to the consumers (two consumer
+    // warpgroups hold acc, S and P in 240 each); its first warp fills the
+    // ring
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid >= NWG * 128 + 32) return;
+    const int lane = tid - NWG * 128;
+    const __nv_bfloat16* kh = k + (size_t)hk * sk * d;
+    const __nv_bfloat16* vh = v + (size_t)hk * sk * d;
+    for (int t = 0; t < ntile; ++t) {
+      const int s = t % STAGES, n = t / STAGES;
+      const long long kb = kfirst + (long long)t * kBKT;
+      if (n > 0) mbar_wait(smem_u32(empty + s), (n - 1) & 1);
+      uint8_t* kt = Ks + s * TBYTES;
+      uint8_t* vt = Vs + s * TBYTES;
+      if (tma) {
+        if (lane == 0) {
+          const uint32_t bar = smem_u32(full + s);
+          mbar_expect_tx(bar, 2 * TBYTES);
+#pragma unroll
+          for (int b = 0; b < DP / 64; ++b) {
+            tma_load_3d(smem_u32(kt + b * BLK), &kmap, bar, 64 * b, (int)kb,
+                        hk);
+            tma_load_3d(smem_u32(vt + b * BLK), &vmap, bar, 64 * b, (int)kb,
+                        hk);
+          }
+        }
+      } else {
+        const int nk = (int)min((long long)kBKT, (long long)sk - kb);
+        stage_rows<DP>(kt, kBKT, nk, d, false, [&](int r) {
+          return kh + (size_t)(kb + r) * d;
+        }, lane, 32);
+        stage_rows<DP>(vt, kBKT, nk, d, false, [&](int r) {
+          return vh + (size_t)(kb + r) * d;
+        }, lane, 32);
+        fence_proxy_async();
+        mbar_arrive(smem_u32(full + s));
+      }
+    }
+    return;
+  }
+
+  if constexpr (NWG == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  // consumer warpgroup wg: rows wg·64.. of the tile. In a wgmma m64nN
+  // fragment a thread holds rows rl[0] = wg·64 + 16·warp + lane/4 and
+  // rl[1] = rl[0] + 8; element 4j + 2h + e is row rl[h], column
+  // 8j + 2·(lane mod 4) + e.
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int quad = lane & 3;
+  long long lo[2], hi[2];             // a row's visible keys [lo, hi)
+  bool valid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+    const long long qpos = (long long)((r0 + rl) / group) + q_offset;
+    valid[h] = rl < nrows;
+    lo[h] = window > 0 ? max(0LL, qpos - window + 1) : 0;
+    hi[h] = causal ? min((long long)sk, qpos + 1) : (long long)sk;
+    if (!valid[h]) hi[h] = 0;
+  }
+  // warps without a row of the call (a decode step's padding) skip the
+  // softmax and feed p = 0
+  const bool live = __any_sync(~0u, valid[0] || valid[1]);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NA], sc[NS];
+#pragma unroll
+  for (int x = 0; x < NA; ++x) acc[x] = 0.f;
+#pragma unroll
+  for (int x = 0; x < NS; ++x) sc[x] = 0.f;
+  uint32_t pa[4 * KSTEPS];
+  const uint32_t qaddr = smem_u32(Qs) + wg * 64 * 128;
+  // Q, while the producer starts on the ring; then a barrier of the
+  // consumer warps alone (named barrier 1)
+  stage_rows<DP>(Qs, ROWS, nrows, d, qvec != 0, [&](int r) {
+    const int i = (r0 + r) / group, g = (r0 + r) % group;
+    return q + (((size_t)hk * group + g) * sq + i) * d;
+  }, tid, NWG * 128);
+  fence_proxy_async();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
+
+  // S = Q · Kᵀ of ring stage s into sc: DP/16 steps of 16 columns, 32 bytes
+  // into a 128-byte row (issued, not waited for)
+  auto issue_scores = [&](int s) {
+    const uint32_t kaddr = smem_u32(Ks + s * TBYTES);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n128(sc,
+                    gmma_desc(qaddr + (kk >> 2) * ROWS * 128 + (kk & 3) * 32,
+                              16, 1024),
+                    gmma_desc(kaddr + (kk >> 2) * BLK + (kk & 3) * 32, 16,
+                              1024),
+                    kk > 0);
+    wgmma_commit();
+  };
+  // acc += P · V of ring stage s: KSTEPS steps of 16 keys (16 rows × 128
+  // bytes of the V tile); V's 64-column blocks are BLK apart (issued, not
+  // waited for)
+  auto issue_pv = [&](int s) {
+    const uint32_t vaddr = smem_u32(Vs + s * TBYTES);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint64_t dv = gmma_desc(vaddr + kk * 16 * 128, BLK, 1024);
+      if constexpr (DP == 128)
+        wgmma_rs_n128(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                      pa[4 * kk + 3], dv);
+      else
+        wgmma_rs_n64(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                     pa[4 * kk + 3], dv);
+    }
+    wgmma_commit();
+  };
+  // the softmax of tile t's scores (waited for): p left in sc, alpha
+  auto softmax = [&](int t, float (&alpha)[2]) {
+    fence_regs(sc);
+    alpha[0] = alpha[1] = 1.f;
+    if (!live) {
+#pragma unroll
+      for (int x = 0; x < NS; ++x) sc[x] = 0.f;
+      return;
+    }
+    const long long kb = kfirst + (long long)t * kBKT;
+    int a[2], b[2];                   // visible columns, shifted by 2·quad
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a[h] = (int)max(0LL, min((long long)kBKT, lo[h] - kb)) - 2 * quad;
+      b[h] = (int)max(0LL, min((long long)kBKT, hi[h] - kb)) - 2 * quad;
+    }
+    // the mask only where some row of the warp does not see the whole tile
+    if (__any_sync(~0u, a[0] > -2 * quad || b[0] < kBKT - 2 * quad ||
+                            a[1] > -2 * quad || b[1] < kBKT - 2 * quad))
+      softmax_tile<true>(sc, a, b, scale, m, l, alpha);
+    else
+      softmax_tile<false>(sc, a, b, scale, m, l, alpha);
+  };
+
+  // software pipeline: tile t + 1's scores run on the tensor cores while
+  // tile t's p·v is issued and t + 1's softmax runs; acc is rescaled by
+  // t + 1's alpha once t's p·v has landed, so acc = alpha·acc + p·v in the
+  // order of an unpipelined loop. The loop body has no branch around a
+  // wgmma, so the compiler can keep the two groups in flight.
+  if (ntile > 0) {
+    float alpha[2];
+    mbar_wait(smem_u32(full), 0);
+    issue_scores(0);
+    wgmma_wait<0>();
+    softmax(0, alpha);                // acc is 0: no rescale
+    pack_p(sc, pa);
+  }
+  for (int t = 0; t + 1 < ntile; ++t) {
+    const int s = t % STAGES, s1 = (t + 1) % STAGES;
+    mbar_wait(smem_u32(full + s1), ((t + 1) / STAGES) & 1);
+    issue_scores(s1);
+    issue_pv(s);
+    float alpha[2];
+    wgmma_wait<1>();                  // tile t + 1's scores
+    softmax(t + 1, alpha);
+    wgmma_wait<0>();                  // tile t's p·v
+    fence_regs(acc);
+    fence_regs(pa);
+    mbar_arrive(smem_u32(empty + s));
+    if (__any_sync(~0u, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll                        // (a factor 1 is exact: skipped)
+      for (int x = 0; x < NA; ++x)
+        acc[x] = __fmul_rn(acc[x], alpha[(x >> 1) & 1]);
+    }
+    pack_p(sc, pa);
+  }
+  if (ntile > 0) {                    // the last tile's p·v
+    issue_pv((ntile - 1) % STAGES);
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!valid[h]) continue;
+    const int r = r0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+    const int i = r / group, g = r % group;
+    __nv_bfloat16* orow = o + (((size_t)hk * group + g) * sq + i) * d;
+    const float den = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * quad + e;
+        if (col < d)
+          orow[col] = __float2bfloat16(__fdiv_rn(acc[4 * j + 2 * h + e], den));
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The 3-D TMA map of a (bhkv, sk, d) bf16 tensor: boxes of 64 columns × BK
+// keys of one head, 128-byte swizzle, zeros out of bounds.
+cudaError_t kv_map(CUtensorMap* map, const void* base, int bhkv, int sk,
+                   int d) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)sk,
+                              (cuuint64_t)bhkv};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)sk * d * 2};
+  const cuuint32_t box[3] = {64, kBKT, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NWG, int STAGES, int DP>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int bhkv, int group, int sq, int sk, int d, int causal,
+                        int window, int q_offset, float scale,
+                        cudaStream_t stream) {
+  auto kernel = flash_attention_bf16_kernel<NWG, STAGES, DP>;
+  constexpr size_t smem = bf16_smem_bytes<NWG, STAGES, DP>();
+  // the attribute is per function and device, set at its first launch
+  // there (not again: a launch may be captured into a CUDA graph)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured[dev] = true;
+  }
+  constexpr int ROWS = NWG * 64;
+  const long long rows = (long long)sq * group;
+  const int ntiles = (int)((rows + ROWS - 1) / ROWS);
+  const long long grid = (long long)bhkv * ntiles;
+  if (rows > 0x7fffffffLL - ROWS || grid > 0x7fffffffLL ||
+      (long long)sk + kBKT > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  // TMA for K and V: 16-byte-aligned bases and rows (d a multiple of 8)
+  CUtensorMap kmap, vmap;
+  memset(&kmap, 0, sizeof(kmap));
+  memset(&vmap, 0, sizeof(vmap));
+  const uintptr_t kv = reinterpret_cast<uintptr_t>(k) |
+                       reinterpret_cast<uintptr_t>(v);
+  const int tma = d % 8 == 0 && kv % 16 == 0 && sk > 0;
+  if (tma) {
+    err = kv_map(&kmap, k, bhkv, sk, d);
+    if (err == cudaSuccess) err = kv_map(&vmap, v, bhkv, sk, d);
+    if (err != cudaSuccess) return err;
+  }
+  const int qvec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  kernel<<<(unsigned)grid, NWG * 128 + 128, smem, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      group, sq, sk, d, causal, window, q_offset, scale, ntiles, tma, qvec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16_form(const void* q, const void* k, const void* v,
+                             void* o, int bhkv, int group, int sq, int sk,
+                             int d, int causal, int window, int q_offset,
+                             float scale, cudaStream_t st) {
+  // a decode step's few rows (Sq·G <= 16): one 64-row warpgroup, a deeper
+  // ring; prefill: two warpgroups (128 rows), two stages
+  const bool decode = (long long)sq * group <= 16;
+  if (d <= 64)
+    return decode ? launch_bf16<1, 3, 64>(q, k, v, o, bhkv, group, sq, sk, d,
+                                          causal, window, q_offset, scale, st)
+                  : launch_bf16<2, 3, 64>(q, k, v, o, bhkv, group, sq, sk, d,
+                                          causal, window, q_offset, scale, st);
+  return decode ? launch_bf16<1, 3, 128>(q, k, v, o, bhkv, group, sq, sk, d,
+                                         causal, window, q_offset, scale, st)
+                : launch_bf16<2, 3, 128>(q, k, v, o, bhkv, group, sq, sk, d,
+                                         causal, window, q_offset, scale, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -454,8 +1172,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_t<__nv_bfloat16>(q, k, v, o, bhkv, group, sq, sk, d,
-                                   causal, window, q_offset, scale, st);
+    return launch_bf16_form(q, k, v, o, bhkv, group, sq, sk, d, causal,
+                            window, q_offset, scale, st);
   return launch_t<float>(q, k, v, o, bhkv, group, sq, sk, d, causal, window,
                          q_offset, scale, st);
 }

@@ -12,7 +12,10 @@ attention core (``models.layers.attention_apply``) reaches it through
 
 * On CUDA tensors the wrapper runs the hand-written kernel
   ``csrc/flash_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first
-  use, see ``kernels/build.py``): one launch.  It never falls back.
+  use, see ``kernels/build.py``): one launch — bfloat16 on the tensor cores
+  (wgmma, with K/V tiles streamed by TMA when their rows are 16-byte
+  aligned, by plain loads otherwise), float32 on the CUDA cores.  It never
+  falls back: a refused launch or a failed build raises.
 * On CPU tensors it runs :func:`flash_attention_reference`, the plain
   version: the JAX package's ``ref.mha_ref`` with the TPU kernel's
   arithmetic (float32 scores and softmax, ``p`` rounded to ``v``'s type

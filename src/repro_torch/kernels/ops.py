@@ -69,6 +69,18 @@ def _require(ok: bool, msg: str) -> None:
         raise ContractError(msg)
 
 
+def refuse_debug_checks(debug_checks: bool, where: str) -> None:
+    """Raise ContractError for ``debug_checks=True``: the JAX package's
+    numerical-invariant sanitizer (``cfg.debug_checks``) is not ported yet
+    (ROADMAP.md queue 1 item 6), and a request for checks must not pass
+    silently unchecked."""
+    _require(not debug_checks,
+             f"{where}: debug_checks=True asks for the numerical-invariant "
+             "sanitizer, which the port does not have yet (ROADMAP.md "
+             "queue 1 item 6, the sanitizer port); run with "
+             "debug_checks=False")
+
+
 def _is_int(t: torch.Tensor) -> bool:
     return not (t.dtype.is_floating_point or t.dtype.is_complex
                 or t.dtype == torch.bool)
@@ -454,6 +466,7 @@ def infer(
     check_every: int = 10,
     rel_tol: float = 0.0,
     plan: Optional[InferPlan] = None,
+    debug_checks: bool = False,  # the sanitizer: not ported, refused
     device: Device = "cuda",
 ) -> InferResult:
     """Frozen-φ inference for unseen documents — THE serving entry point.
@@ -492,7 +505,10 @@ def infer(
       It takes float32 φ only.
     * ``word_ids`` outside [0, W_s) or ``word_topics`` outside [0, K)
       raise ``ContractError`` on every device, before any launch.
+    * ``debug_checks=True`` (``cfg.debug_checks``) raises ``ContractError``:
+      the sanitizer it asks for is not ported yet.
     """
+    refuse_debug_checks(debug_checks, "ops.infer")
     dev = resolve_device(device)
     phi_dtype = plan.phi_dtype if plan is not None else "float32"
     word_ids, est_counts = _tensor(word_ids), _tensor(est_counts)
@@ -662,6 +678,7 @@ def sweep(
     renorm_psum=None,
     plan: Optional[SweepPlan] = None,
     check_indices: bool = True,
+    debug_checks: bool = False,  # the sanitizer: not ported, refused
     device: Device = "cuda",
 ) -> SweepResult:
     """One column-serial Gauss-Seidel sweep — THE sweep entry point.
@@ -690,9 +707,12 @@ def sweep(
       The raw ``norm_psum``/``renorm_psum`` hooks of the JAX package's
       per-column hooks mode are not ported yet and raise
       ``ContractError``.
+    * ``debug_checks=True`` (``cfg.debug_checks``) raises ``ContractError``:
+      the sanitizer it asks for is not ported yet.
     * The process-wide fault plan's ``PRE_PROBE`` point fires first
       (``runtime.faults.fire_active``).
     """
+    refuse_debug_checks(debug_checks, "ops.sweep")
     fault_lib.fire_active(fault_lib.PRE_PROBE)
     dev = resolve_device(device)
     word_ids, counts, mu = _tensor(word_ids), _tensor(counts), _tensor(mu)

@@ -96,7 +96,8 @@ def _infer_local(word_ids, counts, ev_counts, rows, phi_k, cfg: LDAConfig,
             if active_topics else None
         ),
         max_sweeps=fit_sweeps, check_every=check_every, rel_tol=rel_tol,
-        plan=InferPlan(phi_dtype=phi_dtype), device=device,
+        plan=InferPlan(phi_dtype=phi_dtype), debug_checks=cfg.debug_checks,
+        device=device,
     )
     return em.normalize_theta(res.theta, cfg), res.sweeps, res.ev_loglik
 
@@ -130,6 +131,7 @@ class TopicServer:
                  phi_dtype: str = "float32",
                  hot_rows: int = 0,
                  device: Device = "cuda"):
+        kops.refuse_debug_checks(cfg.debug_checks, "TopicServer")
         self.device = resolve_device(device)
         self.store = store
         self.cfg = cfg

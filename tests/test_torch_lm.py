@@ -13,6 +13,10 @@ taken in another order (XLA's and PyTorch's matrix products, one softmax
 against the TPU kernel's online form) drift by ~1e-6 relative a layer;
 1e-5 for single layers.
 
+In bfloat16 (both packages, the same bf16 weights) the prefill logits and
+caches agree within two bf16 ulps (``BF16_RTOL``/``BF16_ATOL``, with their
+reason), and greedy tokens wherever the top-2 gap is wider.
+
 Ports of ``tests/test_models_smoke.py``'s prefill-then-decode continuity
 (:61), ring-cache decode (:99) and chunked-vs-unchunked attention (:182)
 run within the port and against the JAX side.
@@ -138,6 +142,42 @@ def test_prefill_matches_jax(name):
             assert ct[j][n].shape == cj[j][n].shape
             np.testing.assert_allclose(ct[j][n].numpy(), _np(cj[j][n]),
                                        atol=ATOL, rtol=RTOL)
+
+
+# bf16 logits against the JAX package's, (rtol, atol): bf16 keeps 8
+# significant bits, one ulp is 2^-7 relative (0.031 at |logit| in [4, 8));
+# the two packages round layer outputs at other places (XLA fuses the
+# elementwise work between matrix products, PyTorch rounds after each op),
+# which moves a logit by one or two ulps over four layers: atol two ulps at
+# [2, 4), rtol one ulp
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 0.0625
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_bf16_prefill_matches_jax(name):
+    """The reduced LM in bfloat16 in both packages, the JAX weights carried
+    across bit for bit: logits and caches of a 2 × 16-token prefill within
+    the bf16 tolerance, and the greedy token equal wherever the JAX
+    logits' top-2 gap exceeds it."""
+    mj, pj, mt, pt = _pair(name, 3, dtype="bfloat16")
+    B, S = 2, 16
+    tok = _tokens(mt.cfg, B, S, 4)
+    lj, cj = mj.prefill(pj, {"tokens": jnp.asarray(tok, jnp.int32)})
+    lt, ct = mt.prefill(pt, {"tokens": torch.from_numpy(tok)})
+    assert lt.dtype == torch.bfloat16 and lj.dtype == jnp.bfloat16
+    got, want = lt.float().numpy(), _np(lj)
+    np.testing.assert_allclose(got, want, atol=BF16_ATOL, rtol=BF16_RTOL)
+    for j in cj:
+        for n in ("k", "v"):
+            np.testing.assert_allclose(ct[j][n].float().numpy(),
+                                       _np(cj[j][n]), atol=BF16_ATOL,
+                                       rtol=BF16_RTOL)
+    top2 = np.sort(want, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > BF16_ATOL + BF16_RTOL * np.abs(
+        top2[..., 1])
+    assert clear.sum() >= clear.size // 2
+    np.testing.assert_array_equal(got.argmax(-1)[clear],
+                                  want.argmax(-1)[clear])
 
 
 @pytest.mark.parametrize("name", DENSE)

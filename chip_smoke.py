@@ -20,7 +20,8 @@ order:
 3. holds the two training sweep kernels (``gs_sweep``, ``scheduled_sweep``)
    against their plain versions at the ``stream_1k`` training shapes (one
    bucketed 1,024 × 128 minibatch, K = 10,000, A = 16), with and without
-   the stop-rule phase;
+   the stop-rule phase, each time beside its prior design's, its share of
+   the bound and its CUDA launches per call;
 4. drives the training path — ``FOEMTrainer(device="cuda")`` for three
    minibatches of ``lda_config(stream_1k)`` on the same store, then one
    more step under ``torch.profiler`` — and serves a batch from the
@@ -28,7 +29,8 @@ order:
 5. holds the two kernels of the topic-sharded sweep (``sharded_probe``,
    ``sharded_fold``) against their plain versions at one rank's share of
    the stream_1k width (K/mp = 2,500 of K = 10,000 lanes, all W = 141,043
-   rows, the 1,024 × 128 minibatch), dense and scheduled (A/mp = 4), and
+   rows, the 1,024 × 128 minibatch), dense and scheduled (A/mp = 4; times
+   as for the sweeps), and
    measures where the fold's running φ̂(k) total drifts from its rows: the
    kernel, and the plain version in float32 and in float64, from one
    renormalised two-phase state;
@@ -116,6 +118,15 @@ SWEEP_TOL_REASON = (
     "atol 1 token); the loglik sums 1e5 token partials (rtol 1e-5). "
     "rtol 1e-4 elsewhere covers K = 1e4 term sums in another order carried "
     "through 128 Gauss-Seidel columns")
+# The sweep kernels' times at these shapes in their prior design (an
+# E-step and a fold launch a column; its final run of this script on an
+# H100 80GB HBM3, 700.00 W; PERF.md §6), printed beside this run's
+PRIOR_MS = {"dense": 33.851, "dense +loglik": 37.865,
+           "scheduled A=16": 16.643, "scheduled A=16 +loglik": 21.204,
+           "probe dense": 0.989, "fold dense": 10.592,
+           "fold dense +loglik": 11.08, "probe scheduled A/mp=4": 0.132,
+           "fold scheduled A/mp=4": 10.26,
+           "fold scheduled A/mp=4 +loglik": 10.962}
 PHI_K_SUM_RTOL = 1e-4       # phi_k against sum_w phi_wk after a sweep:
 # two float32 sums of ~2e4 rows of ~1e4-token magnitude in different orders
 MP = 4                      # model ranks of the sharded phases
@@ -615,9 +626,14 @@ def sweep_kernel_phase(torch, dev, store, report):
             bound, by = _sweep_bound_ms(
                 D_TRAIN, L_TRAIN, K_FULL, rows_used, live_tok, lanes,
                 A_SCHED if extra is not None else 0, loglik)
-            rec = {"variant": name + (" +loglik" if loglik else ""),
-                   "kernel": fn.__name__, "ms": ms, "plain_ms": plain_ms,
+            variant = name + (" +loglik" if loglik else "")
+            rec = {"variant": variant, "kernel": fn.__name__, "ms": ms,
+                   "prior_ms": PRIOR_MS[variant], "plain_ms": plain_ms,
                    "bound_ms": bound, "bound_by": by,
+                   "share_of_bound": bound / ms,
+                   # gs_sweep: an E-step and a fold launch a column
+                   "launches_per_call": getattr(
+                       fn, "launches_per_call", 2 * L_TRAIN + loglik),
                    "phi_k_drift_tokens": drift, "errors": errs}
             variants.append(rec)
             print("sweep kernel " + json.dumps(rec))
@@ -691,8 +707,12 @@ def training_phase(torch, store, report):
     record(m)
     groups = {}
     for name, v in by_op.items():
-        key = ("sweep E-step" if "estep_kernel" in name else
-               "sweep fold" if "fold_kernel" in name else
+        key = ("dense sweep E-step" if "gs_estep_kernel" in name else
+               "dense sweep fold" if "sweep_fold_kernel" in name else
+               "scheduled sweep column loop" if "active_loop_kernel" in name
+               else "scheduled sweep pass"
+               if "active::copy_kernel" in name
+               or "active::zero_kernel" in name else
                "stop-rule loglik" if "loglik_kernel" in name else
                "memcpy HtoD" if "HtoD" in name else
                "memcpy DtoH" if "DtoH" in name else "other")
@@ -859,8 +879,12 @@ def sharded_kernel_phase(torch, dev, cap, report):
         ms = cuda_time_ms(lambda: fn(*args, **vkw), 3)
         plain_ms = cuda_time_ms(lambda: ref(*args, **vkw), 1)
         rec = {"variant": name, "kernel": kernel, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound[0],
-               "bound_by": bound[1], "gather_ms": gather, "errors": errs}
+               "prior_ms": PRIOR_MS[name], "plain_ms": plain_ms,
+               "bound_ms": bound[0], "bound_by": bound[1],
+               "share_of_bound": bound[0] / ms,
+               # the probe is one launch
+               "launches_per_call": getattr(fn, "launches_per_call", 1),
+               "gather_ms": gather, "errors": errs}
         variants.append(rec)
         print("sharded kernel " + json.dumps(rec))
         return got
@@ -1003,6 +1027,12 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
                 torch, step)
             prof = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                     "device_busy_share": busy_ms / wall_ms if by_op else None,
+                    # the sharded_fold kernel's own launches: column loops
+                    # and the streaming pass
+                    "fold_device_ms": sum(
+                        v for k, v in by_op.items()
+                        if "loop_kernel" in k or "active::copy_kernel" in k
+                        or "active::zero_kernel" in k),
                     "device_ms_by_op": top_ops(by_op, 10)}
         else:
             stats, ppl, sweeps = step()

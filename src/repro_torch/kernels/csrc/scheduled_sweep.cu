@@ -12,159 +12,99 @@
 //   Δ     = x·(μ_new − μ_old);  res = |Δ|               (eq. 36 replacement)
 //
 // Every other (token, topic) entry keeps μ_old and carries a zero residual;
-// an inactive token changes nothing. The fold of sweep_common.cuh lands Δ
-// before the next column, as in the dense sweep.
+// an inactive token changes nothing. Jacobi within a column, Gauss-Seidel
+// across columns, as on the TPU.
 //
 // Bound on this card: device-memory bytes. The outputs are full-K, as the
 // reference's SweepResult is: μ_new and the residual (2·D·L·K floats) are
 // written once and μ read once, 15.7 GB at the stream_1k width, ≈ 4.7 ms at
 // 3.35 TB/s; the active-set arithmetic (A = 16 of K = 10^4 lanes) is
-// negligible beside it. μ is not updated in place: each token's μ row is
-// copied to μ_new (and its residual row zeroed) once per sweep, then its A
-// active lanes are overwritten.
+// negligible beside it.
 //
-// Design. The TPU kernel expanded each word's A ids into a (D, K) lane mask
-// and ran masked full-K arithmetic (A lanes cost what 128 cost in a vector
-// register). Here an E-step CTA per document copies the token's rows, then
-// computes on the A active lanes only, gathering θ̂, φ̂_w, φ̂(k) and μ_old at
-// the word's topic ids; the two eq. 38 sums are fixed-order block
-// reductions. Δ goes to a compact (D, A) scratch for the φ̂-row fold (the
-// documents of one segment share a word and so its active set) and to a
-// (D, K) scratch, zero off the active lanes, for the φ̂(k) fold, which zeroes
-// it again as it reads. What the design does about the bound: nothing yet
-// beyond reading μ once per sweep. Compact (D, L, A) outputs in place of
-// full-K ones would cut the bytes ~600×; that changes the contract and is
-// later work.
+// Design (sweep_active.cuh): the bytes go in one streaming pass, μ_new = μ
+// and residual = 0 for every token, 16-byte accesses over the whole card;
+// then ONE persistent cooperative launch runs the L columns, each an E-step
+// phase on the active lanes of the active tokens (a warp a document) and
+// two fold phases that read only the column's live Δ (D·A values, not
+// D·K), with a grid barrier after each phase. A call enqueues 4 operations
+// (the pass's copy and zeroing, the barrier's zeroing, the loop), +1 with
+// the stop rule, in place of 2L + 1 launches. The TPU kernel expanded each
+// word's A ids into a (D, K) lane mask and ran masked full-K arithmetic;
+// here only the A lanes are computed, gathering θ̂, φ̂_w, φ̂(k) and μ_old at
+// the word's topic ids.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep_active.cuh"
 #include "sweep_common.cuh"
-
-namespace {
-
-using sweep::block_sum;
-using sweep::kThreads;
-
-__global__ void __launch_bounds__(kThreads)
-    sched_estep_kernel(const int* __restrict__ word_ids,
-                       const float* __restrict__ counts,
-                       const uint8_t* __restrict__ token_active,
-                       const float* __restrict__ mu_in,
-                       float* __restrict__ mu_out,
-                       float* __restrict__ res_out,
-                       float* __restrict__ theta,
-                       const float* __restrict__ phi,
-                       const float* __restrict__ phi_k,
-                       const int* __restrict__ word_topics, int A,
-                       float* __restrict__ delta,
-                       float* __restrict__ compact, int L, int l, int K,
-                       float alpha_m1, float beta_m1, float wb) {
-  __shared__ float red[33];
-  const int d = blockIdx.x;
-  const size_t tok = (size_t)d * L + l;
-  const float* mo = mu_in + tok * K;
-  float* mn = mu_out + tok * K;
-  float* rs = res_out + tok * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    mn[k] = mo[k];
-    rs[k] = 0.f;
-  }
-  if (!token_active[tok]) return;  // uniform across the CTA
-  __syncthreads();  // the copy lands before the active lanes are rewritten
-
-  const float c = counts[tok];
-  const int w = word_ids[tok];
-  const int* top = word_topics + (size_t)w * A;
-  const float* row = phi + (size_t)w * K;
-  float* th = theta + (size_t)d * K;
-  float* cp = compact + (size_t)d * A;
-  float ns = 0.f;  // Σ_A num
-  float pm = 0.f;  // Σ_A μ_old: the active set's previous mass
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
-    const int k = top[a];
-    const float m0 = mo[k];
-    const float ex = __fmul_rn(c, m0);
-    const float t = fmaxf(__fsub_rn(th[k], ex), 0.f);
-    const float p = fmaxf(__fsub_rn(row[k], ex), 0.f);
-    const float q = __fsub_rn(phi_k[k], ex);
-    const float num = __fdiv_rn(
-        __fmul_rn(__fadd_rn(t, alpha_m1), __fadd_rn(p, beta_m1)),
-        __fadd_rn(q, wb));
-    cp[a] = num;  // staged; read back below by this same thread
-    ns = __fadd_rn(ns, num);
-    pm = __fadd_rn(pm, m0);
-  }
-  ns = fmaxf(block_sum(ns, red), 1e-30f);
-  pm = block_sum(pm, red);
-  // Δ of a zero-count token is exactly zero: it neither changes θ̂ nor
-  // enters the fold (its μ still moves, as in the reference).
-  const bool live = c != 0.f;
-  float* dd = delta + (size_t)d * K;
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
-    const int k = top[a];
-    const float m0 = mo[k];
-    const float mu = __fmul_rn(__fdiv_rn(cp[a], ns), pm);
-    const float dl = __fmul_rn(c, __fsub_rn(mu, m0));
-    mn[k] = mu;
-    rs[k] = fabsf(dl);
-    if (live) {
-      th[k] = __fadd_rn(th[k], dl);
-      cp[a] = dl;
-      dd[k] = dl;
-    }
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
-// One scheduled sweep on `stream` (2L launches, +1 with tok_ll). theta, phi
+// The streaming pass of one sweep on `stream` (2 launches): mu_out = mu_in,
+// then res_out = 0, over n floats. Returns the first CUDA error.
+int scheduled_pass_launch(const void* mu_in, void* mu_out, void* res_out,
+                          size_t n, void* stream) {
+  return active::launch_stream_pass(
+      static_cast<const float*>(mu_in), static_cast<float*>(mu_out),
+      static_cast<float*>(res_out), n, static_cast<cudaStream_t>(stream));
+}
+
+// One scheduled sweep on `stream`, after its streaming pass. theta, phi
 // and phi_k are updated in place; mu_out and res_out are (D, L, K).
-// token_active is (D, L) bytes; live is (D, L) bytes (token active and
-// count ≠ 0); order and the lead_* arrays are (L, D) over the live tokens
-// (see sweep_fold_kernel). delta is a (D, K) scratch that must be all zero
-// on entry (it is all zero again on return); compact is a (D, A) scratch.
-// tok_ll == NULL skips the stop-rule phase. Returns the first nonzero
-// cudaGetLastError() (0 = every launch was accepted).
+// token_active is (D, L) bytes. row_order/row_key and pair_order/pair_key
+// are the two folds' orders over the live tokens (token active and count
+// ≠ 0; see sweep_active.cuh); compact and parts are (D, A) scratches,
+// barrier one int. tok_ll == NULL skips the stop-rule phase.
+// *launches receives the operations enqueued. Returns the first nonzero
+// CUDA error (0 = every launch was accepted).
 int scheduled_sweep_launch(const void* word_ids, const void* counts,
                            const void* token_active, const void* mu_in,
                            void* mu_out, void* res_out, void* theta,
                            void* phi, void* phi_k, const void* word_topics,
-                           int A, const void* order, const void* lead_pos,
-                           const void* lead_end, const void* lead_word,
-                           const void* live, void* delta, void* compact,
+                           int A, const void* row_order, const void* row_key,
+                           const void* pair_order, const void* pair_key,
+                           void* compact, void* parts, void* barrier,
                            void* tok_ll, int D, int L, int K, float alpha_m1,
                            float beta_m1, float wb, float k_alpha,
-                           void* stream) {
+                           int* launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* wid = static_cast<const int*>(word_ids);
-  const float* cnt = static_cast<const float*>(counts);
-  const int* wt = static_cast<const int*>(word_topics);
-  float* th = static_cast<float*>(theta);
-  float* ph = static_cast<float*>(phi);
-  float* pk = static_cast<float*>(phi_k);
-  float* dl = static_cast<float*>(delta);
-  float* cp = static_cast<float*>(compact);
-  for (int l = 0; l < L; ++l) {
-    sched_estep_kernel<<<D, kThreads, 0, st>>>(
-        wid, cnt, static_cast<const uint8_t*>(token_active),
-        static_cast<const float*>(mu_in), static_cast<float*>(mu_out),
-        static_cast<float*>(res_out), th, ph, pk, wt, A, dl, cp, L, l, K,
-        alpha_m1, beta_m1, wb);
-    cudaError_t err = cudaGetLastError();
+  active::ActiveLoop p;
+  p.word_ids = static_cast<const int*>(word_ids);
+  p.counts = static_cast<const float*>(counts);
+  p.token_active = static_cast<const uint8_t*>(token_active);
+  p.mu_in = static_cast<const float*>(mu_in);
+  p.mu_out = static_cast<float*>(mu_out);
+  p.res_out = static_cast<float*>(res_out);
+  p.theta = static_cast<float*>(theta);
+  p.phi = static_cast<float*>(phi);
+  p.phi_k = static_cast<float*>(phi_k);
+  p.word_topics = static_cast<const int*>(word_topics);
+  p.remainder = nullptr;
+  p.prev_mass = nullptr;
+  p.live_out = nullptr;
+  p.row_order = static_cast<const int*>(row_order);
+  p.row_key = static_cast<const int*>(row_key);
+  p.pair_order = static_cast<const int*>(pair_order);
+  p.pair_key = static_cast<const int*>(pair_key);
+  p.compact = static_cast<float*>(compact);
+  p.parts = static_cast<float*>(parts);
+  p.barrier = static_cast<unsigned int*>(barrier);
+  p.D = D;
+  p.L = L;
+  p.K = K;
+  p.A = A;
+  p.alpha_m1 = alpha_m1;
+  p.beta_m1 = beta_m1;
+  p.wb = wb;
+  cudaError_t err = active::launch_active_sweep<false>(p, st, launches);
+  if (err != cudaSuccess) return err;
+  if (tok_ll != nullptr) {
+    err = sweep::launch_loglik(p.word_ids, p.counts, p.theta, p.phi,
+                               p.phi_k, static_cast<float*>(tok_ll), D, L, K,
+                               alpha_m1, beta_m1, wb, k_alpha, st);
     if (err != cudaSuccess) return err;
-    err = sweep::launch_fold<true, true>(
-        static_cast<const int*>(order), static_cast<const int*>(lead_pos),
-        static_cast<const int*>(lead_end), static_cast<const int*>(lead_word),
-        static_cast<const uint8_t*>(live), L, l, dl, cp, wt, A, ph, pk, D, K,
-        st);
-    if (err != cudaSuccess) return err;
+    ++*launches;
   }
-  if (tok_ll != nullptr)
-    return sweep::launch_loglik(wid, cnt, th, ph, pk,
-                                static_cast<float*>(tok_ll), D, L, K,
-                                alpha_m1, beta_m1, wb, k_alpha, st);
   return cudaSuccess;
 }
 

@@ -1,5 +1,7 @@
-// Shared pieces of the two Gauss-Seidel sweep kernels (gs_sweep.cu and
-// scheduled_sweep.cu) for NVIDIA Hopper (sm_90a):
+// Shared pieces of the dense Gauss-Seidel sweep kernel (gs_sweep.cu) for
+// NVIDIA Hopper (sm_90a); scheduled_sweep.cu and sharded_sweep.cu use its
+// reductions and its stop-rule phase (their column loop is
+// sweep_active.cuh):
 //
 //   * block_sum          — fixed-order block reduction (no atomics);
 //   * sweep_fold_kernel  — the Gauss-Seidel fold of one token column: adds

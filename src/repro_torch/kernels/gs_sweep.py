@@ -168,28 +168,37 @@ def column_segments(word_ids: torch.Tensor, live: torch.Tensor,
     (L, D) int32 tensors: ``order`` (the document at each sorted position)
     and, compacted to the front of each column in position order and -1
     past the column's last segment, ``lead_pos``/``lead_end`` (a segment's
-    first and one-past-last sorted position) and ``lead_word``.
+    first and one-past-last sorted position) and ``lead_word``; then the
+    (L,) int32 segment count of each column.
     """
     D, L = word_ids.shape
     dev = word_ids.device
     key = torch.where(live, word_ids, num_rows).t()
     skey, order = torch.sort(key, dim=1, stable=True)
-    pos = torch.arange(D, device=dev).expand(L, D)
     start = torch.ones((L, D), dtype=torch.bool, device=dev)
     start[:, 1:] = skey[:, 1:] != skey[:, :-1]
-    lead = start & (skey < num_rows)
-    nxt = torch.full((L, D), D, dtype=torch.long, device=dev)
-    nxt[:, :-1] = torch.where(start, pos, D)[:, 1:]
-    seg_end = torch.flip(torch.cummin(torch.flip(nxt, [1]), dim=1).values,
-                         [1])
-    first = torch.sort((~lead).to(torch.int32), dim=1, stable=True).indices
-    valid = pos < lead.sum(1, keepdim=True)
+    real = skey < num_rows
+    lead = start & real
+    count = lead.sum(1)
+    # the i-th segment of a column lands in slot i; the rest in a spare slot
+    slot = torch.where(lead, torch.cumsum(lead, 1) - 1, D)
+    pos = torch.arange(D, device=dev).expand(L, D)
+    lead_pos = torch.full((L, D + 1), -1, dtype=torch.long,
+                          device=dev).scatter_(1, slot, pos)[:, :D]
+    lead_word = torch.full((L, D + 1), -1, dtype=skey.dtype,
+                           device=dev).scatter_(1, slot, skey)[:, :D]
+    # a segment ends where the next begins; the last where the live tokens
+    # end
+    lead_end = torch.full((L, D), -1, dtype=torch.long, device=dev)
+    lead_end[:, :-1] = lead_pos[:, 1:]
+    last = pos == (count - 1)[:, None]
+    lead_end = torch.where(last, real.sum(1, keepdim=True), lead_end)
 
-    def compact(x):
-        return torch.where(valid, x, -1).to(torch.int32).contiguous()
+    def i32(x):
+        return x.to(torch.int32).contiguous()
 
-    return (order.to(torch.int32).contiguous(), compact(first),
-            compact(seg_end.gather(1, first)), compact(skey.gather(1, first)))
+    return (i32(order), i32(lead_pos), i32(lead_end), i32(lead_word),
+            i32(count))
 
 
 def check_cuda_args(kernel: str, named: Sequence) -> None:
@@ -279,7 +288,7 @@ def gs_sweep(
               if emit_loglik else None)
     if D and L and K:
         live = counts != 0
-        segs = column_segments(word_ids, live, phi_wk.shape[0])
+        segs = column_segments(word_ids, live, phi_wk.shape[0])[:4]
         delta = torch.empty((D, K), dtype=torch.float32, device=theta.device)
         live8 = live.to(torch.uint8)
         lib = _launcher()

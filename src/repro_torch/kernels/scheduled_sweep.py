@@ -10,25 +10,29 @@ active set's previous mass and the λ_w ``token_active`` mask.  Inactive
 is the eq. 36 replacement value |Δ| = counts·|μ_new − μ_old|, full-K.
 
 * On CUDA tensors the wrapper runs the hand-written kernel
-  ``csrc/scheduled_sweep.cu`` (same build and fold as ``gs_sweep``); it
-  computes on the A active lanes only.  It never falls back.
+  ``csrc/scheduled_sweep.cu`` (built like ``gs_sweep``): a streaming pass
+  writes μ_new = μ and residual = 0, then one persistent launch runs the L
+  columns on the A active lanes only, folding Δ in the visiting orders of
+  :func:`fold_orders`.  It never falls back.
 * On CPU tensors it runs :func:`scheduled_sweep_reference`, a port of the
   JAX package's ``ops._sched_sweep_portable`` (masked full-K arithmetic
   over a (W_s, K) word lane mask).
 
-``scheduled_sweep.launches`` counts kernel calls: one per sweep, each of
-which enqueues 2L CUDA launches (+1 with ``emit_loglik``).
+``scheduled_sweep.launches`` counts kernel calls: one per sweep.
+``scheduled_sweep.launches_per_call`` is the number of CUDA operations the
+last call enqueued: 4 (the pass's copy and zeroing launches, enqueued
+first, the barrier's zeroing, the column loop), +1 with ``emit_loglik``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels.gs_sweep import (
     SweepOut,
     check_cuda_args,
-    column_segments,
     dense_operands,
     ptr,
     sweep_loglik,
@@ -95,6 +99,47 @@ def scheduled_sweep_reference(
     return mu_out, res, theta, phi, ptot, loglik
 
 
+def sorted_runs(key: torch.Tensor,
+                sentinel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row of an (L, N) integer ``key`` sorted, stably, so the entries
+    of one key form a run in index order; entries keyed ``sentinel`` (the
+    largest key) sort last and belong to no run.  Returns two (L, N) int32
+    tensors: ``order`` (the entry at each sorted position, -1 past the
+    row's last keyed entry) and ``key`` (its key, ``sentinel`` past it).
+    On the device, without a sync."""
+    if sentinel < 2 ** 15:          # half the radix sort's passes
+        key = key.to(torch.int16)
+    # contiguous: a transposed or reshaped view would keep its strides
+    key, order = torch.sort(key.contiguous(), dim=1, stable=True)
+    order = torch.where(key < sentinel, order, -1)
+    return (order.to(torch.int32).contiguous(),
+            key.to(torch.int32).contiguous())
+
+
+def fold_orders(word_ids: torch.Tensor, live: torch.Tensor, num_rows: int,
+                word_topics: torch.Tensor,
+                num_topics: int) -> Tuple[torch.Tensor, ...]:
+    """The scheduled column loop's two visiting orders, built once per call
+    on the device, without a sync (:func:`sorted_runs`):
+
+    * the rows': each column's live documents by word id — (L, D) ``order``
+      and ``key``, the documents of one word in document order;
+    * φ̂(k)'s: each column's live (document, active slot) pairs by topic —
+      pair (d, a) is entry d·A + a, its topic ``word_topics[word_ids[d, l],
+      a]`` — (L, D·A) ``order`` and ``key``, the pairs of one topic in
+      document order.
+
+    Dead tokens (``live`` false) are keyed past the last row / topic.
+    Returns ``(row_order, row_key, pair_order, pair_key)``."""
+    D, L = word_ids.shape
+    A = word_topics.shape[-1]
+    rows = sorted_runs(torch.where(live, word_ids, num_rows).t(), num_rows)
+    top = word_topics[word_ids.long()]                        # (D, L, A)
+    key = torch.where(live[..., None], top, num_topics)
+    pairs = sorted_runs(key.permute(1, 0, 2).reshape(L, D * A), num_topics)
+    return rows + pairs
+
+
 def _launcher():
     from repro_torch.kernels import build
 
@@ -102,12 +147,21 @@ def _launcher():
     fn = lib.scheduled_sweep_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 10 + [i] + [p] * 8
-                       + [i, i, i, f, f, f, f, p])
+        fn.argtypes = ([p] * 10 + [i] + [p] * 8 + [i, i, i, f, f, f, f,
+                                                    ctypes.POINTER(i), p])
         fn.restype = ctypes.c_int
+        lib.scheduled_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
+        lib.scheduled_pass_launch.restype = ctypes.c_int
         lib.scheduled_sweep_error_string.argtypes = [ctypes.c_int]
         lib.scheduled_sweep_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, rc: int) -> None:
+    if rc != 0:
+        msg = lib.scheduled_sweep_error_string(rc).decode()
+        raise RuntimeError(
+            f"scheduled_sweep kernel launch failed: {msg} ({rc})")
 
 
 def scheduled_sweep(
@@ -156,37 +210,45 @@ def scheduled_sweep(
     ])
     if not 0 < A <= K:
         raise ValueError("scheduled_sweep: word_topics needs 1 <= A <= K")
+    dev = theta.device
     mu_out = torch.empty_like(mu)
     res = torch.empty_like(mu)
+    if D and L:
+        # the pass first: the orders and copies below queue up behind it
+        lib = _launcher()
+        with torch.cuda.device(dev):
+            rc = lib.scheduled_pass_launch(
+                ptr(mu), ptr(mu_out), ptr(res), mu.numel(),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(lib, rc)
     theta_o, phi_o, ptot_o = theta.clone(), phi_wk.clone(), phi_k.clone()
-    tok_ll = (torch.zeros((D, L), dtype=torch.float32, device=theta.device)
+    tok_ll = (torch.zeros((D, L), dtype=torch.float32, device=dev)
               if emit_loglik else None)
     if D and L:
         live = token_active & (counts != 0)
-        segs = column_segments(word_ids, live, W_s)
-        delta = torch.zeros((D, K), dtype=torch.float32, device=theta.device)
-        compact = torch.empty((D, A), dtype=torch.float32,
-                              device=theta.device)
+        orders = fold_orders(word_ids, live, W_s, word_topics, K)
+        compact = torch.empty((D, A), dtype=torch.float32, device=dev)
+        parts = torch.empty_like(compact)
+        barrier = torch.empty((1,), dtype=torch.int32, device=dev)
         act8 = token_active.to(torch.uint8)
-        live8 = live.to(torch.uint8)
-        lib = _launcher()
-        with torch.cuda.device(theta.device):
-            stream = torch.cuda.current_stream().cuda_stream
+        enqueued = ctypes.c_int(0)
+        with torch.cuda.device(dev):
             rc = lib.scheduled_sweep_launch(
                 ptr(word_ids), ptr(counts), ptr(act8), ptr(mu), ptr(mu_out),
                 ptr(res), ptr(theta_o), ptr(phi_o), ptr(ptot_o),
-                ptr(word_topics), A, *map(ptr, segs), ptr(live8),
-                ptr(delta), ptr(compact), ptr(tok_ll), D, L, K,
-                float(alpha_m1), float(beta_m1), wb, float(K * alpha_m1),
-                stream,
+                ptr(word_topics), A, *map(ptr, orders), ptr(compact),
+                ptr(parts), ptr(barrier), ptr(tok_ll), D, L, K,
+                float(alpha_m1),
+                float(beta_m1), wb, float(K * alpha_m1),
+                ctypes.byref(enqueued),
+                torch.cuda.current_stream().cuda_stream,
             )
-        if rc != 0:
-            msg = lib.scheduled_sweep_error_string(rc).decode()
-            raise RuntimeError(
-                f"scheduled_sweep kernel launch failed: {msg} ({rc})")
+        _raise_on(lib, rc)
         scheduled_sweep.launches += 1
+        scheduled_sweep.launches_per_call = 2 + enqueued.value  # + the pass
     loglik = tok_ll.sum() if emit_loglik else None
     return mu_out, res, theta_o, phi_o, ptot_o, loglik
 
 
 scheduled_sweep.launches = 0
+scheduled_sweep.launches_per_call = 0

@@ -22,15 +22,22 @@ E-step are the per-token normalisers.  ``ops.sweep`` runs one sweep as:
 
 * On CUDA tensors the wrappers run the hand-written kernels of
   ``csrc/sharded_sweep.cu`` (built with ``nvcc`` for ``sm_90a`` at first
-  use, see ``kernels/build.py``), or raise.  They never fall back.
+  use, see ``kernels/build.py``), or raise.  They never fall back.  The
+  fold runs its L columns in one persistent launch: scheduled, the
+  active-set column loop of ``scheduled_sweep`` (a streaming pass, then
+  the columns on the A lanes, folding in the orders of
+  :func:`scheduled_sweep.fold_orders`); dense, a column loop whose φ̂(k)
+  fold sums Δ over fixed document groups, then the groups in order.
 * On CPU tensors they run :func:`sharded_probe_reference` and
   :func:`sharded_fold_reference`, the plain versions: ports of the JAX
   package's ``ops._probe_portable``, ``ops._fold_portable`` and
   ``ops._loglik_partials``.
 
 ``sharded_probe.launches`` and ``sharded_fold.launches`` count kernel calls
-(plain integers); a fold call enqueues 2L CUDA launches (+1 with
-``emit_loglik``).
+(plain integers).  ``sharded_fold.launches_per_call`` is the number of CUDA
+operations the last fold call enqueued: 4 scheduled (the pass's copy and
+zeroing launches, enqueued first, the barrier's zeroing, the column loop),
+2 dense (no pass), +1 with ``emit_loglik``.
 """
 from __future__ import annotations
 
@@ -45,7 +52,12 @@ from repro_torch.kernels.gs_sweep import (
     dense_operands,
     ptr,
 )
+from repro_torch.kernels.scheduled_sweep import fold_orders
 from repro_torch.kernels.theta_sweep import word_lane_masks
+
+#: Documents per φ̂(k) partial sum of the dense fold (kGroupDocs in
+#: ``csrc/sharded_sweep.cu``).
+FOLD_GROUP_DOCS = 32
 
 FoldOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
@@ -206,8 +218,11 @@ def _launcher():
             [p] * 8 + [i, p, p, i, i, i, f, f, f, p])
         lib.sharded_probe_launch.restype = ctypes.c_int
         lib.sharded_fold_launch.argtypes = (
-            [p] * 12 + [i] + [p] * 9 + [i, i, i, f, f, f, p])
+            [p] * 12 + [i] + [p] * 16 + [i, i, i, f, f, f,
+                                         ctypes.POINTER(i), p])
         lib.sharded_fold_launch.restype = ctypes.c_int
+        lib.sharded_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
+        lib.sharded_pass_launch.restype = ctypes.c_int
         lib.sharded_sweep_error_string.argtypes = [ctypes.c_int]
         lib.sharded_sweep_error_string.restype = ctypes.c_char_p
     return lib
@@ -340,33 +355,51 @@ def sharded_fold(
     dev = theta.device
     mu_out = torch.empty_like(mu)
     res = torch.empty_like(mu)
+    passes = 2 if A and D and L else 0
+    if passes:
+        # the pass first: the orders and copies below queue up behind it
+        lib = _launcher()
+        with torch.cuda.device(dev):
+            rc = lib.sharded_pass_launch(
+                ptr(mu), ptr(mu_out), ptr(res), mu.numel(),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(lib, rc, "sharded_fold")
     theta_o, phi_o, ptot_o = theta.clone(), phi_wk.clone(), phi_k.clone()
     live_m = torch.zeros((D, L), dtype=torch.float32, device=dev)
     u = torch.zeros_like(live_m) if emit_loglik else None
     if D and L:
-        live = (token_active & (counts != 0)) if A else counts != 0
-        segs = column_segments(word_ids, live, W)
-        # dense: the E-step's (D, K) numerator/Δ scratch; scheduled: the
-        # fold's φ̂(k) scratch, all zero on entry (and again on return)
-        delta = (torch.zeros if A else torch.empty)(
-            (D, K), dtype=torch.float32, device=dev)
-        compact = (torch.empty((D, A), dtype=torch.float32, device=dev)
-                   if A else None)
+        f32 = dict(dtype=torch.float32, device=dev)
+        if A:
+            live = token_active & (counts != 0)
+            orders = (None,) * 5 + fold_orders(word_ids, live, W,
+                                               word_topics, K)
+            compact = torch.empty((D, A), **f32)
+            parts = torch.empty_like(compact)
+            delta = part = None
+        else:
+            orders = column_segments(word_ids, counts != 0, W) + (None,) * 4
+            compact = parts = None
+            delta = torch.empty((D, K), **f32)
+            part = torch.empty(((D + FOLD_GROUP_DOCS - 1) // FOLD_GROUP_DOCS,
+                                K), **f32)
+        barrier = torch.empty((1,), dtype=torch.int32, device=dev)
         act8 = token_active.to(torch.uint8) if A else None
-        live8 = live.to(torch.uint8)
+        enqueued = ctypes.c_int(0)
         lib = _launcher()
         with torch.cuda.device(dev):
             rc = lib.sharded_fold_launch(
                 ptr(word_ids), ptr(counts), ptr(act8), ptr(remainder),
                 ptr(prev_mass), ptr(mu), ptr(mu_out), ptr(res),
                 ptr(theta_o), ptr(phi_o), ptr(ptot_o), ptr(word_topics), A,
-                *map(ptr, segs), ptr(live8), ptr(delta),
-                ptr(compact), ptr(live_m), ptr(u), D, L, K,
-                float(alpha_m1), float(beta_m1), wb,
+                *map(ptr, orders), ptr(delta), ptr(part), ptr(compact),
+                ptr(parts), ptr(barrier), ptr(live_m), ptr(u), D, L, K,
+                float(alpha_m1), float(beta_m1), wb, ctypes.byref(enqueued),
                 torch.cuda.current_stream().cuda_stream)
         _raise_on(lib, rc, "sharded_fold")
         sharded_fold.launches += 1
+        sharded_fold.launches_per_call = passes + enqueued.value
     return mu_out, res, theta_o, phi_o, ptot_o, live_m, u
 
 
 sharded_fold.launches = 0
+sharded_fold.launches_per_call = 0

@@ -22,7 +22,12 @@ The sharded sweep's kernels (``sharded_probe``, ``sharded_fold``) are held
 against their plain versions at an odd shard width K/mp, A/mp = 1 and
 A/mp = K/mp, with duplicate words in a column and injected cross-shard
 remainders; two launches give the same bits; with remainder 0 the fold is
-the ``gs_sweep``/``scheduled_sweep`` kernel.
+the ``gs_sweep``/``scheduled_sweep`` kernel.  The persistent column loop of
+``scheduled_sweep`` and ``sharded_fold`` (both forms) is held against the
+plain versions, and repeated bitwise, at its edges: a column whose
+documents all share one word, a column with no live token, no active token
+at all, A = 1 and A = K, D·L·K % 4 ≠ 0 and an unaligned μ (the streaming
+pass's scalar paths), and more documents than the card holds CTAs.
 
 The E-step kernels (``fused_estep``, ``topk_estep``) are held against their
 plain versions at odd K (10,001) and A ∈ {1, 16, 32, 40}, with and without
@@ -449,6 +454,122 @@ def test_sharded_fold_zero_count_slots_inert(cuda, A):
         act = args[7]
         assert torch.equal(mu[~act], args[2][~act])
         assert float(live[~act].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The active-set column loop's edges (scheduled_sweep, sharded_fold)
+# ---------------------------------------------------------------------------
+
+# case: (D, L, K, W, A); the dense sharded form takes A = 0
+EDGE_CASES = {
+    "one_word_column": (64, 5, 301, 9, 4),   # column 0: a segment of D
+    "dead_column": (40, 6, 200, 7, 3),       # column 2: no live token
+    "all_inactive": (24, 4, 100, 6, 3),      # no active (dense: live) token
+    "A=1": (33, 7, 129, 8, 1),
+    "A=K": (17, 5, 40, 6, 40),
+    "odd_sizes": (13, 7, 37, 5, 5),          # D·L·K % 4 = 3: the pass's tail
+    "unaligned_mu": (16, 6, 64, 7, 4),       # μ 4 bytes past 16: scalar pass
+    "D_over_grid": (4500, 3, 24, 50, 2),     # more documents than warps/CTAs
+}
+
+
+def _edge_call(case, form, dev):
+    """(kernel, plain version, arguments) of one edge case: the inputs of
+    ``_sweep_inputs`` with the case's change, θ̂, φ̂ and φ̂(k) then made to
+    hold the minibatch's own assignment (as a trainer's do: no statistic
+    goes below zero, however many documents fold into one row), and the
+    cross-shard columns of ``_sharded_inputs``."""
+    D, L, K, W, A = EDGE_CASES[case]
+    A = 0 if form == "sharded_dense" else A
+    args = _sweep_inputs(D, L, K, W, A, dev, seed=D + K)
+    wid, cnt, mu = args[0], args[1], args[2]
+    if case == "one_word_column":
+        wid[:, 0] = 0
+        cnt[:, 0] = 2.0
+        if A:
+            args[7][:, 0] = True
+    elif case == "dead_column":
+        cnt[:, 2] = 0.0
+    elif case == "all_inactive":
+        if A:
+            args[7][:] = False
+        else:
+            cnt[:] = 0.0
+    args[3] = em.fold_theta(mu, cnt)
+    args[4] = args[4] + em.fold_phi(mu, cnt, wid, W)[0]
+    args[5] = args[4].sum(0)
+    if case == "unaligned_mu":
+        buf = torch.empty(mu.numel() + 1, device=dev)
+        buf[1:] = mu.reshape(-1)
+        args[2] = buf[1:].view(mu.shape)
+        assert args[2].data_ptr() % 16 == 4 and args[2].is_contiguous()
+    if form == "scheduled_sweep":
+        return scheduled_sweep, scheduled_sweep_reference, tuple(args)
+    rng = np.random.default_rng(D + K + 1)
+    rem = torch.from_numpy(rng.gamma(1.0, 0.05, (D, L)).astype(np.float32))
+    pm = None
+    if A:
+        pm = sharded_probe_reference(*args, **SWEEP_KW)[1] + torch.from_numpy(
+            rng.random((D, L)).astype(np.float32) * 0.5).to(dev)
+    return sharded_fold, sharded_fold_reference, _fold_args(args, rem.to(dev),
+                                                            pm)
+
+
+@pytest.mark.parametrize("form", ["scheduled_sweep", "sharded_scheduled",
+                                  "sharded_dense"])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_active_loop_edges_match_plain_bitwise(cuda, case, form):
+    """Each redesigned form at the column loop's edges: within the sweep
+    tolerance of its plain version, the same bits from two launches, one
+    persistent column loop a call (4 CUDA operations with the streaming
+    pass, 2 for the dense fold, +1 with the stop rule), zero-count slots
+    without residual and inactive entries at μ_old."""
+    fn, ref, a = _edge_call(case, form, cuda)
+    for loglik in (False, True):
+        kw = dict(SWEEP_KW, emit_loglik=loglik)
+        got = fn(*a, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches_per_call == (2 if form == "sharded_dense"
+                                        else 4) + loglik
+        again = fn(*a, **kw)
+        for x, y in zip(got, again):
+            assert (x is None and y is None) or torch.equal(x, y)
+        want = ref(*a, **kw)
+        if fn is scheduled_sweep:
+            _check_sweep(got, want)
+        else:
+            _check_sweep(got[:5] + (None,), want[:5] + (None,))
+            torch.testing.assert_close(got[5], want[5], rtol=2e-5,
+                                       atol=1e-6, msg="live mass")
+            if loglik:
+                torch.testing.assert_close(got[6], want[6], rtol=2e-5,
+                                           atol=0.0, msg="loglik u")
+    cnt = a[1]
+    assert float(got[1][cnt == 0].abs().max()) == 0.0
+    if form != "sharded_dense":
+        act = a[-1]
+        assert torch.equal(got[0][~act], a[2][~act])
+        assert bool((got[1][~act] == 0).all())
+    if case == "all_inactive":       # nothing folds
+        assert torch.equal(got[2], a[3]) and torch.equal(got[3], a[4])
+        assert torch.equal(got[4], a[5])
+
+
+@pytest.mark.parametrize("case", ["one_word_column", "D_over_grid"])
+@pytest.mark.parametrize("A", [0, 2])
+def test_sharded_fold_zero_remainder_edges(cuda, case, A):
+    """remainder 0 at the loop's edges: the fold is gs_sweep (dense) or
+    scheduled_sweep, within the sweep tolerance."""
+    D, L, K, W, _ = EDGE_CASES[case]
+    args = _sweep_inputs(D, L, K, W, A, cuda, seed=D)
+    if case == "one_word_column":
+        args[0][:, 0] = 0
+        args[1][:, 0] = 2.0
+    zero = torch.zeros_like(args[1])
+    pm = sharded_probe(*args, **SWEEP_KW)[1]
+    got = sharded_fold(*_fold_args(args, zero, pm), **SWEEP_KW)
+    want = (scheduled_sweep if A else gs_sweep)(*args, **SWEEP_KW)
+    _check_sweep(got[:5] + (None,), want[:5] + (None,))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,11 @@ order:
 
 1. holds the frozen-φ ``theta_sweep`` kernel against its plain PyTorch
    version at the serving path's shapes (K = 10,000 topics, 256 documents
-   of 64–256 tokens);
+   of 64–256 tokens; f32 dense and scheduled, bf16, int8), each form with
+   its kernel path, launches per call, time beside the prior design's,
+   share of the bound, bitwise repeat and documents independent of their
+   batch-mates; then both kernels' wide-K paths at bigmodel's K = 50,000
+   (``theta_sweep``'s global scratch, ``fused_estep``'s two-pass path);
 2. drives the serving path — ``TopicServer`` over a disk-backed
    ``ParameterStore`` at the ``stream_1k`` width (capacity W = 141,043 rows
    × K = 10,000, 5.6 GB of float32 written to ``build/``, deleted at the
@@ -41,8 +45,10 @@ order:
 7. holds the two E-step kernels of the coarse-block / scan sweeps, BEM and
    SEM (``fused_estep``, ``topk_estep``) against their plain versions at
    the stream_1k width: a block of ``iem_blocks=8`` (T = 16,384 tokens)
-   with the exclusion, SEM's T = 131,072 tokens without it, a ragged T;
-   A = 16 active lanes with pad lanes and inactive tokens;
+   with the exclusion, a ragged T, SEM's T = 131,072 tokens without it,
+   with the residual and as SEM's own call (each ``fused_estep`` form with
+   its path, launches per call, time beside the prior design's and share of
+   the bound); A = 16 active lanes with pad lanes and inactive tokens;
 8. drives the coarse-block and SEM paths on the same store —
    ``FOEMTrainer(device="cuda")`` with ``iem_blocks=8`` for two minibatches,
    one with ``sweep_impl="scan"``, one more blocked step under
@@ -127,6 +133,16 @@ PRIOR_MS = {"dense": 33.851, "dense +loglik": 37.865,
            "fold dense +loglik": 11.08, "probe scheduled A/mp=4": 0.132,
            "fold scheduled A/mp=4": 10.26,
            "fold scheduled A/mp=4 +loglik": 10.962}
+# theta_sweep's and fused_estep's times at these shapes in their design
+# before the register and row-ring one (a CTA of 1,024 threads per document
+# with its state in shared memory; a CTA of 256 per E-step row with a second
+# pass over μ): its final run of this script on an H100 80GB HBM3, 700.00 W
+# (PERF.md §6), printed beside this run's; None where it was not timed
+PRIOR_MS_THETA = {"f32 dense": 11.14, "f32 scheduled A=16": 3.47,
+                  "bf16 dense": 12.04, "int8 dense": 14.26}
+PRIOR_MS_ESTEP = {"blocked, with residual": 2.30, "blocked": 1.68,
+                  "ragged, with residual": None,
+                  "SEM, with residual": 15.24, "SEM": None}
 PHI_K_SUM_RTOL = 1e-4       # phi_k against sum_w phi_wk after a sweep:
 # two float32 sums of ~2e4 rows of ~1e4-token magnitude in different orders
 MP = 4                      # model ranks of the sharded phases
@@ -298,7 +314,7 @@ def kernel_phase(torch, dev, report):
     from repro_torch.core.types import LDAConfig, MinibatchData
     from repro_torch.data import trained_like_phi_blocks
     from repro_torch.kernels.theta_sweep import (
-        quantize_phi, theta_sweep, theta_sweep_reference,
+        quantize_phi, sweep_path, theta_sweep, theta_sweep_reference,
     )
     from repro_torch.launch.serve import TrafficGenerator
     from repro_torch.sparse import bucketize, localize_vocab
@@ -346,9 +362,22 @@ def kernel_phase(torch, dev, report):
             ok = bool(torch.allclose(a, b, rtol=rtol, atol=atol))
             check(ok, f"{name}: {key} disagrees with the plain version "
                       f"{errs[key]} beyond rtol {rtol} / atol {atol}")
+        before = theta_sweep.launches
         again = theta_sweep(*args, **kw)
+        per_call = theta_sweep.launches - before
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"{name}: two launches on the same inputs differ")
+        # a document's θ̂ does not depend on its batch-mates: 64 documents
+        # of every length, alone, give the same bits (the kernel takes
+        # them in another order)
+        sub = slice(96, 160)
+        part = theta_sweep(*[x[sub].contiguous() for x in args[:4]],
+                           *args[4:], **kw)
+        check(all(torch.equal(x, y[sub]) for x, y in zip(part, got)),
+              f"{name}: a document's θ̂ depends on its batch-mates")
+        del part
+        path = sweep_path(K_FULL, A_SCHED if sched else 0, L,
+                          phi.element_size(), phi.data_ptr())
         ms = cuda_time_ms(lambda: theta_sweep(*args, **kw), 5)
         plain_ms = cuda_time_ms(lambda: theta_sweep_reference(*args, **kw), 2)
         # least time: each input read once, each output written once (φ:
@@ -363,22 +392,19 @@ def kernel_phase(torch, dev, report):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = flops / FP32_FLOPS * 1e3
         gather = (SWEEPS * fit_tok * lanes + ev_tok * K_FULL) * phi.element_size()
-        rec = {"variant": name, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(b_ms, o_ms),
+        bound = max(b_ms, o_ms)
+        rec = {"variant": name, "path": path.kind, "path_code": path.code,
+               "ring_slots": path.slots, "launches_per_call": per_call,
+               "ms": ms, "prior_ms": PRIOR_MS_THETA[name],
+               "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "share_of_bound": bound / ms,
                "row_gather_bytes": gather,
                "row_gather_ms_at_hbm_rate": gather / HBM_BYTES_PER_S * 1e3,
-               "errors": errs}
+               "errors": errs, "bitwise_repeat": True,
+               "documents_independent_of_batch": True}
         variants.append(rec)
         print("kernel " + json.dumps(rec))
-        if name == "f32 dense":
-            # a document's θ̂ does not depend on its batch-mates: the first
-            # 64 documents alone give the same bits
-            part = theta_sweep(wid_t[:64].contiguous(), est_t[:64].contiguous(),
-                               ev_t[:64].contiguous(), theta0[:64].contiguous(),
-                               phi, None, None, **kw)
-            check(all(torch.equal(x, y[:64]) for x, y in zip(part, got)),
-                  "f32 dense: a document's θ̂ depends on its batch-mates")
     report["variants"] = variants
 
     # bigmodel's K = 5·10⁴: 3·K floats per document exceed shared memory and
@@ -399,11 +425,47 @@ def kernel_phase(torch, dev, report):
         check(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
               f"K={Kb} global-scratch path: {key} disagrees "
               f"{errors(a, b)}")
-    print(f"kernel K={Kb} D={Db} (global scratch): agrees with the plain "
-          f"version, max abs err "
+    print(f"kernel K={Kb} D={Db} (path "
+          f"{sweep_path(Kb, 0, L, 4, phib.data_ptr()).kind}): agrees with "
+          f"the plain version, max abs err "
           f"{max(errors(a, b)['max_abs'] for a, b in zip(got, want)):.3g}")
     del phi_norm, phi, theta0, phib, thb, argb, got, want
     torch.cuda.empty_cache()
+    wide_estep_check(torch, dev, Kb)
+
+
+def wide_estep_check(torch, dev, K):
+    """fused_estep at bigmodel's K = 5·10⁴, past the register path: the
+    two-pass kernel path against its plain version, 256 rows, θ̂ one row
+    per 16 tokens, with the exclusion and the residual."""
+    import numpy as np
+
+    from repro_torch.kernels.foem_estep import (
+        estep_path, fused_estep, fused_estep_reference,
+    )
+
+    T, G = 256, 16
+    rng = np.random.default_rng(6)
+    th = rng.gamma(1.0, 3.0, (T // G, K)).astype(np.float32)
+    ph = rng.gamma(0.5, 2.0, (T, K)).astype(np.float32)
+    pt = (ph.sum(0) * 40).astype(np.float32)
+    mu = rng.dirichlet(np.ones(K), T).astype(np.float32)
+    cnt = rng.integers(0, 5, T).astype(np.float32)
+    args = [torch.from_numpy(x).to(dev)
+            for x in (th, ph, pt, cnt[:, None] * mu, mu, cnt)]
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=W_FULL * 0.01)
+    path = estep_path(K, args[:5])
+    got = fused_estep(*args, **kw)
+    torch.cuda.synchronize()
+    want = fused_estep_reference(*args, **kw)
+    errs = {key: _check_close(f"fused_estep K={K}", key, a, b,
+                              ESTEP_TOL[key])
+            for key, a, b in zip(("mu", "residual"), got, want)}
+    again = fused_estep(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"fused_estep K={K}: two launches on the same inputs differ")
+    print(f"estep kernel K={K} T={T} (path {path.kind}): agrees with the "
+          f"plain version {json.dumps(errs)}")
 
 
 def make_store(store_dir, report):
@@ -1170,7 +1232,7 @@ def estep_kernel_phase(torch, dev, store, report):
     from repro_torch.core import em, scheduling
     from repro_torch.core.types import uniform_responsibilities
     from repro_torch.kernels.foem_estep import (
-        fused_estep, fused_estep_reference,
+        estep_path, fused_estep, fused_estep_reference,
     )
     from repro_torch.kernels.topk_estep import (
         topk_estep, topk_estep_reference,
@@ -1200,7 +1262,7 @@ def estep_kernel_phase(torch, dev, store, report):
           f"{ESTEP_TOL_REASON}")
     lines = []
 
-    def compare(name, fn, ref, args, fkw, outs, bound):
+    def compare(name, fn, ref, args, fkw, outs, bound, form=None):
         got = fn(*args, **fkw)
         torch.cuda.synchronize()
         want = ref(*args, **fkw)
@@ -1209,7 +1271,9 @@ def estep_kernel_phase(torch, dev, store, report):
             if a is not None:
                 errs[key] = _check_close(name, key, a, b, ESTEP_TOL[key])
         del want
+        before = fn.launches
         again = fn(*args, **fkw)
+        per_call = fn.launches - before
         check(all(torch.equal(x, y) for x, y in zip(got, again)
                   if x is not None),
               f"{name}: two launches on the same inputs differ")
@@ -1223,7 +1287,12 @@ def estep_kernel_phase(torch, dev, store, report):
         rec = {"variant": name, "kernel": fn.__name__, "ms": ms,
                "graph_ms": graph_ms,
                "plain_ms": plain_ms, "bound_ms": bound[0],
-               "bound_by": bound[1], "errors": errs, "bitwise_repeat": True}
+               "bound_by": bound[1], "share_of_bound": bound[0] / graph_ms,
+               "launches_per_call": per_call, "errors": errs,
+               "bitwise_repeat": True}
+        if fn is fused_estep:
+            rec.update(form=form, prior_ms=PRIOR_MS_ESTEP[form],
+                       path=estep_path(args[1].shape[1], args[:5]).kind)
         lines.append(rec)
         return got, rec
 
@@ -1237,14 +1306,15 @@ def estep_kernel_phase(torch, dev, store, report):
     args = (theta, rows, ptot, ex, mu_b, cnt_b)
     full, rec = compare(f"T={T} exclude, G={blk}, with residual", fused_estep,
                         fused_estep_reference, args, kw,
-                        ("mu", "residual"), _estep_bound(T, K, D, True, True))
+                        ("mu", "residual"), _estep_bound(T, K, D, True, True),
+                        "blocked, with residual")
     print("estep kernel " + json.dumps(rec))
     # the blocked sweep's own call: no μ_old, no residual
     main_args = (theta, rows, ptot, ex, None, None)
     got, rec = compare(f"T={T} exclude, G={blk} (blocked sweep's call)",
                        fused_estep, fused_estep_reference, main_args,
                        kw, ("mu", "residual"),
-                       _estep_bound(T, K, D, True, False))
+                       _estep_bound(T, K, D, True, False), "blocked")
     check(torch.equal(got[0], full[0]),
           "fused_estep: mu without the residual differs from mu with it")
     rec["mu_equals_residual_form"] = True
@@ -1257,7 +1327,8 @@ def estep_kernel_phase(torch, dev, store, report):
                 mu_b[:Tr], cnt_b[:Tr])
     rag, rec = compare(f"T={Tr} ragged, exclude, G={blk}", fused_estep,
                        fused_estep_reference, rag_args, kw,
-                       ("mu", "residual"), _estep_bound(Tr, K, D, True, True))
+                       ("mu", "residual"), _estep_bound(Tr, K, D, True, True),
+                       "ragged, with residual")
     check(all(torch.equal(a, b[:Tr]) for a, b in zip(rag, full)),
           "fused_estep: a row's bits depend on T")
     rec["rows_equal_full_call"] = True
@@ -1273,13 +1344,23 @@ def estep_kernel_phase(torch, dev, store, report):
     got, rec = compare(f"T={T} no exclude, G={L}, with residual",
                        fused_estep, fused_estep_reference, args,
                        kw, ("mu", "residual"),
-                       _estep_bound(T, K, D, False, True))
-    sem_mu = fused_estep(theta, rows, ptot, None, None, None, **kw)[0]
-    check(torch.equal(sem_mu, got[0]),
-          "fused_estep: SEM's call (no residual) differs from the full form")
-    rec["mu_equals_no_residual_form"] = True
+                       _estep_bound(T, K, D, False, True),
+                       "SEM, with residual")
     print("estep kernel " + json.dumps(rec))
-    del got, sem_mu, args, rows
+    full_mu = got[0]
+    del got, args
+    torch.cuda.empty_cache()
+    # SEM's own call: no exclusion, no μ_old, no residual
+    got, rec = compare(f"T={T} no exclude, G={L} (SEM's call)", fused_estep,
+                       fused_estep_reference,
+                       (theta, rows, ptot, None, None, None), kw,
+                       ("mu", "residual"),
+                       _estep_bound(T, K, D, False, False), "SEM")
+    check(torch.equal(got[0], full_mu),
+          "fused_estep: SEM's call (no residual) differs from the full form")
+    rec["mu_equals_residual_form"] = True
+    print("estep kernel " + json.dumps(rec))
+    del got, full_mu, rows
     torch.cuda.empty_cache()
 
     # the active-set E-step on word-level top-16 sets, with pad lanes
@@ -1379,7 +1460,7 @@ def blocked_training_phase(torch, store, report):
                 torch, lambda: tr.step(mb))
             groups = {}
             for name, v in by_op.items():
-                key = ("fused_estep" if "fused_estep_kernel" in name else
+                key = ("fused_estep" if "fused_estep_" in name else
                        "topk_estep" if "topk_estep_kernel" in name else
                        "sorted folds (index_put_)"
                        if "indexing_backward" in name or "RadixSort" in name

@@ -16,8 +16,11 @@ then no residual is computed (the trainer's callers use μ alone).
 
 * On CUDA tensors the wrapper runs the hand-written kernel
   ``csrc/fused_estep.cu`` (built with ``nvcc`` for ``sm_90a`` at first use,
-  see ``kernels/build.py``): one launch, one CTA per token row.  It never
-  falls back.
+  see ``kernels/build.py``): one launch, one CTA per token row, on the path
+  :func:`estep_path` picks — the register path (the row's numerators held
+  in registers, μ written once; 16-byte lanes where K % 4 == 0 and every
+  base is 16-byte aligned, scalar lanes otherwise) for K ≤
+  :data:`REG_MAX_K`, the two-pass path above it.  It never falls back.
 * On CPU tensors it runs :func:`fused_estep_reference`, the plain version: a
   port of the JAX package's ``ref.fused_estep_ref`` with θ̂ expanded by
   ``repeat_interleave``.
@@ -27,13 +30,40 @@ then no residual is computed (the trainer's callers use μ alone).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels.gs_sweep import check_cuda_args, ptr
 
 EstepOut = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+#: The widest K the register path holds (``csrc/fused_estep.cu``: 512
+#: threads × 5 four-lane groups).
+REG_MAX_K = 512 * 5 * 4
+
+
+class EstepPath(NamedTuple):
+    """The kernel path of one ``fused_estep`` launch: ``kind`` is
+    ``"registers"`` or ``"two-pass"``; ``code`` the C entry's path number
+    (0: registers with 16-byte lanes, 1: registers with scalar lanes,
+    2: two-pass)."""
+    kind: str
+    code: int
+
+
+def estep_path(K: int, operands: Sequence[Optional[torch.Tensor]]
+               ) -> EstepPath:
+    """The path of a ``fused_estep`` launch at width K over these operands
+    (inputs and outputs; None entries are absent): the register path up to
+    :data:`REG_MAX_K`, with 16-byte lanes only where K % 4 == 0 and every
+    operand's base is 16-byte aligned; the two-pass path above it.  A
+    plain function of K and the addresses."""
+    if K > REG_MAX_K:
+        return EstepPath("two-pass", 2)
+    vec = K % 4 == 0 and all(t.data_ptr() % 16 == 0
+                             for t in operands if t is not None)
+    return EstepPath("registers", 0 if vec else 1)
 
 
 def tokens_per_row(theta_rows: int, tokens: int) -> int:
@@ -92,7 +122,7 @@ def _launcher():
     fn = lib.fused_estep_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [ctypes.c_longlong, i, i, f, f, f, p]
+        fn.argtypes = [p] * 8 + [ctypes.c_longlong, i, i, f, f, f, i, p]
         fn.restype = ctypes.c_int
         lib.fused_estep_error_string.argtypes = [ctypes.c_int]
         lib.fused_estep_error_string.restype = ctypes.c_char_p
@@ -149,7 +179,9 @@ def fused_estep(
                 ptr(theta_rows), ptr(phi_rows), ptr(phi_tot), ptr(exclude),
                 ptr(mu_old), ptr(counts if mu_old is not None else None),
                 ptr(mu), ptr(res), T, K, G, float(alpha_m1), float(beta_m1),
-                wb, torch.cuda.current_stream().cuda_stream)
+                wb, estep_path(K, (theta_rows, phi_rows, phi_tot, exclude,
+                                   mu_old, mu, res)).code,
+                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             msg = lib.fused_estep_error_string(rc).decode()
             raise RuntimeError(f"fused_estep kernel launch failed: {msg} "

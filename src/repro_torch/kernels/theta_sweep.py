@@ -17,7 +17,13 @@ per-row float32 scale (:func:`quantize_phi`), and is dequantized on read.
 
 * On CUDA tensors the wrapper launches the hand-written kernel
   ``csrc/theta_sweep.cu`` (built with ``nvcc`` for ``sm_90a`` at first use,
-  see ``kernels/build.py``) or raises.  It never falls back.
+  see ``kernels/build.py``) or raises.  It never falls back.  One CTA runs
+  one document; :func:`doc_order` puts the longest first, and
+  :func:`sweep_path` picks the kernel path: the register paths (K ≤
+  :data:`REG_MAX_K`: θ̂ state in registers, φ rows through a shared-memory
+  ring filled by TMA; 16-byte row reads where rows are 16-byte aligned),
+  else the wide path with the state in shared memory or, when 3·K floats
+  do not fit, in a global scratch.
 * On CPU tensors it runs :func:`theta_sweep_reference`, the plain version:
   a port of the JAX package's ``ops._infer_chunk_portable`` that gathers the
   (D, L, K) rows once and runs the sweeps as ``einsum``s.  The tests hold the
@@ -29,7 +35,7 @@ per-row float32 scale (:func:`quantize_phi`), and is dequantized on read.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,6 +49,63 @@ _PHI_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 #: keeps 3·K floats per document there when they fit, else in a global
 #: scratch the wrapper allocates.
 SMEM_BUDGET = 232_448 - 1024
+
+#: The register paths (``csrc/theta_sweep.cu``): 512 threads a document,
+#: 5 four-lane groups a thread, so K ≤ 10,240; two CTAs an SM, each with at
+#: most RING_BUDGET bytes of dynamic shared memory for the φ-row ring (and,
+#: scheduled, θ̂'s 8·K bytes of state and two 8 KB staging buffers) and the
+#: document's 16·L bytes of staged token columns.
+REG_MAX_K = 512 * 4 * 5
+RING_BUDGET = 108 * 1024
+MAX_SLOTS = 8
+SCHED_STAGE = 1024                     # (token, lane) entries a buffer
+#: Rows that share one block reduction, by φ element size (f32, bf16, int8).
+GROUP_ROWS = {4: 1, 2: 2, 1: 4}
+
+
+class SweepPath(NamedTuple):
+    """The kernel path of a ``theta_sweep`` launch: ``kind`` is
+    ``"registers"``, ``"shared"`` or ``"scratch"``; ``code`` the C entry's
+    path number; ``slots``/``stride`` the φ-row ring (slots of ``stride``
+    bytes), ``meta_off`` where the staged token columns start and ``smem``
+    the dynamic shared memory a CTA (bytes)."""
+    kind: str
+    code: int
+    slots: int
+    stride: int
+    meta_off: int
+    smem: int
+
+
+def sweep_path(K: int, A: int, L: int, itemsize: int,
+               phi_ptr: int) -> SweepPath:
+    """The path of a launch at width K with A active topics (0: dense) over
+    L token columns and φ of ``itemsize``-byte elements at address
+    ``phi_ptr``: the register paths where the lanes, the staging buffers
+    and a ring of two reductions' rows fit; else the wide path.  A plain
+    function of its arguments (the CPU tests hold it)."""
+    row = K * itemsize
+    stride = -(-row // 16) * 16 + 16
+    room = RING_BUDGET - 16 * L
+    slots = min(MAX_SLOTS, max(room, 0) // stride)
+    sched = 8 * K + 16 * SCHED_STAGE if A else 0
+    if (K <= REG_MAX_K and A <= SCHED_STAGE and sched <= room
+            and slots >= 2 * GROUP_ROWS[itemsize]):
+        vec = row % 16 == 0 and phi_ptr % 16 == 0
+        meta_off = -(-max(slots * stride, sched) // 16) * 16
+        return SweepPath("registers", 0 if vec else 1, slots, stride,
+                         meta_off, meta_off + 16 * L)
+    if 3 * K * 4 <= SMEM_BUDGET:
+        return SweepPath("shared", 2, 0, 0, 0, 3 * K * 4)
+    return SweepPath("scratch", 3, 0, 0, 0, 0)
+
+
+def doc_order(est_counts: torch.Tensor) -> torch.Tensor:
+    """The order in which a launch's CTAs take the documents: by fit tokens
+    (nonzero estimation counts), most first, ties by index.  (D,) int32 on
+    the counts' device."""
+    fit = (est_counts != 0).sum(1)
+    return torch.sort(fit, descending=True, stable=True)[1].to(torch.int32)
 
 
 def quantize_phi(phi_norm: torch.Tensor, phi_dtype: str
@@ -135,8 +198,8 @@ def _launcher():
     fn = lib.theta_sweep_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, p, p, i, p, p, p, p,
-                       i, i, i, i, f, f, p]
+        fn.argtypes = [p, p, p, p, p, i, p, p, i, p, p, p, p, p,
+                       i, i, i, i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
         lib.theta_sweep_error_string.argtypes = [ctypes.c_int]
         lib.theta_sweep_error_string.restype = ctypes.c_char_p
@@ -220,10 +283,13 @@ def theta_sweep(
     ev_ll = torch.empty_like(est_ll)
     if D == 0:
         return theta_out, est_ll, ev_ll
+    A = 0 if word_topics is None else word_topics.shape[1]
+    path = sweep_path(K, A, L, phi.element_size(), phi.data_ptr())
     scratch = None
-    if 3 * K * 4 > SMEM_BUDGET:
+    if path.kind == "scratch":
         scratch = torch.empty((D, 3 * K), dtype=torch.float32,
                               device=theta.device)
+    order = doc_order(est_counts)
     lib = _launcher()
 
     def ptr(t):
@@ -234,9 +300,10 @@ def theta_sweep(
         rc = lib.theta_sweep_launch(
             ptr(word_ids), ptr(est_counts), ptr(ev_counts), ptr(theta),
             ptr(phi), _PHI_CODE[phi.dtype], ptr(phi_scale), ptr(word_topics),
-            0 if word_topics is None else word_topics.shape[1],
-            ptr(theta_out), ptr(est_ll), ptr(ev_ll), ptr(scratch),
-            D, L, K, num_sweeps, float(alpha_m1), float(K * alpha_m1),
+            A, ptr(theta_out), ptr(est_ll), ptr(ev_ll), ptr(scratch),
+            ptr(order), path.code, path.slots, path.stride, path.meta_off,
+            path.smem, D, L, K, num_sweeps, float(alpha_m1),
+            float(K * alpha_m1),
             stream,
         )
     if rc != 0:

@@ -63,7 +63,11 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
-from repro_torch.kernels.foem_estep import fused_estep, fused_estep_reference
+from repro_torch.kernels.foem_estep import (
+    estep_path,
+    fused_estep,
+    fused_estep_reference,
+)
 from repro_torch.kernels.gs_sweep import gs_sweep, gs_sweep_reference
 from repro_torch.kernels.scheduled_sweep import (
     scheduled_sweep,
@@ -78,6 +82,7 @@ from repro_torch.kernels.sharded_sweep import (
 from repro_torch.kernels.theta_sweep import (
     SMEM_BUDGET,
     quantize_phi,
+    sweep_path,
     theta_sweep,
     theta_sweep_reference,
     word_lane_masks,
@@ -208,6 +213,74 @@ def test_lane_masks_match_kernel_support(cuda):
     m = word_lane_masks(phi, wt)
     assert int(m.sum()) == 8 * 5
     assert bool((m.gather(1, wt.long()) == 1).all())
+
+
+def _theta_call(wid, est, ev, theta, phi, wt, scale, sweeps=4):
+    kw = dict(alpha_m1=0.01, num_sweeps=sweeps)
+    got = theta_sweep(wid, est, ev, theta, phi, wt, scale, **kw)
+    torch.cuda.synchronize()
+    _check(got, theta_sweep_reference(wid, est, ev, theta, phi, wt, scale,
+                                      **kw))
+    again = theta_sweep(wid, est, ev, theta, phi, wt, scale, **kw)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    return got
+
+
+@pytest.mark.parametrize("phi_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("K,code", [(10_000, 0), (10_001, 1), (10_240, 0)])
+def test_register_paths_match_plain(cuda, phi_dtype, K, code):
+    """The register paths at the serving width, with rows that are 16-byte
+    aligned (K = 10,000) and rows that are not (K = 10,001: the TMA copies
+    the aligned span and the lanes are read one by one)."""
+    wid, est, ev, theta, phi, _ = _inputs(6, 40, K, 30, 0, cuda, seed=K)
+    q, scale = quantize_phi(phi, phi_dtype)
+    path = sweep_path(K, 0, 40, q.element_size(), q.data_ptr())
+    assert (path.kind, path.code) == ("registers", code)
+    _theta_call(wid, est, ev, theta, q, None, scale)
+
+
+@pytest.mark.parametrize("phi_dtype", ["float32", "int8"])
+def test_document_bits_independent_of_lengths_and_order(cuda, phi_dtype):
+    """Documents whose fit lengths differ by 4x run longest first; each
+    alone gives the bits it gets in the batch, so the order is invisible."""
+    D, L, K = 8, 64, 3000
+    wid, est, ev, theta, phi, _ = _inputs(D, L, K, 60, 0, cuda, seed=11)
+    est.clamp_(min=1.0)
+    for d in range(D):                     # fit lengths 16, 22, ..., 64
+        est[d, 16 + 48 * d // (D - 1):] = 0.0
+    q, scale = quantize_phi(phi, phi_dtype)
+    got = _theta_call(wid, est, ev, theta, q, None, scale)
+    for d in range(D):
+        alone = theta_sweep(wid[d:d + 1].contiguous(),
+                            est[d:d + 1].contiguous(),
+                            ev[d:d + 1].contiguous(),
+                            theta[d:d + 1].contiguous(), q, None, scale,
+                            alpha_m1=0.01, num_sweeps=4)
+        for x, y in zip(alone, got):
+            assert torch.equal(x[0], y[d])
+
+
+@pytest.mark.parametrize("A", [1, 16, 32, 1025])
+@pytest.mark.parametrize("phi_dtype", ["float32", "bfloat16"])
+def test_scheduled_paths_match_plain(cuda, A, phi_dtype):
+    """The scheduled fit: a warp per token for A <= 1,024 (A = 1, a half
+    and a full warp), the wide path's block per token above."""
+    K = 10_000 if A <= 32 else 2000
+    wid, est, ev, theta, phi, wt = _inputs(5, 70, K, 25, A, cuda, seed=A)
+    q, scale = quantize_phi(phi, phi_dtype)
+    path = sweep_path(K, A, 70, q.element_size(), q.data_ptr())
+    assert path.kind == ("registers" if A <= 1024 else "shared")
+    _theta_call(wid, est, ev, theta, q, wt, scale)
+
+
+@pytest.mark.parametrize("K,kind", [(15_000, "shared"), (50_000, "scratch")])
+def test_wide_paths_match_plain(cuda, K, kind):
+    """Above the register paths' 10,240 lanes the state goes to shared
+    memory, and when 3·K floats do not fit there, to a global scratch."""
+    wid, est, ev, theta, phi, _ = _inputs(4, 9, K, 20, 0, cuda, seed=K)
+    assert sweep_path(K, 0, 9, 4, phi.data_ptr()).kind == kind
+    _theta_call(wid, est, ev, theta, phi, None, None, sweeps=3)
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +707,65 @@ def test_fused_estep_rows_independent_of_T(cuda):
                                 ex[:37].contiguous(), mu[:37].contiguous(),
                                 cnt[:37].contiguous(), **ESTEP_KW), full):
         assert torch.equal(a, b[:37])
+
+
+def _offset(x, off):
+    """x's values in a contiguous tensor whose base is ``off`` elements past
+    an allocation's (a 16-byte-unaligned base when off = 1)."""
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    buf[off:].copy_(x.reshape(-1))
+    return buf[off:].view(x.shape)
+
+
+@pytest.mark.parametrize("K,off,kind,code", [
+    (10_000, 0, "registers", 0),
+    (10_000, 1, "registers", 1),      # unaligned bases: scalar lanes
+    (10_001, 0, "registers", 1),      # K % 4 != 0: scalar lanes
+    (10_240, 0, "registers", 0),      # the register bound
+    (10_241, 0, "two-pass", 2),
+    (50_000, 0, "two-pass", 2),       # bigmodel
+])
+@pytest.mark.parametrize("exclude,residual", [(True, True), (False, False)])
+def test_fused_estep_paths_match_plain(cuda, K, off, kind, code, exclude,
+                                       residual):
+    T, G = 24, 8
+    inputs = _estep_inputs(T, K, G, cuda, seed=K + off)
+    th, ph, pt, ex, mu, cnt = [_offset(x, off) for x in inputs]
+    args = (th, ph, pt, ex if exclude else None, mu if residual else None,
+            cnt if residual else None)
+    assert estep_path(K, args[:5]) == (kind, code)
+    got = fused_estep(*args, **ESTEP_KW)
+    torch.cuda.synchronize()
+    _check_estep(got, fused_estep_reference(*args, **ESTEP_KW))
+    again = fused_estep(*args, **ESTEP_KW)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None)
+    if kind == "registers" and off:
+        # the scalar lanes give the 16-byte lanes' bits
+        aligned = fused_estep(*[None if x is None else x.contiguous().clone()
+                                for x in args], **ESTEP_KW)
+        assert all(torch.equal(a, b) for a, b in zip(got, aligned)
+                   if a is not None)
+
+
+@pytest.mark.parametrize("G", [1, 16, 128])
+def test_fused_estep_group_rows_independent_of_T(cuda, G):
+    """θ̂ shared by G tokens (the (T, K) rows, the blocked sweep's block,
+    SEM's document) at a ragged T: a row's bits do not depend on T."""
+    T = G * (3 if G > 1 else 301)
+    th, ph, pt, ex, mu, cnt = _estep_inputs(T, 10_000, G, cuda, seed=G)
+    for args in ((th, ph, pt, ex, mu, cnt), (th, ph, pt, None, None, None)):
+        full = fused_estep(*args, **ESTEP_KW)
+        torch.cuda.synchronize()
+        _check_estep(full, fused_estep_reference(*args, **ESTEP_KW))
+        t = T - G if G > 1 else 37
+        part = fused_estep(th[:t // G].contiguous(), ph[:t].contiguous(), pt,
+                           *[None if x is None else x[:t].contiguous()
+                             for x in args[3:]], **ESTEP_KW)
+        for a, b in zip(part, full):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a, b[:t])
 
 
 def _topk_inputs(T, A, dev, seed=0):

@@ -27,6 +27,9 @@ from repro.kernels.foem_estep import fused_estep_pallas
 from repro.kernels.topk_estep import topk_estep_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels.foem_estep import (
+    REG_MAX_K,
+    EstepPath,
+    estep_path,
     fused_estep,
     fused_estep_reference,
     tokens_per_row,
@@ -128,6 +131,26 @@ def test_tokens_per_row():
         tokens_per_row(5, 12)
     with pytest.raises(ValueError):
         tokens_per_row(0, 4)
+
+
+@pytest.mark.parametrize("K,off,want", [
+    (10_000, 0, EstepPath("registers", 0)),    # stream_1k: 16-byte lanes
+    (10_000, 1, EstepPath("registers", 1)),    # an unaligned base: scalar
+    (10_001, 0, EstepPath("registers", 1)),    # K % 4 != 0: scalar
+    (7, 0, EstepPath("registers", 1)),
+    (4096, 0, EstepPath("registers", 0)),
+    (REG_MAX_K, 0, EstepPath("registers", 0)),
+    (REG_MAX_K + 4, 0, EstepPath("two-pass", 2)),
+    (50_000, 0, EstepPath("two-pass", 2)),     # bigmodel
+])
+def test_estep_path_by_width_and_alignment(K, off, want):
+    """The register path up to 10,240 lanes, 16-byte lanes only when
+    K % 4 == 0 and every operand is 16-byte aligned; the two-pass path past
+    the register bound.  Absent operands do not count."""
+    buf = torch.zeros(K + 8)
+    x = buf[off:off + K]
+    assert estep_path(K, (x, None, buf)) == want
+    assert x.data_ptr() % 16 == (4 * off) % 16
 
 
 # ---------------------------------------------------------------------------

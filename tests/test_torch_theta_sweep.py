@@ -31,8 +31,12 @@ from repro_torch.core.perplexity import (
 from repro_torch.core.types import InferPlan, LDAConfig, MinibatchData
 from repro_torch.kernels import ops
 from repro_torch.kernels.theta_sweep import (
+    RING_BUDGET,
+    SMEM_BUDGET,
     dequantize_phi,
+    doc_order,
     quantize_phi,
+    sweep_path,
     theta_sweep,
     theta_sweep_reference,
 )
@@ -299,3 +303,54 @@ def test_predictive_perplexity_matches_jax():
     np.testing.assert_allclose(float(res.perplexity(float(ev.sum()))),
                                float(jres.perplexity(float(ev.sum()))),
                                rtol=1e-2)
+
+
+def test_doc_order_longest_first_stable():
+    """CTAs take documents by fit tokens (nonzero estimation counts), most
+    first, ties in index order; the order is a permutation."""
+    est = torch.tensor([[1.0, 0.0, 2.0, 0.0],
+                        [0.0, 0.0, 0.0, 0.0],
+                        [3.0, 4.0, 5.0, 1.0],
+                        [1.0, 1.0, 0.0, 0.0],
+                        [0.0, 2.0, 0.0, 7.0]])
+    order = doc_order(est)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [2, 0, 3, 4, 1]
+    rng = np.random.default_rng(0)
+    big = torch.from_numpy(rng.integers(0, 3, (300, 50)).astype(np.float32))
+    fit = (big != 0).sum(1)
+    o = doc_order(big).long()
+    assert sorted(o.tolist()) == list(range(300))
+    assert bool((fit[o][:-1] >= fit[o][1:]).all())
+    ties = fit[o][:-1] == fit[o][1:]
+    assert bool((o[:-1][ties] < o[1:][ties]).all())
+
+
+@pytest.mark.parametrize("K,A,L,itemsize,ptr,kind,code,slots", [
+    (10_000, 0, 160, 4, 0, "registers", 0, 2),    # f32 rows of 40 KB
+    (10_000, 0, 160, 2, 0, "registers", 0, 5),    # bf16, 20 KB
+    (10_000, 0, 160, 1, 0, "registers", 0, 8),    # int8, 10 KB
+    (10_000, 16, 160, 4, 0, "registers", 0, 2),   # scheduled
+    (10_001, 0, 160, 2, 0, "registers", 1, 5),    # rows not 16-byte aligned
+    (10_000, 0, 160, 4, 4, "registers", 1, 2),    # φ's base not aligned
+    (10_240, 1024, 16, 1, 0, "registers", 0, 8),
+    (10_240, 1025, 16, 4, 0, "shared", 2, 0),     # A past the staging buffer
+    (10_241, 0, 16, 4, 0, "shared", 2, 0),        # past the register lanes
+    (10_000, 0, 2048, 4, 0, "shared", 2, 0),      # columns crowd the ring out
+    (50_000, 0, 16, 4, 0, "scratch", 3, 0),       # bigmodel
+])
+def test_sweep_path_by_width_dtype_and_alignment(K, A, L, itemsize, ptr,
+                                                 kind, code, slots):
+    """The kernel path a launch takes, and its shared memory: a ring of at
+    least two reductions' rows, the scheduled fit's state and the staged
+    token columns within the two-CTAs-an-SM budget."""
+    path = sweep_path(K, A, L, itemsize, ptr)
+    assert (path.kind, path.code, path.slots) == (kind, code, slots)
+    if kind == "registers":
+        assert path.stride >= K * itemsize + 15 and path.stride % 16 == 0
+        need = 8 * K + 16 * 1024 if A else 0
+        assert path.meta_off % 16 == 0
+        assert path.meta_off >= max(path.slots * path.stride, need)
+        assert path.smem == path.meta_off + 16 * L <= RING_BUDGET + 16
+    elif kind == "shared":
+        assert path.smem == 3 * K * 4 <= SMEM_BUDGET

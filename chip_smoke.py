@@ -24,8 +24,11 @@ order:
 3. holds the two training sweep kernels (``gs_sweep``, ``scheduled_sweep``)
    against their plain versions at the ``stream_1k`` training shapes (one
    bucketed 1,024 × 128 minibatch, K = 10,000, A = 16), with and without
-   the stop-rule phase, each time beside its prior design's, its share of
-   the bound and its CUDA launches per call;
+   the stop-rule phase, each with its path, time beside its prior
+   design's, share of the bound and CUDA launches per call (the kernel's
+   own count), the dense forms with the bytes their column loop moves by
+   design; then the stop-rule phase alone beside its row-gather floor, and
+   ``gs_sweep``'s two-pass path at bigmodel's K = 50,000;
 4. drives the training path — ``FOEMTrainer(device="cuda")`` for three
    minibatches of ``lda_config(stream_1k)`` on the same store, then one
    more step under ``torch.profiler`` — and serves a batch from the
@@ -34,7 +37,7 @@ order:
    ``sharded_fold``) against their plain versions at one rank's share of
    the stream_1k width (K/mp = 2,500 of K = 10,000 lanes, all W = 141,043
    rows, the 1,024 × 128 minibatch), dense and scheduled (A/mp = 4; times
-   as for the sweeps), and
+   as for the sweeps, the probe's also in a CUDA graph), and
    measures where the fold's running φ̂(k) total drifts from its rows: the
    kernel, and the plain version in float32 and in float64, from one
    renormalised two-phase state;
@@ -124,15 +127,18 @@ SWEEP_TOL_REASON = (
     "atol 1 token); the loglik sums 1e5 token partials (rtol 1e-5). "
     "rtol 1e-4 elsewhere covers K = 1e4 term sums in another order carried "
     "through 128 Gauss-Seidel columns")
-# The sweep kernels' times at these shapes in their prior design (an
-# E-step and a fold launch a column; its final run of this script on an
-# H100 80GB HBM3, 700.00 W; PERF.md §6), printed beside this run's
-PRIOR_MS = {"dense": 33.851, "dense +loglik": 37.865,
-           "scheduled A=16": 16.643, "scheduled A=16 +loglik": 21.204,
-           "probe dense": 0.989, "fold dense": 10.592,
-           "fold dense +loglik": 11.08, "probe scheduled A/mp=4": 0.132,
-           "fold scheduled A/mp=4": 10.26,
-           "fold scheduled A/mp=4 +loglik": 10.962}
+STOP_RULE_ATOL = 1e-4       # nats: a token's x·log(lik), x <= a few tokens,
+# log(lik) ~ -10 summed over K = 1e4 terms in another order (~1e-6 relative)
+# The sweep and sharded kernels' times at these shapes before this design of
+# gs_sweep's column loop, the stop-rule phase and the sharded probe (the
+# previous final run of this script on an H100 80GB HBM3, 700.00 W;
+# PERF.md §6), printed beside this run's
+PRIOR_MS = {"dense": 33.405, "dense +loglik": 37.478,
+            "scheduled A=16": 8.095, "scheduled A=16 +loglik": 12.211,
+            "probe dense": 0.948, "fold dense": 5.917,
+            "fold dense +loglik": 6.441, "probe scheduled A/mp=4": 0.0841,
+            "fold scheduled A/mp=4": 4.042,
+            "fold scheduled A/mp=4 +loglik": 4.583, "stop rule": None}
 # theta_sweep's and fused_estep's times at these shapes in their design
 # before the register and row-ring one (a CTA of 1,024 threads per document
 # with its state in shared memory; a CTA of 256 per E-step row with a second
@@ -596,6 +602,31 @@ def _sweep_bound_ms(D, L, K, rows_used, live_tokens, lanes, A,
     return _bound(nbytes, flops)
 
 
+def _dense_design_bytes(wid, cnt, K, group_docs) -> dict:
+    """The bytes the dense column loop (csrc/gs_sweep.cu) moves by design on
+    this minibatch, column by column: μ in, μ_new and the residual out; θ̂
+    read (every document) and written (live tokens); each distinct word's
+    φ̂ row read and, live, written; Δ written and read for tokens whose word
+    is shared in the column (a lone live token folds its row in the E-step);
+    the group sums written and read.  Against the bound's once-a-sweep θ̂
+    and rows, this is what keeps the loop above its bound."""
+    import numpy as np
+
+    D, L = wid.shape
+    row = K * 4
+    groups = -(-D // group_docs)
+    total = 0
+    for l in range(L):
+        w, live = wid[:, l], cnt[:, l] != 0
+        uniq, inv, n = np.unique(w, return_inverse=True, return_counts=True)
+        shared = int((live & (n[inv] > 1)).sum())
+        nbytes = (3 * D + D + int(live.sum()) + len(uniq)
+                  + len(np.unique(w[live])) + 2 * shared + 2 * groups) * row
+        total += nbytes
+    return {"design_bytes": total, "design_bytes_per_column": total / L,
+            "design_ms_at_hbm_rate": total / HBM_BYTES_PER_S * 1e3}
+
+
 def sweep_kernel_phase(torch, dev, store, report):
     """Both training sweep kernels against their plain versions at the
     stream_1k training shapes: one bucketed 1,024 × 128 minibatch from the
@@ -605,7 +636,10 @@ def sweep_kernel_phase(torch, dev, store, report):
 
     from repro_torch.core import em, scheduling
     from repro_torch.core.types import uniform_responsibilities
-    from repro_torch.kernels.gs_sweep import gs_sweep, gs_sweep_reference
+    from repro_torch.kernels.gs_sweep import (
+        GROUP_DOCS, dense_path, gs_sweep, gs_sweep_reference, sweep_loglik,
+        sweep_loglik_partials, token_loglik,
+    )
     from repro_torch.kernels.scheduled_sweep import (
         scheduled_sweep, scheduled_sweep_reference,
     )
@@ -636,6 +670,8 @@ def sweep_kernel_phase(torch, dev, store, report):
     print(f"sweep tolerance (rtol, atol): {json.dumps(SWEEP_TOL)}: "
           f"{SWEEP_TOL_REASON}")
 
+    design = _dense_design_bytes(mb.local_word_ids, mb.counts, K_FULL,
+                                 GROUP_DOCS)
     # the post-warm-up state the scheduled sweeps start from: one dense
     # sweep, its residuals ranked into the eq. 36 active sets
     warm = gs_sweep(wid, cnt, mu, theta, phi, ptot, **kw)
@@ -689,20 +725,83 @@ def sweep_kernel_phase(torch, dev, store, report):
                 D_TRAIN, L_TRAIN, K_FULL, rows_used, live_tok, lanes,
                 A_SCHED if extra is not None else 0, loglik)
             variant = name + (" +loglik" if loglik else "")
-            rec = {"variant": variant, "kernel": fn.__name__, "ms": ms,
-                   "prior_ms": PRIOR_MS[variant], "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": by,
+            rec = {"variant": variant, "kernel": fn.__name__,
+                   "path": (dense_path(K_FULL, [mu]).kind if extra is None
+                            else "active-set column loop"),
+                   "ms": ms, "prior_ms": PRIOR_MS[variant],
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    "share_of_bound": bound / ms,
-                   # gs_sweep: an E-step and a fold launch a column
-                   "launches_per_call": getattr(
-                       fn, "launches_per_call", 2 * L_TRAIN + loglik),
+                   "launches_per_call": fn.launches_per_call,
                    "phi_k_drift_tokens": drift, "errors": errs}
+            if extra is None:
+                rec.update(design)
             variants.append(rec)
             print("sweep kernel " + json.dumps(rec))
             torch.cuda.empty_cache()
+    # the stop-rule phase alone, on the post-warm-up statistics: its kernel
+    # against the plain per-token partials, its time beside the least time
+    # of its row gather (a K-float φ̂ row for every live token)
+    ll_args = (wid, cnt) + post[1:]
+    got = sweep_loglik_partials(*ll_args, **kw)
+    torch.cuda.synchronize()
+    want = token_loglik(*ll_args, wb, alpha_m1=0.01, beta_m1=0.01)
+    err = _check_close("stop rule", "loglik partials", got, want,
+                       (SWEEP_TOL["loglik"][0], STOP_RULE_ATOL))
+    total = sweep_loglik(*ll_args, wb, alpha_m1=0.01, beta_m1=0.01)
+    _check_close("stop rule", "loglik", got.sum(), total, SWEEP_TOL["loglik"])
+    check(torch.equal(got, sweep_loglik_partials(*ll_args, **kw)),
+          "stop rule: two launches on the same inputs differ")
+    del got, want
+    ms = cuda_time_ms(lambda: sweep_loglik_partials(*ll_args, **kw), 5)
+    gather = live_tok * K_FULL * 4
+    rec = {"variant": "stop rule", "kernel": "sweep_loglik_partials",
+           "ms": ms, "prior_ms": PRIOR_MS["stop rule"],
+           "row_gather_bytes": gather,
+           "row_gather_ms_at_hbm_rate": gather / HBM_BYTES_PER_S * 1e3,
+           "launches_per_call": 1, "errors": {"loglik partials": err}}
+    variants.append(rec)
+    print("sweep kernel " + json.dumps(rec))
     report["sweep_variants"] = variants
-    del mu, theta, phi, ptot, post, args
+    del mu, theta, phi, ptot, post, args, ll_args
     torch.cuda.empty_cache()
+    wide_sweep_check(torch, dev, mb)
+
+
+def wide_sweep_check(torch, dev, mb):
+    """gs_sweep at bigmodel's K = 5·10⁴, past the register path: the
+    two-pass path against its plain version and bitwise twice, on the
+    minibatch's first 32 documents × 8 columns over their own rows."""
+    import numpy as np
+
+    from repro_torch.kernels.gs_sweep import (
+        dense_path, gs_sweep, gs_sweep_reference,
+    )
+
+    K, D, L = 50_000, min(32, len(mb.local_word_ids)), 8
+    w = mb.local_word_ids[:D, :L]
+    uniq, local = np.unique(w, return_inverse=True)
+    rng = np.random.default_rng(8)
+    mu = rng.dirichlet(np.ones(K), (D, L)).astype(np.float32)
+    cnt = np.ascontiguousarray(mb.counts[:D, :L])
+    theta = np.einsum("dlk,dl->dk", mu, cnt).astype(np.float32)
+    phi = (rng.gamma(1.0, 1.0, (len(uniq), K)) * 3).astype(np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in (
+        local.reshape(D, L).astype(np.int32), cnt, mu, theta, phi,
+        phi.sum(0))]
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=W_FULL * 0.01,
+              emit_loglik=True)
+    got = gs_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    want = gs_sweep_reference(*args, **kw)
+    errs = {key: _check_close(f"gs_sweep K={K}", key, a, b, SWEEP_TOL[key])
+            for key, a, b in zip(("mu", "residual", "theta", "phi_wk",
+                                  "phi_k", "loglik"), got, want)}
+    again = gs_sweep(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"gs_sweep K={K}: two launches on the same inputs differ")
+    print(f"sweep kernel K={K} D={D} L={L} (path "
+          f"{dense_path(K, [args[2]]).kind}): agrees with the plain version "
+          f"{json.dumps(errs)}")
 
 
 def training_phase(torch, store, report):
@@ -769,8 +868,7 @@ def training_phase(torch, store, report):
     record(m)
     groups = {}
     for name, v in by_op.items():
-        key = ("dense sweep E-step" if "gs_estep_kernel" in name else
-               "dense sweep fold" if "sweep_fold_kernel" in name else
+        key = ("dense sweep column loop" if "gs_loop_kernel" in name else
                "scheduled sweep column loop" if "active_loop_kernel" in name
                else "scheduled sweep pass"
                if "active::copy_kernel" in name
@@ -895,7 +993,7 @@ def sharded_kernel_phase(torch, dev, cap, report):
     from repro_torch.kernels.gs_sweep import gs_sweep
     from repro_torch.kernels.scheduled_sweep import scheduled_sweep
     from repro_torch.kernels.sharded_sweep import (
-        sharded_fold, sharded_fold_reference, sharded_probe,
+        probe_path, sharded_fold, sharded_fold_reference, sharded_probe,
         sharded_probe_reference,
     )
     from repro_torch.launch.serve import TrafficGenerator
@@ -923,7 +1021,8 @@ def sharded_kernel_phase(torch, dev, cap, report):
           f"{SHARD_TOL_REASON}")
     variants = []
 
-    def measure(name, kernel, fn, ref, args, vkw, outs, bound, gather):
+    def measure(name, kernel, fn, ref, args, vkw, outs, bound, gather,
+                path):
         got = fn(*args, **vkw)
         torch.cuda.synchronize()
         want = ref(*args, **vkw)
@@ -940,8 +1039,16 @@ def sharded_kernel_phase(torch, dev, cap, report):
         del again
         ms = cuda_time_ms(lambda: fn(*args, **vkw), 3)
         plain_ms = cuda_time_ms(lambda: ref(*args, **vkw), 1)
-        rec = {"variant": name, "kernel": kernel, "ms": ms,
-               "prior_ms": PRIOR_MS[name], "plain_ms": plain_ms,
+        if kernel == "sharded_probe":
+            # one short launch: CUDA events around back-to-back calls time
+            # the host's wrapper; a captured graph times the device
+            graph = cuda_graph_time_ms(lambda: fn(*args, **vkw), 20)
+            extra = {"graph_ms": graph, "share_of_bound_graph":
+                     bound[0] / graph}
+        else:
+            extra = {}
+        rec = {"variant": name, "kernel": kernel, "path": path, "ms": ms,
+               **extra, "prior_ms": PRIOR_MS[name], "plain_ms": plain_ms,
                "bound_ms": bound[0], "bound_by": bound[1],
                "share_of_bound": bound[0] / ms,
                # the probe is one launch
@@ -977,14 +1084,16 @@ def sharded_kernel_phase(torch, dev, cap, report):
     s, _ = measure("probe dense", "sharded_probe", sharded_probe,
                    sharded_probe_reference, base, kw, outs_p,
                    probe_bound(D * L * K, False),
-                   D * L * K * 4 / HBM_BYTES_PER_S * 1e3)
+                   D * L * K * 4 / HBM_BYTES_PER_S * 1e3,
+                   probe_path(K, 0, base[2:]).kind)
     rem = s * (MP - 1)
     fold_gather = live_tok * K * 4 / HBM_BYTES_PER_S * 1e3
     for loglik in (False, True):
         warm = measure("fold dense" + (" +loglik" if loglik else ""),
                        "sharded_fold", sharded_fold, sharded_fold_reference,
                        base + (rem,), dict(kw, emit_loglik=loglik), outs_f,
-                       fold_bound(False, loglik), fold_gather)
+                       fold_bound(False, loglik), fold_gather,
+                       "dense column loop")
     zero = torch.zeros_like(rem)
     got = sharded_fold(*base, zero, **kw)
     want = gs_sweep(*base, **kw)
@@ -1007,7 +1116,10 @@ def sharded_kernel_phase(torch, dev, cap, report):
     s, pm = measure("probe scheduled A/mp=4", "sharded_probe", sharded_probe,
                     sharded_probe_reference, post + (wt, act), kw, outs_p,
                     probe_bound(act_tok * A_SHARD, True),
-                    act_tok * A_SHARD * 4 / HBM_BYTES_PER_S * 1e3)
+                    act_tok * A_SHARD * 4 / HBM_BYTES_PER_S * 1e3,
+                    f"{probe_path(K, A_SHARD, post[2:]).kind} "
+                    f"({probe_path(K, A_SHARD, post[2:]).code} threads a "
+                    "token)")
     fargs = post + (s * (MP - 1), pm * MP, wt, act)
     for loglik in (False, True):
         got = measure("fold scheduled A/mp=4" + (" +loglik" if loglik
@@ -1015,7 +1127,8 @@ def sharded_kernel_phase(torch, dev, cap, report):
                       "sharded_fold", sharded_fold, sharded_fold_reference,
                       fargs, dict(kw, emit_loglik=loglik), outs_f,
                       fold_bound(True, loglik),
-                      live_tok * A_SHARD * 4 / HBM_BYTES_PER_S * 1e3)
+                      live_tok * A_SHARD * 4 / HBM_BYTES_PER_S * 1e3,
+                      "active-set column loop")
         check(float(got[1][cnt == 0].abs().max()) == 0.0,
               "fold scheduled: a zero-count slot has a residual")
         del got
@@ -1095,6 +1208,9 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
                         v for k, v in by_op.items()
                         if "loop_kernel" in k or "active::copy_kernel" in k
                         or "active::zero_kernel" in k),
+                    # the sharded_probe kernel's launches
+                    "probe_device_ms": sum(
+                        v for k, v in by_op.items() if "probe_" in k),
                     "device_ms_by_op": top_ops(by_op, 10)}
         else:
             stats, ppl, sweeps = step()

@@ -17,9 +17,8 @@
 //
 // Probe (phase A), against the sweep-start statistics, no fold: per token
 // s = Σ num and, scheduled, p = Σ_A μ_old (the eq. 38 previous mass). The
-// tokens are independent, so all D·L go in one launch, one warp per token;
-// each lane strides over the shard's lanes and the warp sums in a fixed
-// shuffle order. Nothing is atomic: two launches give the same bits.
+// tokens are independent, so all D·L go in one launch. Nothing is atomic:
+// two launches give the same bits.
 //
 // Fold (phase C): the column-serial sweep of gs_sweep.cu and
 // scheduled_sweep.cu with the sharded denominator:
@@ -38,15 +37,28 @@
 //
 // Bound on this card: device-memory bytes. At the stream_1k shard width
 // (D = 1024, L = 128, K/mp = 2,500) the dense probe must read μ once
-// (1.31 GB, ≈ 0.39 ms at 3.35 TB/s) against ≈ 12 float32 operations per
-// (token, lane); the fold reads μ and writes μ_new and the residual
-// (3.9 GB, ≈ 1.2 ms). The scheduled probe reads 4 lanes of μ per active
-// token and is bound by its (D, L) inputs and outputs.
+// (1.31 GB, ≈ 0.39 ms at 3.35 TB/s; 0.47 ms with θ̂ and the rows) against
+// ≈ 12 float32 operations per (token, lane); the fold reads μ and writes
+// μ_new and the residual (3.9 GB, ≈ 1.2 ms). The scheduled probe reads
+// A/mp = 4 lanes of μ per active token: its bound is its (D, L) inputs and
+// outputs (2.2 µs), but each lane it gathers is a 32-byte sector of μ and
+// of a φ̂ row, and one launch has a few µs of ramp.
 //
-// Design. The probe reads each μ row once, coalesced, and keeps nothing in
-// shared memory. The fold runs its L columns in ONE persistent cooperative
-// launch with grid barriers between phases (sweep_active.cuh), not 2L
-// launches:
+// Design of the probe. Dense: a warp a token, four 256-thread CTAs an SM
+// (≤ 64 registers: more tokens in flight beat more loads a lane, which
+// spill); each lane issues its next kProbeLoads four-lane groups of μ
+// (streaming), θ̂_d, φ̂_w and φ̂(k) (the read-only path) before it uses
+// them, 16-byte loads where K/mp % 4 = 0
+// and the bases are aligned (the wrapper's probe_path), scalar ones
+// otherwise; the lane's sum runs over its groups in order, then a fixed
+// shuffle order over the warp. The design before this one strode four
+// scalar loads at a time over the lanes (0.48 of the bound's rate).
+// Scheduled: a power-of-two `span` of threads a token, the least ≥ A/mp up
+// to 32, so a warp carries 32 / span tokens (8 at A/mp = 4) instead of one
+// token on 4 of its 32 lanes; the token's threads add their slots' sums in
+// a fixed butterfly order. The fold runs its L columns in ONE persistent
+// cooperative launch with grid barriers between phases (sweep_active.cuh),
+// not 2L launches:
 //   * scheduled: the streaming pass writes μ_new = μ and residual = 0 for
 //     every token, then active_loop_kernel<true> runs the columns on the
 //     active lanes and folds only the live Δ (D·A values a column);
@@ -75,60 +87,119 @@ using active::grid_barrier;
 using active::ld_l2;
 using active::numerator;
 using sweep::block_sum;
+using sweep::get;
+using sweep::kReadOnly;
+using sweep::kStream;
+using sweep::ld4;
 using sweep::warp_sum;
 
 constexpr int kWarpThreads = 256;               // probe and u CTAs
-constexpr int kWarps = kWarpThreads / 32;       // tokens per CTA
+constexpr int kWarps = kWarpThreads / 32;       // dense tokens per CTA
+constexpr int kProbeLoads = 2;  // dense probe: lane groups in flight a lane
+constexpr int kProbeCtasPerSm = 4;  // dense probe: 32 warps an SM
 constexpr int kDenseThreads = 512;  // dense fold CTAs
 constexpr int kDenseCtasPerSm = 2;
 constexpr int kRegLanes = 5;    // dense lanes a thread keeps in registers
 constexpr int kGroupDocs = 32;  // documents per φ̂(k) partial sum (dense)
 
-// Phase A: one warp per token t = d·L + l.
-template <bool kSched>
-__global__ void __launch_bounds__(kWarpThreads)
-    probe_kernel(const int* __restrict__ word_ids,
-                 const float* __restrict__ counts,
-                 const uint8_t* __restrict__ token_active,
-                 const float* __restrict__ mu,
-                 const float* __restrict__ theta,
-                 const float* __restrict__ phi,
-                 const float* __restrict__ phi_k,
-                 const int* __restrict__ word_topics, int A,
-                 float* __restrict__ s_out, float* __restrict__ pm_out,
-                 long long tokens, int L, int K, float alpha_m1,
-                 float beta_m1, float wb) {
-  const int lane = threadIdx.x & 31;
+// Phase A, dense: one warp per token t = d·L + l. Each lane issues its
+// next kProbeLoads four-lane groups of all four operands before it uses
+// them (16-byte loads where kVec: K % 4 = 0 and every base aligned), μ
+// streaming and the rest through the read-only path (θ̂_d and φ̂(k) are
+// shared by the CTA's tokens, frequent rows by many); the lane's sum runs
+// over its groups in order, then a fixed shuffle order over the warp.
+template <bool kVec>
+__global__ void __launch_bounds__(kWarpThreads, kProbeCtasPerSm)
+    probe_dense_kernel(const int* __restrict__ word_ids,
+                       const float* __restrict__ counts,
+                       const float* __restrict__ mu,
+                       const float* __restrict__ theta,
+                       const float* __restrict__ phi,
+                       const float* __restrict__ phi_k,
+                       float* __restrict__ s_out, long long tokens, int L,
+                       int K, float alpha_m1, float beta_m1, float wb) {
+  const int lane_id = threadIdx.x & 31;
   const long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (t >= tokens) return;  // uniform across the warp
-  const int d = (int)(t / L);
   const float c = counts[t];
-  const int w = word_ids[t];
   const float* mo = mu + (size_t)t * K;
-  const float* th = theta + (size_t)d * K;
-  const float* row = phi + (size_t)w * K;
+  const float* th = theta + (size_t)(t / L) * K;
+  const float* row = phi + (size_t)word_ids[t] * K;
+  const int groups4 = (K + 3) >> 2;
+  float s = 0.f;
+  for (int g0 = lane_id; g0 < groups4; g0 += 32 * kProbeLoads) {
+    float4 m[kProbeLoads], a[kProbeLoads], r[kProbeLoads], q[kProbeLoads];
+#pragma unroll
+    for (int u = 0; u < kProbeLoads; ++u) {
+      const int g = g0 + 32 * u;
+      if (g < groups4) {
+        m[u] = ld4<kVec, kStream>(mo, g, K);
+        a[u] = ld4<kVec, kReadOnly>(th, g, K);
+        r[u] = ld4<kVec, kReadOnly>(row, g, K);
+        q[u] = ld4<kVec, kReadOnly>(phi_k, g, K);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kProbeLoads; ++u) {
+      const int g = g0 + 32 * u;
+      if (g >= groups4) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kVec || 4 * g + j < K)
+          s = __fadd_rn(s, numerator(c, get(m[u], j), get(a[u], j),
+                                     get(r[u], j), get(q[u], j), alpha_m1,
+                                     beta_m1, wb));
+    }
+  }
+  s = warp_sum(s);
+  if (lane_id == 0) s_out[t] = s;
+}
+
+// Phase A, scheduled: `span` threads a token (a power of two, the least ≥
+// A up to 32), 32 / span tokens a warp. Thread j of a token takes slots j,
+// j + span, … of its word's active set; the token's span threads then add
+// their sums in a fixed butterfly (xor) order, which gives all of them the
+// same bits. An inactive token (λ_w mask) writes 0.
+__global__ void __launch_bounds__(kWarpThreads)
+    probe_sched_kernel(const int* __restrict__ word_ids,
+                       const float* __restrict__ counts,
+                       const uint8_t* __restrict__ token_active,
+                       const float* __restrict__ mu,
+                       const float* __restrict__ theta,
+                       const float* __restrict__ phi,
+                       const float* __restrict__ phi_k,
+                       const int* __restrict__ word_topics, int A, int span,
+                       float* __restrict__ s_out, float* __restrict__ pm_out,
+                       long long tokens, int L, int K, float alpha_m1,
+                       float beta_m1, float wb) {
+  const long long i = (long long)blockIdx.x * kWarpThreads + threadIdx.x;
+  const long long t = i / span;
+  const int sub = (int)(i & (span - 1));
   float s = 0.f, pm = 0.f;
-  if (kSched) {
-    if (token_active[t]) {  // uniform across the warp
+  if (t < tokens) {
+    const float c = counts[t];
+    const int w = word_ids[t];
+    if (token_active[t]) {
       const int* top = word_topics + (size_t)w * A;
-      for (int a = lane; a < A; a += 32) {
-        const int k = top[a];
+      const float* mo = mu + (size_t)t * K;
+      const float* th = theta + (size_t)(t / L) * K;
+      const float* row = phi + (size_t)w * K;
+      for (int a = sub; a < A; a += span) {
+        const int k = __ldg(top + a);
         const float m0 = mo[k];
-        s = __fadd_rn(s, numerator(c, m0, th[k], row[k], phi_k[k], alpha_m1,
-                                   beta_m1, wb));
+        s = __fadd_rn(s, numerator(c, m0, __ldg(th + k), __ldg(row + k),
+                                   __ldg(phi_k + k), alpha_m1, beta_m1, wb));
         pm = __fadd_rn(pm, m0);
       }
     }
-  } else {
-    for (int k = lane; k < K; k += 32)
-      s = __fadd_rn(s, numerator(c, mo[k], th[k], row[k], phi_k[k], alpha_m1,
-                                 beta_m1, wb));
   }
-  s = warp_sum(s);
-  if (kSched) pm = warp_sum(pm);
-  if (lane == 0) {
+  for (int o = span >> 1; o > 0; o >>= 1) {  // every lane of the warp
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    pm = __fadd_rn(pm, __shfl_xor_sync(0xffffffffu, pm, o));
+  }
+  if (t < tokens && sub == 0) {
     s_out[t] = s;
-    if (kSched) pm_out[t] = pm;
+    pm_out[t] = pm;
   }
 }
 
@@ -388,35 +459,41 @@ unsigned warp_grid(long long tokens) {
 extern "C" {
 
 // Phase A on `stream`: one launch. word_topics == NULL is the dense probe
-// (token_active and pm_out unused); else token_active is (D, L) bytes and
-// pm_out receives the previous active mass. Returns cudaGetLastError().
+// (token_active and pm_out unused; path 0: 16-byte lanes, 1: scalar);
+// else the scheduled probe with `path` threads a token (a power of two ≤
+// 32), token_active (D, L) bytes, and pm_out receives the previous active
+// mass (sharded_sweep.probe_path). Returns cudaGetLastError().
 int sharded_probe_launch(const void* word_ids, const void* counts,
                          const void* token_active, const void* mu,
                          const void* theta, const void* phi,
                          const void* phi_k, const void* word_topics, int A,
                          void* s_out, void* pm_out, int D, int L, int K,
-                         float alpha_m1, float beta_m1, float wb,
+                         int path, float alpha_m1, float beta_m1, float wb,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long tokens = (long long)D * L;
   const int* wid = static_cast<const int*>(word_ids);
   const float* cnt = static_cast<const float*>(counts);
-  const uint8_t* act = static_cast<const uint8_t*>(token_active);
   const float* m = static_cast<const float*>(mu);
   const float* th = static_cast<const float*>(theta);
   const float* ph = static_cast<const float*>(phi);
   const float* pk = static_cast<const float*>(phi_k);
-  const int* wt = static_cast<const int*>(word_topics);
   float* s = static_cast<float*>(s_out);
-  float* pm = static_cast<float*>(pm_out);
-  if (wt != nullptr)
-    probe_kernel<true><<<warp_grid(tokens), kWarpThreads, 0, st>>>(
-        wid, cnt, act, m, th, ph, pk, wt, A, s, pm, tokens, L, K, alpha_m1,
-        beta_m1, wb);
-  else
-    probe_kernel<false><<<warp_grid(tokens), kWarpThreads, 0, st>>>(
-        wid, cnt, act, m, th, ph, pk, wt, A, s, pm, tokens, L, K, alpha_m1,
-        beta_m1, wb);
+  if (word_topics != nullptr) {
+    const long long threads = tokens * path;
+    const unsigned grid =
+        (unsigned)((threads + kWarpThreads - 1) / kWarpThreads);
+    probe_sched_kernel<<<grid, kWarpThreads, 0, st>>>(
+        wid, cnt, static_cast<const uint8_t*>(token_active), m, th, ph, pk,
+        static_cast<const int*>(word_topics), A, path, s,
+        static_cast<float*>(pm_out), tokens, L, K, alpha_m1, beta_m1, wb);
+  } else if (path == 0) {
+    probe_dense_kernel<true><<<warp_grid(tokens), kWarpThreads, 0, st>>>(
+        wid, cnt, m, th, ph, pk, s, tokens, L, K, alpha_m1, beta_m1, wb);
+  } else {
+    probe_dense_kernel<false><<<warp_grid(tokens), kWarpThreads, 0, st>>>(
+        wid, cnt, m, th, ph, pk, s, tokens, L, K, alpha_m1, beta_m1, wb);
+  }
   return cudaGetLastError();
 }
 

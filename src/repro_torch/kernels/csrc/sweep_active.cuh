@@ -192,23 +192,23 @@ inline cudaError_t launch_stream_pass(const float* src, float* dst,
   return cudaGetLastError();
 }
 
-// Launch a persistent kernel cooperatively: `want` CTAs of `threads`,
-// capped at what the card holds at once (occupancy × SMs) and at `per_sm`
-// CTAs an SM.
+// Launch a persistent kernel cooperatively: `want` CTAs of `threads` with
+// `smem` bytes of dynamic shared memory, capped at what the card holds at
+// once (occupancy × SMs) and at `per_sm` CTAs an SM.
 template <typename Params>
 cudaError_t launch_cooperative(void (*kernel)(Params), const Params& p,
                                int want, int per_sm, int threads,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, size_t smem = 0) {
   int fit = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &fit, kernel, threads, 0);
+      &fit, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   if (fit < 1) return cudaErrorInvalidConfiguration;
   const int cap = sm_count() * (fit < per_sm ? fit : per_sm);
   const int grid = want < 1 ? 1 : (want > cap ? cap : want);
   void* args[] = {const_cast<Params*>(&p)};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
-                                    threads, args, 0, stream);
+                                    threads, args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -1,30 +1,32 @@
-// Shared pieces of the dense Gauss-Seidel sweep kernel (gs_sweep.cu) for
-// NVIDIA Hopper (sm_90a); scheduled_sweep.cu and sharded_sweep.cu use its
-// reductions and its stop-rule phase (their column loop is
-// sweep_active.cuh):
+// Shared pieces of the training sweep kernels for NVIDIA Hopper (sm_90a):
+// gs_sweep.cu, scheduled_sweep.cu and sharded_sweep.cu (their column loops
+// are in gs_sweep.cu and sweep_active.cuh), and fused_estep.cu's reduction:
 //
-//   * block_sum          — fixed-order block reduction (no atomics);
-//   * sweep_fold_kernel  — the Gauss-Seidel fold of one token column: adds
-//                          the column's per-document Δ into the φ̂ rows and
-//                          into φ̂(k), in a fixed order, without atomics;
-//   * sweep_loglik_kernel — the eq. 3 stop-rule phase: per-token data
-//                          log-likelihood partials against the final stats.
+//   * warp_sum, block_sum  — fixed-order reductions (no atomics);
+//   * ld4, st4, add4       — four lanes 4g..4g+3 of a row at once: one
+//                            16-byte access (kVec) or four masked scalar ones
+//                            with the same lane map, so a sum over lanes has
+//                            the same order, and the same bits, on both;
+//   * sweep_loglik_kernel  — the eq. 3 stop-rule phase: per-token data
+//                            log-likelihood partials against the final
+//                            statistics.
 //
-// Column order. The TPU kernels ran the token columns as a sequential Pallas
-// grid, which gave the Gauss-Seidel order for free. Here each column is two
-// launches on one stream (E-step, then fold), and stream order makes column
-// l+1 read the statistics column l folded.
-//
-// Duplicate words in a column. Two documents of one column can share a word;
-// their Δ rows must land in the same φ̂ row. The fold does not use atomics
-// (their order, and so the bits, would change from run to run). The wrapper
-// sorts each column's live documents by word id, stably, so the documents
-// of one word form a segment in document order; one thread per (segment,
-// lane) adds the segment's rows in that order: φ̂ ← ((φ̂ + Δ_d1) + Δ_d2)…,
-// the order of the TPU kernel's serial scatter. φ̂(k) takes, per lane k, the
-// column's Δ summed over the live documents in index order (eight strided
-// partial sums combined in a fixed order), then one add: φ̂(k) + ΣΔ, the
-// reference's `ptot + delta.sum(0)`. Every result is bitwise repeatable.
+// The stop-rule phase. Bound on this card: device-memory bytes, a φ̂ row of
+// K floats for every live token (≈ 10^5 tokens × 40 KB at stream_1k: 4.1 GB,
+// ≈ 1.2 ms at 3.35 TB/s; frequent words' rows come again from L2), against
+// ≈ 2 float32 operations per (token, topic) (≈ 0.1 ms). The design before
+// this one walked a document's tokens one after another, one CTA, two block
+// barriers a token, with two IEEE divisions per lane and token: 4.2 ms. Now
+// one CTA of 512 threads takes a document: it normalises θ̂_d once and
+// stages w(k) = (θ̂_d(k)+α−1)/Σθ̂ · 1/max(φ̂(k)+W(β−1), 1e-30) in shared
+// memory (K floats), and each of its 16 warps takes a token: its lanes issue
+// eight 16-byte row loads before they use them and the warp sums Σ_k w(k)·
+// (φ̂_w(k)+β−1) in a fixed shuffle order, with no block barrier. The
+// reciprocal 1/max(φ̂(k)+wb, 1e-30) and the product with θ̂'s normalised
+// value round twice where the reference divides once: a few float32 ulps a
+// term, far inside SWEEP_TOL["loglik"] (rtol 1e-5). Where K floats do not fit
+// in shared memory w(k) is computed per token from θ̂ and φ̂(k), the same
+// arithmetic and so the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,10 +34,8 @@
 
 namespace sweep {
 
-constexpr int kThreads = 256;      // E-step and loglik CTAs
-constexpr int kFoldThreads = 256;  // fold CTAs
-constexpr int kFoldGroups = kFoldThreads / 32;  // φ̂(k) partial sums per lane
-constexpr int kRowBlocks = 64;     // fold CTAs per lane tile walking segments
+constexpr int kLoglikThreads = 512;  // stop rule: a document a CTA
+constexpr int kLoglikLoads = 8;      // row loads in flight a lane
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -63,88 +63,98 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[32];
 }
 
-// The fold of column `l`. Grid: (lane tiles, kRowBlocks + kFoldGroups).
-//
-// Rows with blockIdx.y < kRowBlocks walk the column's segments: block y takes
-// segments y, y + kRowBlocks, …; `lead_pos`/`lead_end`/`lead_word` (this
-// column's slice, -1 past the last segment) give each segment's first and
-// one-past-last sorted position and its word, `order` the document at each
-// sorted position. Dense (kCompact false): lanes are topics k, Δ is the
-// (D, K) `delta` scratch. Scheduled (kCompact true): lanes are the A active
-// slots of the segment's word (every document of a segment shares its word
-// and so its active set), Δ is the compact (D, A) `compact` scratch.
-//
-// Rows with blockIdx.y >= kRowBlocks sum φ̂(k): 32 lanes by kFoldGroups
-// strided document groups per block. They read the (D, K) `delta` scratch of
-// the live documents (`live`, this column: count ≠ 0, and token active when
-// scheduled). When kZeroDelta, they zero what they read, so the scheduled
-// E-step finds the scratch all zero at the next column.
-template <bool kCompact, bool kZeroDelta>
-__global__ void __launch_bounds__(kFoldThreads)
-    sweep_fold_kernel(const int* __restrict__ order,
-                      const int* __restrict__ lead_pos,
-                      const int* __restrict__ lead_end,
-                      const int* __restrict__ lead_word,
-                      const uint8_t* __restrict__ live, int L, int l,
-                      float* __restrict__ delta,
-                      const float* __restrict__ compact,
-                      const int* __restrict__ word_topics, int A,
-                      float* __restrict__ phi, float* __restrict__ phi_k,
-                      int D, int K) {
-  if (blockIdx.y < kRowBlocks) {
-    const int lanes = kCompact ? A : K;
-    const int j = blockIdx.x * kFoldThreads + threadIdx.x;
-    if (j >= lanes) return;
-    for (int s = blockIdx.y; s < D; s += kRowBlocks) {
-      const int p = lead_pos[s];
-      if (p < 0) break;  // past the column's last segment
-      const int end = lead_end[s];
-      const int w = lead_word[s];
-      const int k = kCompact ? word_topics[(size_t)w * A + j] : j;
-      float* dst = phi + (size_t)w * K + k;
-      float v = *dst;
-      for (int q = p; q < end; ++q) {
-        const int d = order[q];
-        const float x = kCompact ? compact[(size_t)d * A + j]
-                                 : delta[(size_t)d * K + k];
-        v = __fadd_rn(v, x);
-      }
-      *dst = v;
-    }
-    return;
-  }
-  __shared__ float part[kFoldGroups][32];
-  const int lane = threadIdx.x & 31;
-  const int g = threadIdx.x >> 5;
-  const int k = blockIdx.x * kFoldThreads +
-                (blockIdx.y - kRowBlocks) * 32 + lane;
-  float acc = 0.f;
-  if (k < K) {
-#pragma unroll 4
-    for (int d = g; d < D; d += kFoldGroups) {
-      if (!live[(size_t)d * L + l]) continue;
-      float* src = delta + (size_t)d * K + k;
-      const float x = *src;
-      acc = __fadd_rn(acc, x);
-      if (kZeroDelta && x != 0.f) *src = 0.f;
-    }
-  }
-  part[g][lane] = acc;
-  __syncthreads();
-  if (g == 0 && k < K) {
-    float s = part[0][lane];
+__device__ __forceinline__ float& lane(float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float get(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// How a lane group is read or written: plain (through L1; a generic address,
+// so shared memory too), streaming (evict-first: used once), read-only
+// (__ldg: not written during the kernel), or through L2 (state other CTAs
+// of the launch write).
+enum Via { kPlain, kStream, kReadOnly, kL2 };
+
+template <Via kVia>
+__device__ __forceinline__ float ld1(const float* p) {
+  return kVia == kStream ? __ldcs(p) : kVia == kReadOnly ? __ldg(p)
+         : kVia == kL2   ? __ldcg(p) : *p;
+}
+
+// Lanes 4g..4g+3 of `p`; the scalar form masks lanes past K (0).
+template <bool kVec, Via kVia>
+__device__ __forceinline__ float4 ld4(const float* p, int g, int K) {
+  if constexpr (kVec) {
+    const float4* q = reinterpret_cast<const float4*>(p) + g;
+    return kVia == kStream ? __ldcs(q) : kVia == kReadOnly ? __ldg(q)
+           : kVia == kL2   ? __ldcg(q) : *q;
+  } else {
+    float v[4];
 #pragma unroll
-    for (int i = 1; i < kFoldGroups; ++i) s = __fadd_rn(s, part[i][lane]);
-    phi_k[k] = __fadd_rn(phi_k[k], s);
+    for (int j = 0; j < 4; ++j)
+      v[j] = 4 * g + j < K ? ld1<kVia>(p + 4 * g + j) : 0.f;
+    return make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
-// eq. 3 data log-likelihood partials against the final statistics, one CTA
-// per document: tok_ll[d, l] = x_{d,l} · log max(Σ_k θ_d(k) φ_w(k), 1e-30)
-// with θ (eq. 9) and φ (eq. 10, global W through `wb`) normalised on the
-// fly, the arithmetic of the reference's loglik_partial term for term.
-// Zero-count tokens write 0 (the reference's 0 · log(lik)).
-__global__ void __launch_bounds__(kThreads)
+template <bool kVec, Via kVia>
+__device__ __forceinline__ void st4(float* p, int g, int K, float4 v) {
+  if constexpr (kVec) {
+    float4* q = reinterpret_cast<float4*>(p) + g;
+    if (kVia == kStream)
+      __stcs(q, v);
+    else if (kVia == kL2)
+      __stcg(q, v);
+    else
+      *q = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* q = p + 4 * g + j;
+      if (4 * g + j >= K) continue;
+      if (kVia == kStream)
+        __stcs(q, get(v, j));
+      else if (kVia == kL2)
+        __stcg(q, get(v, j));
+      else
+        *q = get(v, j);
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// w(k) of the stop rule: θ̂_d(k) normalised (eq. 9) times the reciprocal of
+// φ̂'s eq. 10 denominator.
+__device__ __forceinline__ float4 loglik_weight(float4 th, float4 pk,
+                                                float th_den, float alpha_m1,
+                                                float wb) {
+  float4 w;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    lane(w, j) = __fmul_rn(
+        __fdiv_rn(__fadd_rn(get(th, j), alpha_m1), th_den),
+        __frcp_rn(fmaxf(__fadd_rn(get(pk, j), wb), 1e-30f)));
+  return w;
+}
+
+// eq. 3 data log-likelihood partials against the final statistics:
+// tok_ll[d, l] = x_{d,l} · log max(Σ_k θ_d(k) φ_w(k), 1e-30), θ (eq. 9)
+// and φ (eq. 10, global W through `wb`) normalised on the fly. Zero-count
+// tokens write 0 (the reference's 0 · log(lik)). A CTA a document, a warp a
+// token; kVec: 16-byte lanes; kStaged: w(k) in shared memory (4·ceil(K/4)
+// floats of dynamic shared memory).
+template <bool kVec, bool kStaged>
+__global__ void __launch_bounds__(kLoglikThreads, 2)
     sweep_loglik_kernel(const int* __restrict__ word_ids,
                         const float* __restrict__ counts,
                         const float* __restrict__ theta,
@@ -153,58 +163,92 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ tok_ll, int L, int K,
                         float alpha_m1, float beta_m1, float wb,
                         float k_alpha) {
+  extern __shared__ float4 w_s4[];
+  float* w_s = reinterpret_cast<float*>(w_s4);
   __shared__ float red[33];
   const int d = blockIdx.x;
+  const int groups4 = (K + 3) >> 2;
   const float* th = theta + (size_t)d * K;
   float part = 0.f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) part = __fadd_rn(part, th[k]);
-  const float th_den = fmaxf(__fadd_rn(block_sum(part, red), k_alpha), 1e-30f);
-  for (int l = 0; l < L; ++l) {
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    part = __fadd_rn(part, __ldg(th + k));
+  const float th_den =
+      fmaxf(__fadd_rn(block_sum(part, red), k_alpha), 1e-30f);
+  if (kStaged) {
+    for (int g = threadIdx.x; g < groups4; g += blockDim.x)
+      st4<kVec, kPlain>(w_s, g, K,
+                        loglik_weight(ld4<kVec, kReadOnly>(th, g, K),
+                                      ld4<kVec, kReadOnly>(phi_k, g, K),
+                                      th_den, alpha_m1, wb));
+    __syncthreads();
+  }
+  const int lane_id = threadIdx.x & 31;
+  for (int l = threadIdx.x >> 5; l < L; l += blockDim.x >> 5) {
     const size_t t = (size_t)d * L + l;
     const float c = counts[t];
     if (c == 0.f) {
-      if (threadIdx.x == 0) tok_ll[t] = 0.f;
-      continue;  // uniform across the CTA
+      if (lane_id == 0) tok_ll[t] = 0.f;
+      continue;  // uniform across the warp
     }
     const float* row = phi + (size_t)word_ids[t] * K;
-    float lik = 0.f;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const float tn = __fdiv_rn(__fadd_rn(th[k], alpha_m1), th_den);
-      const float pn = __fdiv_rn(__fadd_rn(row[k], beta_m1),
-                                 fmaxf(__fadd_rn(phi_k[k], wb), 1e-30f));
-      lik = __fadd_rn(lik, __fmul_rn(tn, pn));
+    float acc = 0.f;
+    for (int g0 = lane_id; g0 < groups4; g0 += 32 * kLoglikLoads) {
+      float4 r[kLoglikLoads];
+#pragma unroll
+      for (int u = 0; u < kLoglikLoads; ++u) {
+        const int g = g0 + 32 * u;
+        if (g < groups4) r[u] = ld4<kVec, kReadOnly>(row, g, K);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoglikLoads; ++u) {
+        const int g = g0 + 32 * u;
+        if (g >= groups4) break;
+        const float4 w =
+            kStaged ? ld4<kVec, kPlain>(w_s, g, K)
+                    : loglik_weight(ld4<kVec, kReadOnly>(th, g, K),
+                                    ld4<kVec, kReadOnly>(phi_k, g, K),
+                                    th_den, alpha_m1, wb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (kVec || 4 * g + j < K)
+            acc = __fmaf_rn(get(w, j), __fadd_rn(get(r[u], j), beta_m1),
+                            acc);
+      }
     }
-    lik = fmaxf(block_sum(lik, red), 1e-30f);
-    if (threadIdx.x == 0) tok_ll[t] = __fmul_rn(c, logf(lik));
+    acc = warp_sum(acc);
+    if (lane_id == 0) tok_ll[t] = __fmul_rn(c, logf(fmaxf(acc, 1e-30f)));
   }
 }
 
-// Launch the fold of column l on `stream`; returns cudaGetLastError().
-template <bool kCompact, bool kZeroDelta>
-cudaError_t launch_fold(const int* order, const int* lead_pos,
-                        const int* lead_end, const int* lead_word,
-                        const uint8_t* live, int L, int l, float* delta,
-                        const float* compact, const int* word_topics, int A,
-                        float* phi, float* phi_k, int D, int K,
-                        cudaStream_t stream) {
-  const int lanes = K > A ? K : A;
-  dim3 grid((lanes + kFoldThreads - 1) / kFoldThreads,
-            kRowBlocks + kFoldGroups);
-  const size_t off = (size_t)l * D;
-  sweep_fold_kernel<kCompact, kZeroDelta><<<grid, kFoldThreads, 0, stream>>>(
-      order + off, lead_pos + off, lead_end + off, lead_word + off, live, L,
-      l, delta, compact, word_topics, A, phi, phi_k, D, K);
-  return cudaGetLastError();
-}
-
-// Launch the stop-rule phase on `stream`; returns cudaGetLastError().
+// Launch the stop-rule phase on `stream` (one launch, D > 0); returns the
+// first CUDA error. 16-byte lanes where K % 4 = 0 and the bases are
+// aligned; w(k) staged in shared memory where K floats fit.
 inline cudaError_t launch_loglik(const int* word_ids, const float* counts,
                                  const float* theta, const float* phi,
                                  const float* phi_k, float* tok_ll, int D,
                                  int L, int K, float alpha_m1, float beta_m1,
                                  float wb, float k_alpha,
                                  cudaStream_t stream) {
-  sweep_loglik_kernel<<<D, kThreads, 0, stream>>>(
+  const bool vec = K % 4 == 0 && aligned16(theta) && aligned16(phi) &&
+                   aligned16(phi_k);
+  const size_t smem = sizeof(float) * 4 * ((K + 3) / 4);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  const bool staged = smem + 1024 <= static_cast<size_t>(optin);
+  auto* kernel = vec ? (staged ? &sweep_loglik_kernel<true, true>
+                               : &sweep_loglik_kernel<true, false>)
+                     : (staged ? &sweep_loglik_kernel<false, true>
+                               : &sweep_loglik_kernel<false, false>);
+  if (staged && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<D, kLoglikThreads, staged ? smem : 0, stream>>>(
       word_ids, counts, theta, phi, phi_k, tok_ll, L, K, alpha_m1, beta_m1,
       wb, k_alpha);
   return cudaGetLastError();

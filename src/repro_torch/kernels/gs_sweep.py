@@ -11,23 +11,37 @@ with ``emit_loglik``, the post-sweep eq. 3 data log-likelihood.
 
 * On CUDA tensors the wrapper runs the hand-written kernel
   ``csrc/gs_sweep.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, see
-  ``kernels/build.py``): one C call that enqueues, per column, an E-step
-  launch and a deterministic fold launch (``csrc/sweep_common.cuh``), and
-  the stop-rule launch.  It never falls back.
+  ``kernels/build.py``): one persistent cooperative launch for the L
+  columns, on the path :func:`dense_path` picks, with the visiting plan of
+  :func:`column_plan`, then the stop-rule launch (``csrc/sweep_common.cuh``).
+  It never falls back.
 * On CPU tensors it runs :func:`gs_sweep_reference`, the plain version: a
   port of the JAX package's ``ops._gs_sweep_portable`` with the E-step of
   ``ref.fused_estep_ref`` written out, and of ``ops._map_loglik`` as
   per-column :func:`loglik_partial` sums.
 
-``gs_sweep.launches`` counts kernel calls (a plain integer): one per sweep,
-each of which enqueues 2L CUDA launches (+1 with ``emit_loglik``).
+``gs_sweep.launches`` counts kernel calls (a plain integer), one per sweep;
+``gs_sweep.launches_per_call`` is the number of CUDA operations the last
+call enqueued: 2 (the barrier's zeroing, the column loop), +1 with
+``emit_loglik``.  :func:`sweep_loglik_partials` runs the stop-rule phase
+alone (``sweep_loglik_partials.launches`` counts it).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+#: The register path's widest K (512 threads × 5 float4 lane groups in
+#: ``csrc/gs_sweep.cu``); wider sweeps take the two-pass path.
+REG_MAX_K = 512 * 5 * 4
+#: Documents per φ̂(k) partial sum of the column loop: a fixed group of
+#: consecutive documents, so neither the grid nor padding documents at the
+#: end change the sum's order.
+GROUP_DOCS = 4
+#: :func:`column_plan`'s token flags (kSolo, kShared in ``csrc/gs_sweep.cu``).
+SOLO, SHARED = 1, 2
 
 SweepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, Optional[torch.Tensor]]
@@ -65,6 +79,25 @@ def sweep_loglik(word_ids: torch.Tensor, counts: torch.Tensor,
     if not parts:
         return torch.zeros((), dtype=theta.dtype, device=theta.device)
     return torch.stack(parts).sum()
+
+
+def token_loglik(word_ids: torch.Tensor, counts: torch.Tensor,
+                 theta: torch.Tensor, phi_wk: torch.Tensor,
+                 phi_k: torch.Tensor, wb: float, *, alpha_m1: float,
+                 beta_m1: float) -> torch.Tensor:
+    """The (D, L) per-token eq. 3 partials x · log max(Σ_k θ(k) φ_w(k),
+    1e-30) whose column sums are :func:`loglik_partial`'s, with its
+    arithmetic; zero-count tokens give 0."""
+    K = theta.shape[-1]
+    th_den = theta.sum(-1, keepdim=True) + K * alpha_m1
+    th_n = (theta + alpha_m1) / th_den.clamp_min(1e-30)
+    den = (phi_k + wb).clamp_min(1e-30)
+    idx = word_ids.long()
+    out = torch.zeros_like(counts)
+    for l in range(word_ids.shape[1]):
+        lik = (th_n * ((phi_wk[idx[:, l]] + beta_m1) / den)).sum(-1)
+        out[:, l] = counts[:, l] * torch.log(lik.clamp_min(1e-30))
+    return out
 
 
 def gs_sweep_reference(
@@ -201,6 +234,54 @@ def column_segments(word_ids: torch.Tensor, live: torch.Tensor,
             i32(count))
 
 
+def column_plan(word_ids: torch.Tensor, counts: torch.Tensor,
+                num_rows: int) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                            ...]]:
+    """The dense column loop's plan of one call, on the device, without a
+    sync.
+
+    Returns ``flags``, (D, L) uint8: :data:`SOLO` for a live token (count ≠
+    0) whose word no other token of its column has, dead or live — the
+    kernel folds its Δ into its φ̂ row in the E-step, since no other
+    document of the column reads that row —, :data:`SHARED` for the other
+    live tokens, 0 for the dead; and :func:`column_segments` over the
+    SHARED tokens, the fold phase's order.
+    """
+    D, L = word_ids.shape
+    skey, order = torch.sort(word_ids.t(), dim=1, stable=True)
+    alone = torch.ones((L, D), dtype=torch.bool, device=word_ids.device)
+    alone[:, 1:] &= skey[:, 1:] != skey[:, :-1]
+    alone[:, :-1] &= skey[:, :-1] != skey[:, 1:]
+    alone = torch.empty_like(alone).scatter_(1, order, alone).t()
+    live = counts != 0
+    flags = torch.where(live, torch.where(alone, SOLO, SHARED), 0)
+    return (flags.to(torch.uint8).contiguous(),
+            column_segments(word_ids, live & ~alone, num_rows))
+
+
+def doc_groups(D: int) -> int:
+    """The column loop's φ̂(k) partial sums: one per :data:`GROUP_DOCS`
+    consecutive documents."""
+    return -(-D // GROUP_DOCS)
+
+
+class SweepPath(NamedTuple):
+    kind: str   # "registers" or "two-pass"
+    code: int   # the kernel's path argument: bit 0 scalar lanes, bit 1 wide
+
+
+def dense_path(K: int, operands: Sequence[torch.Tensor]) -> SweepPath:
+    """The path of a ``gs_sweep`` launch at width K over these caller
+    operands (the wrapper's own buffers are 16-byte aligned): the register
+    path up to :data:`REG_MAX_K`, the two-pass path above it; 16-byte lanes
+    only where K % 4 == 0 and every operand's base is 16-byte aligned.  A
+    plain function of K and the addresses."""
+    vec = K % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in operands)
+    wide = K > REG_MAX_K
+    return SweepPath("two-pass" if wide else "registers",
+                     (0 if vec else 1) | (2 if wide else 0))
+
+
 def check_cuda_args(kernel: str, named: Sequence) -> None:
     """Every operand on one CUDA device, of the given dtype and shape, and
     contiguous; raise ValueError naming the first that is not."""
@@ -232,14 +313,23 @@ def _launcher():
     from repro_torch.kernels import build
 
     lib = build.load("gs_sweep")
-    fn = lib.gs_sweep_launch
-    if fn.argtypes is None:
+    if lib.gs_sweep_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 15 + [i, i, i, f, f, f, f, p]
-        fn.restype = ctypes.c_int
+        lib.gs_sweep_launch.argtypes = (
+            [p] * 18 + [i] * 5 + [f] * 4 + [ctypes.POINTER(i), p])
+        lib.gs_sweep_launch.restype = ctypes.c_int
+        lib.sweep_loglik_launch.argtypes = (
+            [p] * 6 + [i] * 3 + [f] * 4 + [p])
+        lib.sweep_loglik_launch.restype = ctypes.c_int
         lib.gs_sweep_error_string.argtypes = [ctypes.c_int]
         lib.gs_sweep_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, rc: int, kernel: str) -> None:
+    if rc != 0:
+        msg = lib.gs_sweep_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({rc})")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -287,26 +377,80 @@ def gs_sweep(
     tok_ll = (torch.zeros((D, L), dtype=torch.float32, device=theta.device)
               if emit_loglik else None)
     if D and L and K:
-        live = counts != 0
-        segs = column_segments(word_ids, live, phi_wk.shape[0])[:4]
-        delta = torch.empty((D, K), dtype=torch.float32, device=theta.device)
-        live8 = live.to(torch.uint8)
+        dev = theta.device
+        flags, segs = column_plan(word_ids, counts, phi_wk.shape[0])
+        path = dense_path(K, [mu])
+        delta = torch.empty((D, K), dtype=torch.float32, device=dev)
+        part = torch.empty((doc_groups(D), K), dtype=torch.float32,
+                           device=dev)
+        barrier = torch.empty((1,), dtype=torch.int32, device=dev)
+        enqueued = ctypes.c_int(0)
         lib = _launcher()
-        with torch.cuda.device(theta.device):
-            stream = torch.cuda.current_stream().cuda_stream
+        with torch.cuda.device(dev):
             rc = lib.gs_sweep_launch(
-                ptr(word_ids), ptr(counts), ptr(mu), ptr(mu_out), ptr(res),
-                ptr(theta_o), ptr(phi_o), ptr(ptot_o), *map(ptr, segs),
-                ptr(live8), ptr(delta), ptr(tok_ll), D, L, K,
+                ptr(word_ids), ptr(counts), ptr(flags), ptr(mu),
+                ptr(mu_out), ptr(res), ptr(theta_o), ptr(phi_o),
+                ptr(ptot_o), *map(ptr, segs), ptr(delta), ptr(part),
+                ptr(barrier), ptr(tok_ll), D, L, K, GROUP_DOCS, path.code,
                 float(alpha_m1), float(beta_m1), wb, float(K * alpha_m1),
-                stream,
+                ctypes.byref(enqueued),
+                torch.cuda.current_stream().cuda_stream,
             )
-        if rc != 0:
-            msg = lib.gs_sweep_error_string(rc).decode()
-            raise RuntimeError(f"gs_sweep kernel launch failed: {msg} ({rc})")
+        _raise_on(lib, rc, "gs_sweep")
         gs_sweep.launches += 1
+        gs_sweep.launches_per_call = enqueued.value
     loglik = tok_ll.sum() if emit_loglik else None
     return mu_out, res, theta_o, phi_o, ptot_o, loglik
 
 
 gs_sweep.launches = 0
+gs_sweep.launches_per_call = 0
+
+
+def sweep_loglik_partials(
+    word_ids: torch.Tensor,    # (D, L) int32 — rows into phi_wk
+    counts: torch.Tensor,      # (D, L) float32
+    theta: torch.Tensor,       # (D, K) float32
+    phi_wk: torch.Tensor,      # (W_s, K) float32
+    phi_k: torch.Tensor,       # (K,) float32
+    *,
+    alpha_m1: float,
+    beta_m1: float,
+    wb: float,                 # W·(β−1), with the *global* W
+) -> torch.Tensor:
+    """The sweeps' stop-rule phase alone: the (D, L) eq. 3 partials
+    against the given statistics, whose sum is :func:`sweep_loglik`.  CUDA
+    tensors run the phase's kernel (``csrc/sweep_common.cuh``, one launch,
+    the one ``gs_sweep`` and ``scheduled_sweep`` run with
+    ``emit_loglik``); CPU tensors run :func:`token_loglik`."""
+    wb = float(wb)
+    if theta.device.type == "cpu":
+        return token_loglik(word_ids, counts, theta, phi_wk, phi_k, wb,
+                            alpha_m1=alpha_m1, beta_m1=beta_m1)
+    if theta.device.type != "cuda":
+        raise ValueError(f"sweep_loglik_partials runs on cuda or cpu, not "
+                         f"{theta.device}")
+    D, L = word_ids.shape
+    K = theta.shape[-1]
+    check_cuda_args("sweep_loglik_partials", [
+        ("word_ids", word_ids, torch.int32, (D, L)),
+        ("counts", counts, torch.float32, (D, L)),
+        ("theta", theta, torch.float32, (D, K)),
+        ("phi_wk", phi_wk, torch.float32, (phi_wk.shape[0], K)),
+        ("phi_k", phi_k, torch.float32, (K,)),
+    ])
+    out = torch.zeros((D, L), dtype=torch.float32, device=theta.device)
+    if D and L and K:
+        lib = _launcher()
+        with torch.cuda.device(theta.device):
+            rc = lib.sweep_loglik_launch(
+                ptr(word_ids), ptr(counts), ptr(theta), ptr(phi_wk),
+                ptr(phi_k), ptr(out), D, L, K, float(alpha_m1),
+                float(beta_m1), wb, float(K * alpha_m1),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(lib, rc, "sweep_loglik_partials")
+        sweep_loglik_partials.launches += 1
+    return out
+
+
+sweep_loglik_partials.launches = 0

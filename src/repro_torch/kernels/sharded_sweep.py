@@ -23,6 +23,9 @@ E-step are the per-token normalisers.  ``ops.sweep`` runs one sweep as:
 * On CUDA tensors the wrappers run the hand-written kernels of
   ``csrc/sharded_sweep.cu`` (built with ``nvcc`` for ``sm_90a`` at first
   use, see ``kernels/build.py``), or raise.  They never fall back.  The
+  probe takes the path :func:`probe_path` picks: dense, a warp a token with
+  16-byte lanes (scalar ones at K % 4 ≠ 0 or an unaligned base);
+  scheduled, a power-of-two span of threads a token.  The
   fold runs its L columns in one persistent launch: scheduled, the
   active-set column loop of ``scheduled_sweep`` (a streaming pass, then
   the columns on the A lanes, folding in the orders of
@@ -42,7 +45,7 @@ zeroing launches, enqueued first, the barrier's zeroing, the column loop),
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +61,25 @@ from repro_torch.kernels.theta_sweep import word_lane_masks
 #: Documents per φ̂(k) partial sum of the dense fold (kGroupDocs in
 #: ``csrc/sharded_sweep.cu``).
 FOLD_GROUP_DOCS = 32
+
+class ProbePath(NamedTuple):
+    kind: str   # "float4", "scalar" (dense) or "packed" (scheduled)
+    code: int   # the kernel's path argument: dense 0 / 1; packed: threads
+    # a token
+
+
+def probe_path(K: int, A: int,
+               operands: Sequence[torch.Tensor]) -> ProbePath:
+    """The path of a ``sharded_probe`` launch: dense (A = 0), 16-byte
+    lanes where K % 4 == 0 and every operand's base is 16-byte aligned,
+    scalar lanes otherwise; scheduled, ``span`` threads a token — the least
+    power of two ≥ A, at most 32 — so that 32 / span tokens share a warp.  A
+    plain function of K, A and the addresses."""
+    if A:
+        return ProbePath("packed", min(32, 1 << (A - 1).bit_length()))
+    vec = K % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in operands)
+    return ProbePath("float4" if vec else "scalar", 0 if vec else 1)
+
 
 FoldOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
@@ -215,7 +237,7 @@ def _launcher():
     if lib.sharded_probe_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sharded_probe_launch.argtypes = (
-            [p] * 8 + [i, p, p, i, i, i, f, f, f, p])
+            [p] * 8 + [i, p, p, i, i, i, i, f, f, f, p])
         lib.sharded_probe_launch.restype = ctypes.c_int
         lib.sharded_fold_launch.argtypes = (
             [p] * 12 + [i] + [p] * 16 + [i, i, i, f, f, f,
@@ -286,17 +308,20 @@ def sharded_probe(
                                word_topics, token_active)
     check_cuda_args("sharded_probe", dense_operands(
         word_ids, counts, mu, theta, phi_wk, phi_k) + sched)
-    s = torch.zeros((D, L), dtype=torch.float32, device=theta.device)
-    pm = torch.zeros_like(s) if A else None
+    # the kernel writes every token's s (and p)
+    s = torch.empty((D, L), dtype=torch.float32, device=theta.device)
+    pm = torch.empty_like(s) if A else None
     if D and L:
-        act8 = token_active.to(torch.uint8) if A else None
+        path = probe_path(K, A, [mu, theta, phi_wk, phi_k])
         lib = _launcher()
         with torch.cuda.device(theta.device):
+            # a bool tensor's bytes are the kernel's (D, L) 0/1 bytes
             rc = lib.sharded_probe_launch(
-                ptr(word_ids), ptr(counts), ptr(act8), ptr(mu), ptr(theta),
+                ptr(word_ids), ptr(counts), ptr(token_active), ptr(mu),
+                ptr(theta),
                 ptr(phi_wk), ptr(phi_k), ptr(word_topics), A, ptr(s),
-                ptr(pm), D, L, K, float(alpha_m1), float(beta_m1), wb,
-                torch.cuda.current_stream().cuda_stream)
+                ptr(pm), D, L, K, path.code, float(alpha_m1),
+                float(beta_m1), wb, torch.cuda.current_stream().cuda_stream)
         _raise_on(lib, rc, "sharded_probe")
         sharded_probe.launches += 1
     return s, pm

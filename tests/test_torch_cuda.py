@@ -68,12 +68,22 @@ from repro_torch.kernels.foem_estep import (
     fused_estep,
     fused_estep_reference,
 )
-from repro_torch.kernels.gs_sweep import gs_sweep, gs_sweep_reference
+from repro_torch.kernels.gs_sweep import (
+    GROUP_DOCS,
+    REG_MAX_K,
+    dense_path,
+    gs_sweep,
+    gs_sweep_reference,
+    sweep_loglik,
+    sweep_loglik_partials,
+    token_loglik,
+)
 from repro_torch.kernels.scheduled_sweep import (
     scheduled_sweep,
     scheduled_sweep_reference,
 )
 from repro_torch.kernels.sharded_sweep import (
+    probe_path,
     sharded_fold,
     sharded_fold_reference,
     sharded_probe,
@@ -553,7 +563,7 @@ def _edge_call(case, form, dev):
     goes below zero, however many documents fold into one row), and the
     cross-shard columns of ``_sharded_inputs``."""
     D, L, K, W, A = EDGE_CASES[case]
-    A = 0 if form == "sharded_dense" else A
+    A = 0 if form in ("sharded_dense", "gs_sweep") else A
     args = _sweep_inputs(D, L, K, W, A, dev, seed=D + K)
     wid, cnt, mu = args[0], args[1], args[2]
     if case == "one_word_column":
@@ -578,6 +588,8 @@ def _edge_call(case, form, dev):
         assert args[2].data_ptr() % 16 == 4 and args[2].is_contiguous()
     if form == "scheduled_sweep":
         return scheduled_sweep, scheduled_sweep_reference, tuple(args)
+    if form == "gs_sweep":
+        return gs_sweep, gs_sweep_reference, tuple(args)
     rng = np.random.default_rng(D + K + 1)
     rem = torch.from_numpy(rng.gamma(1.0, 0.05, (D, L)).astype(np.float32))
     pm = None
@@ -589,26 +601,28 @@ def _edge_call(case, form, dev):
 
 
 @pytest.mark.parametrize("form", ["scheduled_sweep", "sharded_scheduled",
-                                  "sharded_dense"])
+                                  "sharded_dense", "gs_sweep"])
 @pytest.mark.parametrize("case", list(EDGE_CASES))
 def test_active_loop_edges_match_plain_bitwise(cuda, case, form):
     """Each redesigned form at the column loop's edges: within the sweep
     tolerance of its plain version, the same bits from two launches, one
     persistent column loop a call (4 CUDA operations with the streaming
-    pass, 2 for the dense fold, +1 with the stop rule), zero-count slots
-    without residual and inactive entries at μ_old."""
+    pass, 2 for the dense loops, +1 with the stop rule), zero-count slots
+    without residual and inactive entries at μ_old.  ``gs_sweep`` runs the
+    dense column loop at A = 0: a one-word column, a dead column, no live
+    token, more document groups than the card holds CTAs, scalar lanes."""
     fn, ref, a = _edge_call(case, form, cuda)
+    dense = form in ("sharded_dense", "gs_sweep")
     for loglik in (False, True):
         kw = dict(SWEEP_KW, emit_loglik=loglik)
         got = fn(*a, **kw)
         torch.cuda.synchronize()
-        assert fn.launches_per_call == (2 if form == "sharded_dense"
-                                        else 4) + loglik
+        assert fn.launches_per_call == (2 if dense else 4) + loglik
         again = fn(*a, **kw)
         for x, y in zip(got, again):
             assert (x is None and y is None) or torch.equal(x, y)
         want = ref(*a, **kw)
-        if fn is scheduled_sweep:
+        if fn in (scheduled_sweep, gs_sweep):
             _check_sweep(got, want)
         else:
             _check_sweep(got[:5] + (None,), want[:5] + (None,))
@@ -619,7 +633,7 @@ def test_active_loop_edges_match_plain_bitwise(cuda, case, form):
                                            atol=0.0, msg="loglik u")
     cnt = a[1]
     assert float(got[1][cnt == 0].abs().max()) == 0.0
-    if form != "sharded_dense":
+    if not dense:
         act = a[-1]
         assert torch.equal(got[0][~act], a[2][~act])
         assert bool((got[1][~act] == 0).all())
@@ -643,6 +657,125 @@ def test_sharded_fold_zero_remainder_edges(cuda, case, A):
     got = sharded_fold(*_fold_args(args, zero, pm), **SWEEP_KW)
     want = (scheduled_sweep if A else gs_sweep)(*args, **SWEEP_KW)
     _check_sweep(got[:5] + (None,), want[:5] + (None,))
+
+
+# ---------------------------------------------------------------------------
+# The dense column loop's paths (gs_sweep), the stop-rule phase and the probe
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K,off,kind,code", [
+    (10_000, 0, "registers", 0),
+    (10_000, 1, "registers", 1),      # unaligned μ: scalar lanes
+    (10_001, 0, "registers", 1),      # K % 4 != 0: scalar lanes
+    (REG_MAX_K, 0, "registers", 0),   # the register bound
+    (REG_MAX_K + 1, 0, "two-pass", 3),
+    (12_000, 0, "two-pass", 2),
+    (50_000, 0, "two-pass", 2),       # bigmodel
+])
+def test_gs_sweep_paths_match_plain(cuda, K, off, kind, code):
+    """Each path of the dense column loop against the plain version and
+    bitwise twice; the scalar lanes give the 16-byte lanes' bits."""
+    args = _sweep_inputs(6, 4, K, 5, 0, cuda, seed=K + off)
+    if off:
+        args[2] = _offset(args[2], off)
+    assert dense_path(K, [args[2]]) == (kind, code)
+    got = gs_sweep(*args, **SWEEP_KW, emit_loglik=True)
+    torch.cuda.synchronize()
+    _check_sweep(got, gs_sweep_reference(*args, **SWEEP_KW,
+                                         emit_loglik=True))
+    again = gs_sweep(*args, **SWEEP_KW, emit_loglik=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if off:
+        args[2] = args[2].contiguous().clone()
+        aligned = gs_sweep(*args, **SWEEP_KW, emit_loglik=True)
+        assert all(torch.equal(x, y) for x, y in zip(got, aligned))
+
+
+@pytest.mark.parametrize("K", [300, 10_000])
+def test_gs_sweep_padding_documents_invisible(cuda, K):
+    """Zero-count documents appended to a batch (a bucketed minibatch's
+    padding) leave the real documents' μ, residual, θ̂, stop-rule partials
+    and φ̂, φ̂(k) bit for bit as they were."""
+    D = 5 * GROUP_DOCS + 1
+    args = _sweep_inputs(D, 6, K, 7, 0, cuda, seed=K)
+    pad = 2 * GROUP_DOCS + 1
+    padded = [torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]),
+                                        dtype=x.dtype, device=cuda)])
+              for x in args[:4]] + args[4:]
+    base = gs_sweep(*args, **SWEEP_KW)
+    more = gs_sweep(*padded, **SWEEP_KW)
+    for x, y in zip(base[:3], more[:3]):
+        assert torch.equal(x, y[:D])
+    assert torch.equal(base[3], more[3]) and torch.equal(base[4], more[4])
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=SWEEP_KW["wb"])
+    a = sweep_loglik_partials(args[0], args[1], base[2], base[3], base[4],
+                              **kw)
+    b = sweep_loglik_partials(padded[0], padded[1], more[2], more[3],
+                              more[4], **kw)
+    assert torch.equal(a, b[:D])
+
+
+@pytest.mark.parametrize("K", [777, 10_000, 10_001, 60_000])
+def test_stop_rule_phase_matches_plain(cuda, K):
+    """The stop-rule kernel against the plain per-token partials: 16-byte
+    and scalar lanes, w(k) in shared memory, and per token past its
+    capacity (K = 60,000); its sum is sweep_loglik within SWEEP_TOL's
+    loglik rtol; two launches give the same bits."""
+    args = _sweep_inputs(9, 7, K, 6, 0, cuda, seed=K)
+    wid, cnt, _, theta, phi, ptot = args
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=SWEEP_KW["wb"])
+    before = sweep_loglik_partials.launches
+    got = sweep_loglik_partials(wid, cnt, theta, phi, ptot, **kw)
+    torch.cuda.synchronize()
+    assert sweep_loglik_partials.launches == before + 1
+    want = token_loglik(wid, cnt, theta, phi, ptot, kw["wb"],
+                        alpha_m1=0.01, beta_m1=0.01)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert float(got[cnt == 0].abs().max()) == 0.0
+    torch.testing.assert_close(
+        got.sum(), sweep_loglik(wid, cnt, theta, phi, ptot, kw["wb"],
+                                alpha_m1=0.01, beta_m1=0.01),
+        rtol=1e-5, atol=0.0)
+    assert torch.equal(got, sweep_loglik_partials(wid, cnt, theta, phi, ptot,
+                                                  **kw))
+
+
+@pytest.mark.parametrize("A", [0, 3, 16])
+def test_sweep_stop_rule_matches_sweep_loglik(cuda, A):
+    """gs_sweep's and scheduled_sweep's in-sweep loglik is sweep_loglik on
+    their own final statistics (the stop rule)."""
+    args = _sweep_inputs(30, 7, 1000, 9, A, cuda, seed=40 + A)
+    fn = scheduled_sweep if A else gs_sweep
+    out = fn(*args, **SWEEP_KW, emit_loglik=True)
+    want = sweep_loglik(args[0], args[1], out[2], out[3], out[4],
+                        SWEEP_KW["wb"], alpha_m1=0.01, beta_m1=0.01)
+    torch.testing.assert_close(out[5], want, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("K,A,off,kind,code", [
+    (2500, 0, 0, "float4", 0),     # stream_1k over 4 ranks
+    (625, 0, 0, "scalar", 1),      # K/mp odd: scalar lanes
+    (2500, 0, 1, "scalar", 1),     # an unaligned μ base
+    (100, 1, 0, "packed", 1),      # A/mp = 1: 32 tokens a warp
+    (100, 4, 0, "packed", 4),      # stream_1k's A/mp
+    (100, 8, 0, "packed", 8),
+    (100, 33, 0, "packed", 32),    # past a warp: 32 lanes a token
+])
+def test_sharded_probe_paths_match_plain(cuda, K, A, off, kind, code):
+    """Each probe path against its plain version, bitwise twice."""
+    args = _sweep_inputs(21, 9, K, 11, A, cuda, seed=K + A + off)
+    if off:
+        args[2] = _offset(args[2], off)
+    assert probe_path(K, A, args[2:6]) == (kind, code)
+    got = sharded_probe(*args, **SWEEP_KW)
+    torch.cuda.synchronize()
+    want = sharded_probe_reference(*args, **SWEEP_KW)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=1e-6)
+    if A:
+        torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=1e-6)
+    again = sharded_probe(*args, **SWEEP_KW)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------

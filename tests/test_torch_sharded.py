@@ -59,6 +59,7 @@ from repro_torch.core.types import (
 from repro_torch.kernels import ops
 from repro_torch.kernels.sharded_sweep import (
     loglik_partials,
+    probe_path,
     sharded_fold,
     sharded_fold_reference,
     sharded_probe,
@@ -584,6 +585,32 @@ def test_sharded_step_refuses_a_config_that_does_not_split():
                     topk_shards=2)
     with pytest.raises(ValueError, match="topk_shards"):
         foem_sharded.foem_step_sharded(None, batch, stats, cfg, mesh)
+
+
+class _Ptr:
+    """A stand-in operand with a given base address."""
+
+    def __init__(self, addr):
+        self.addr = addr
+
+    def data_ptr(self):
+        return self.addr
+
+
+@pytest.mark.parametrize("K,A,addrs,want", [
+    (2500, 0, (0, 16, 32, 48), ("float4", 0)),   # stream_1k over 4 ranks
+    (625, 0, (0, 16, 32, 48), ("scalar", 1)),    # K/mp % 4 != 0
+    (2500, 0, (4, 16, 32, 48), ("scalar", 1)),   # an unaligned μ
+    (2500, 0, (0, 16, 32, 8), ("scalar", 1)),    # an unaligned φ̂(k)
+    (2500, 1, (4, 0, 0, 0), ("packed", 1)),      # 32 tokens a warp
+    (2500, 3, (0, 0, 0, 0), ("packed", 4)),
+    (2500, 4, (0, 0, 0, 0), ("packed", 4)),      # stream_1k's A/mp
+    (2500, 8, (0, 0, 0, 0), ("packed", 8)),
+    (2500, 9, (0, 0, 0, 0), ("packed", 16)),
+    (2500, 33, (0, 0, 0, 0), ("packed", 32)),    # a warp a token, looping
+])
+def test_probe_path_by_width_alignment_and_active_lanes(K, A, addrs, want):
+    assert tuple(probe_path(K, A, [_Ptr(a) for a in addrs])) == want
 
 
 def test_shard_and_unshard_stats_round_trip():

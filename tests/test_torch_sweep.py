@@ -10,7 +10,11 @@ kernel-vs-portable ones (``tests/test_gs_sweep.py``): rtol 2e-5 and atol
 copies of the reference's invariants run on the port alone: zero-count
 slots inert, inactive entries untouched, mass conservation, the scheduler
 refresh equivalence, the in-sweep loglik against ``training_perplexity``,
-the global W reaching the sweep, and the eager contracts.
+the global W reaching the sweep, and the eager contracts.  The dense CUDA
+column loop's host-side choices are checked here too: its path by K and
+alignment, its document groups, its column plan (tokens folding their rows
+in the E-step, the shared words' segments) and a Python walk of the loop in
+that plan against the plain sweep, and the stop rule's per-token partials.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +38,20 @@ from repro_torch.core.types import (
     from_numpy,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.gs_sweep import gs_sweep, gs_sweep_reference
+from repro_torch.kernels.gs_sweep import (
+    GROUP_DOCS,
+    REG_MAX_K,
+    SHARED,
+    SOLO,
+    column_plan,
+    dense_path,
+    doc_groups,
+    gs_sweep,
+    gs_sweep_reference,
+    sweep_loglik,
+    sweep_loglik_partials,
+    token_loglik,
+)
 from repro_torch.kernels.scheduled_sweep import (
     scheduled_sweep,
     scheduled_sweep_reference,
@@ -390,3 +407,142 @@ def test_sweep_fires_pre_probe():
     with active_plan(plan), pytest.raises(InjectedFault):
         ops.sweep(*_args(s), **_kw(6), device="cpu")
     assert plan.fired_log()[0][:2] == ("kill", PRE_PROBE)
+
+
+# ---------------------------------------------------------------------------
+# (d) the dense CUDA column loop's host-side plan (csrc/gs_sweep.cu)
+# ---------------------------------------------------------------------------
+
+class _Ptr:
+    """A stand-in operand with a given base address."""
+
+    def __init__(self, addr):
+        self.addr = addr
+
+    def data_ptr(self):
+        return self.addr
+
+
+@pytest.mark.parametrize("K,addr,want", [
+    (10_000, 0, ("registers", 0)),
+    (10_000, 4, ("registers", 1)),          # unaligned μ: scalar lanes
+    (10_001, 0, ("registers", 1)),          # K % 4 != 0
+    (REG_MAX_K, 0, ("registers", 0)),
+    (REG_MAX_K + 4, 0, ("two-pass", 2)),
+    (50_000, 16, ("two-pass", 2)),
+    (50_001, 0, ("two-pass", 3)),
+])
+def test_dense_path_by_width_and_alignment(K, addr, want):
+    assert tuple(dense_path(K, [_Ptr(addr)])) == want
+
+
+@pytest.mark.parametrize("D", [1, GROUP_DOCS - 1, GROUP_DOCS, 1024, 1025])
+def test_doc_groups_cover_the_documents_in_fixed_groups(D):
+    g = doc_groups(D)
+    assert (g - 1) * GROUP_DOCS < D <= g * GROUP_DOCS
+
+
+def _plan_oracle(wid, cnt):
+    """Per token: 0 dead, SOLO when live and alone with its word in its
+    column (dead tokens counted), else SHARED."""
+    D, L = wid.shape
+    out = np.zeros((D, L), np.uint8)
+    for l in range(L):
+        col = list(wid[:, l])
+        for d in range(D):
+            if cnt[d, l] != 0:
+                out[d, l] = SOLO if col.count(wid[d, l]) == 1 else SHARED
+    return out
+
+
+@pytest.mark.parametrize("D,L,W,seed", [(7, 5, 4, 0), (30, 6, 40, 1),
+                                        (64, 3, 200, 2), (1, 4, 3, 3)])
+def test_column_plan_flags_and_segments(D, L, W, seed):
+    """SOLO tokens are the live ones whose word no other token of the
+    column has (a dead one included: it reads the row in the E-step); the
+    fold's segments hold every SHARED token once, by word, in document
+    order."""
+    s = _state(D, L, 3, W, seed=seed)
+    wid, cnt = s["wid"], s["cnt"]
+    cnt[0, 0] = 0.0             # a dead token beside live ones of its word
+    flags, (order, pos, end, word, count) = column_plan(
+        torch.from_numpy(wid), torch.from_numpy(cnt), W)
+    np.testing.assert_array_equal(flags.numpy(), _plan_oracle(wid, cnt))
+    for l in range(L):
+        seen = []
+        for sg in range(int(count[l])):
+            docs = order[l, int(pos[l, sg]):int(end[l, sg])].tolist()
+            assert docs == sorted(docs)
+            assert {int(wid[d, l]) for d in docs} == {int(word[l, sg])}
+            seen += docs
+        shared = np.flatnonzero(flags[:, l].numpy() == SHARED).tolist()
+        assert sorted(seen) == shared
+        if count[l] < D:
+            assert int(pos[l, int(count[l])]) == -1
+
+
+def _walk_dense_loop(wid, cnt, mu, theta, phi, ptot, *, alpha_m1, beta_m1,
+                     wb):
+    """The kernel's column loop in Python, in its plan: per column the
+    Jacobi E-step; θ̂ += Δ of the live tokens; a SOLO token's Δ into its row
+    at once; Σ_d Δ over each GROUP_DOCS group in document order; then
+    φ̂(k) += the group sums in group order and each shared segment's Δ into
+    its row in document order."""
+    D, L = wid.shape
+    flags, (order, pos, end, word, count) = column_plan(wid, cnt,
+                                                        phi.shape[0])
+    theta, phi, ptot = theta.clone(), phi.clone(), ptot.clone()
+    mu_out = torch.empty_like(mu)
+    idx = wid.long()
+    for l in range(L):
+        c = cnt[:, l, None]
+        ex = c * mu[:, l]
+        num = ((theta - ex).clamp_min(0) + alpha_m1) * (
+            (phi[idx[:, l]] - ex).clamp_min(0) + beta_m1) / (ptot - ex + wb)
+        new = num / num.sum(-1, keepdim=True).clamp_min(1e-30)
+        dl = c * new - ex
+        mu_out[:, l] = new
+        live = flags[:, l] != 0
+        theta[live] = theta[live] + dl[live]
+        for d in torch.nonzero(flags[:, l] == SOLO).flatten().tolist():
+            phi[idx[d, l]] = phi[idx[d, l]] + dl[d]
+        groups = [dl[g * GROUP_DOCS:(g + 1) * GROUP_DOCS].sum(0)
+                  for g in range(doc_groups(D))]
+        ptot = ptot + torch.stack(groups).sum(0)
+        for sg in range(int(count[l])):
+            row = int(word[l, sg])
+            for q in range(int(pos[l, sg]), int(end[l, sg])):
+                phi[row] = phi[row] + dl[int(order[l, q])]
+    return mu_out, theta, phi, ptot
+
+
+@pytest.mark.parametrize("D,L,K,W,seed", [(9, 7, 6, 4, 0), (21, 5, 11, 9, 1),
+                                          (40, 4, 8, 30, 2)])
+def test_dense_loop_walk_in_its_plan_matches_plain(D, L, K, W, seed):
+    """Folding rows in the E-step (SOLO) or by segment (SHARED) and φ̂(k)
+    by document groups gives the plain sweep's statistics: every live Δ
+    lands once in its row, θ̂ and φ̂(k)."""
+    s = _state(D, L, K, W, seed=seed)
+    t = [torch.from_numpy(x) for x in _args(s)]
+    got = _walk_dense_loop(*t, **_kw(W))
+    want = gs_sweep_reference(*t, **_kw(W))
+    for name, a, b in zip(("mu", "theta", "phi_wk", "phi_k"), got,
+                          (want[0], want[2], want[3], want[4])):
+        _close(a.numpy(), b.numpy(), name)
+
+
+def test_stop_rule_partials_sum_to_sweep_loglik():
+    """The stop rule's per-token partials (the kernel's output; on the CPU
+    its plain version) sum, column by column, to sweep_loglik, and a
+    zero-count token gives 0."""
+    D, L, K, W = 11, 6, 9, 7
+    s = _state(D, L, K, W, seed=21)
+    wid, cnt, _, theta, phi, ptot = [torch.from_numpy(x) for x in _args(s)]
+    tok = sweep_loglik_partials(wid, cnt, theta, phi, ptot, **_kw(W))
+    assert torch.equal(tok, token_loglik(wid, cnt, theta, phi, ptot,
+                                         W * 0.01, alpha_m1=0.01,
+                                         beta_m1=0.01))
+    assert bool((tok[cnt == 0] == 0).all())
+    _close(float(tok.sum()), float(sweep_loglik(
+        wid, cnt, theta, phi, ptot, W * 0.01, alpha_m1=0.01, beta_m1=0.01)),
+        "loglik", rtol=1e-6, atol=0.0)

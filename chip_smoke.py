@@ -51,12 +51,16 @@ order:
    with the exclusion, a ragged T, SEM's T = 131,072 tokens without it,
    with the residual and as SEM's own call (each ``fused_estep`` form with
    its path, launches per call, time beside the prior design's and share of
-   the bound); A = 16 active lanes with pad lanes and inactive tokens;
+   the bound); A = 16 active lanes with pad lanes and inactive tokens; then
+   the block loop that runs a whole blocked or scan scheduled sweep
+   (``blocked_sweep``) at B = 8 and B = L, with its time beside the sweep
+   the parent tree ran, its bound and design bytes, and the device
+   operations a sweep of each;
 8. drives the coarse-block and SEM paths on the same store —
    ``FOEMTrainer(device="cuda")`` with ``iem_blocks=8`` for two minibatches,
-   one with ``sweep_impl="scan"``, one more blocked step under
-   ``torch.profiler``, then ``algorithm="sem"`` for two minibatches — and
-   serves the held-out batch from the trained store.
+   one with ``sweep_impl="scan"``, one more blocked step and one more scan
+   step under ``torch.profiler``, then ``algorithm="sem"`` for two
+   minibatches — and serves the held-out batch from the trained store.
 9. holds the flash-attention kernel against its plain version at the LM
    serving path's shapes (bf16): granite-8b prefill (8 prompts × 32 query
    heads over 8 KV heads, S = 2,048, d = 128, causal) and decode (Sq = 1 at
@@ -1342,7 +1346,8 @@ def estep_kernel_phase(torch, dev, store, report):
     width: one 1,024 × 128 minibatch from the store with a fresh μ folded
     in; a block of iem_blocks = 8 (16 columns, T = 16,384) with the
     exclusion and θ̂ one row per document, SEM's T = 131,072 without it, a
-    ragged T; then the active-set E-step at A = 16 on both T."""
+    ragged T; then the active-set E-step at A = 16 on both T, and the block
+    loop that runs a blocked or scan scheduled sweep (topk_loop_check)."""
     import numpy as np
 
     from repro_torch.core import em, scheduling
@@ -1484,7 +1489,6 @@ def estep_kernel_phase(torch, dev, store, report):
     r = torch.rand((Ws, K), device=dev, generator=g)
     wt = scheduling.select_active_topics(r, A_SCHED)
     del r
-    topk_lines = []
     for cols in (blk, L):
         T = D * cols
         top = wt[wid[:, :cols].long()].long()                  # (D, c, A)
@@ -1512,21 +1516,156 @@ def estep_kernel_phase(torch, dev, store, report):
         rec.update(rows_equal_full_call=True, pad_lanes=int(pad.sum()),
                    inactive_tokens=int((~act).sum()))
         print("topk kernel " + json.dumps(rec))
-        topk_lines.append(rec)
         del got, part, targs, top, doc, w3, mu_a, th_a
+    torch.cuda.empty_cache()
     report["estep_lines"] = lines
-    report["topk_main"] = topk_lines[0]
+    report["topk_loop_lines"] = topk_loop_check(torch, wid, cnt, wt, mu,
+                                                theta, phi, ptot, kw)
     del mu, theta, phi, ptot, wt
     torch.cuda.empty_cache()
+
+
+def device_ops(torch, fn) -> tuple:
+    """The device operations (kernels, copies, memsets) one call of ``fn``
+    runs, counted from a ``torch.profiler`` trace (which may drop events:
+    a lower bound), and their device ms by name (``top_ops``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_op = {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_op[e.name] = by_op.get(e.name, 0.0) + ms
+    return len(events), top_ops(by_op, 6)
+
+
+def _loop_bytes(D, L, K, Ws, A, nb, blocks, lanes) -> dict:
+    """The block loop's bytes (csrc/topk_estep.cu): ``bound`` — each input
+    read once and each output written once: μ (D·L·K) in and out, φ̂, θ̂ and
+    φ̂(k) in and out (the contract's new tensors), the token ids, counts,
+    mask and active sets in, |Δ| and the topic ids (D, L, A) out; and
+    ``design`` — what the design moves: the μ copy pass, the three clones
+    read and written, a 32-byte sector for each of the active lanes' four
+    gathers (μ, θ̂, φ̂_w, φ̂(k)) and three writes (μ, θ̂, Δ), the visiting
+    orders read once."""
+    f = 4
+    bound = (2 * D * L * K * f + 2 * (Ws * K + D * K + K) * f
+             + D * L * (f + f + 1) + Ws * A * f + 2 * D * L * A * f)
+    design = (2 * D * L * K * f + 2 * (Ws * K + D * K + K) * f
+              + 7 * 32 * lanes + 2 * f * blocks * D * nb * (1 + A))
+    return {"bound": bound, "design": design}
+
+
+def topk_loop_check(torch, wid, cnt, wt, mu, theta, phi, ptot, kw):
+    """The block loop (``blocked_sweep``) against its plain version at the
+    stream_1k width, B = 8 and B = L: every output within the sweep
+    tolerance, two launches bitwise equal, no input modified; its time
+    beside the sweep the parent tree ran (the blocked scan over the slab
+    kernel, ``blocked_sweep_reference(estep=ops.topk_estep)`` on the card),
+    the plain version's, the bound and the design's bytes, and the device
+    operations a sweep of each."""
+    from repro_torch.kernels import ops, topk_estep
+    from repro_torch.kernels.topk_estep import (
+        block_width, blocked_sweep, blocked_sweep_reference,
+    )
+
+    D, L = wid.shape
+    K = mu.shape[-1]
+    Ws, A = wt.shape
+    act = cnt > 0                       # stream_1k: λ_w = 1
+    args = (wid, cnt, wt, act, mu, theta, phi, ptot)
+    sums = [float(x.double().sum()) for x in (mu, theta, phi, ptot)]
+    lanes = A * int(act.sum())
+    names = ("theta", "phi_wk", "phi_k", "mu", "residual")
+    out = []
+    for B in (IEM_BLOCKS, L):
+        bkw = dict(kw, num_blocks=B)
+        nb, blocks = block_width(L, B)
+        before = blocked_sweep.launches
+        got = blocked_sweep(*args, **bkw)
+        torch.cuda.synchronize()
+        launches = blocked_sweep.launches - before
+        want = blocked_sweep_reference(*args, **bkw)
+        name = f"B={B} (nb={nb})"
+        errs = {key: _check_close(f"topk loop {name}", key, a, b,
+                                  SWEEP_TOL[key])
+                for key, a, b in zip(names, got[:5], want[:5])}
+        check(torch.equal(got[5], want[5]),
+              f"topk loop {name}: token topics differ")
+        drift = phi_k_drift(torch, ptot, phi, got[2], got[1])
+        del want
+        again = blocked_sweep(*args, **bkw)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"topk loop {name}: two launches on the same inputs differ")
+        del got, again
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(lambda: blocked_sweep(*args, **bkw), 3)
+
+        def parent():
+            return blocked_sweep_reference(*args, **bkw,
+                                           estep=ops.topk_estep)
+
+        parent_ms = cuda_time_ms(parent, 2)
+        plain_ms = cuda_time_ms(lambda: blocked_sweep_reference(*args, **bkw),
+                                1)
+        n_ops, by_op = device_ops(torch, lambda: blocked_sweep(*args, **bkw))
+        parent_ops, _ = device_ops(torch, parent)
+        # the call's parts alone: the μ copy pass, the clone of φ̂ (θ̂'s
+        # and φ̂(k)'s are small) and the plan (block_orders)
+        out_mu = torch.empty_like(mu)
+        lib = topk_estep._launcher()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def copy_pass():
+            check(lib.topk_loop_pass_launch(mu.data_ptr(), out_mu.data_ptr(),
+                                            mu.numel(), stream) == 0,
+                  "topk loop: the copy pass was refused")
+
+        parts = {
+            "mu_copy_ms": cuda_time_ms(copy_pass, 3),
+            "phi_clone_ms": cuda_time_ms(lambda: phi.clone(), 3),
+            "plan_ms": cuda_time_ms(lambda: topk_estep.block_orders(
+                wid, act, Ws, wt, K, B), 3)}
+        del out_mu
+        nbytes = _loop_bytes(D, L, K, Ws, A, nb, blocks, lanes)
+        bound, by = _bound(nbytes["bound"], 21 * lanes)
+        rec = {"variant": name, "kernel": "blocked_sweep", "blocks": blocks,
+               "ms": ms, "parent_design_ms": parent_ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by,
+               "share_of_bound": bound / ms,
+               "bound_bytes": nbytes["bound"],
+               "design_bytes": nbytes["design"],
+               "design_ms_at_hbm_rate":
+                   nbytes["design"] / HBM_BYTES_PER_S * 1e3,
+               "loop_launches_per_sweep": launches,
+               "library_ops_per_sweep": blocked_sweep.launches_per_call,
+               "device_ops_per_sweep": n_ops,
+               "parent_design_device_ops_per_sweep": parent_ops,
+               "device_ms_by_op": by_op, **parts,
+               "active_lanes": lanes, "phi_k_drift_tokens": drift,
+               "errors": errs, "bitwise_repeat": True}
+        check(launches == 1, f"topk loop {name}: {launches} loop launches")
+        print("topk loop kernel " + json.dumps(rec))
+        out.append(rec)
+        torch.cuda.empty_cache()
+    check([float(x.double().sum()) for x in (mu, theta, phi, ptot)] == sums,
+          "topk loop: an input was modified")
+    return out
 
 
 def blocked_training_phase(torch, store, report):
     """The coarse-block and SEM paths at the stream_1k width on the store:
     FOEMTrainer with iem_blocks = 8 for two minibatches, one minibatch with
-    sweep_impl = "scan", one blocked step under the profiler, then
-    algorithm = "sem" for two minibatches; the held-out batch served from
-    the trained store.  Every step checks the mass its rows and the store's
-    φ̂(k) gained."""
+    sweep_impl = "scan", one blocked and one scan step under the profiler,
+    then algorithm = "sem" for two minibatches; the held-out batch served
+    from the trained store.  Every step checks the mass its rows and the
+    store's φ̂(k) gained, and a blocked or scan step one block-loop launch
+    a scheduled sweep."""
     import dataclasses
 
     import numpy as np
@@ -1536,7 +1675,7 @@ def blocked_training_phase(torch, store, report):
     from repro_torch.core.trainer import FOEMTrainer
     from repro_torch.core.types import MinibatchData
     from repro_torch.kernels.foem_estep import fused_estep
-    from repro_torch.kernels.topk_estep import topk_estep
+    from repro_torch.kernels.topk_estep import blocked_sweep, topk_estep
     from repro_torch.launch.serve import TopicServer, TrafficGenerator
     from repro_torch.sparse import MinibatchStream
 
@@ -1549,6 +1688,10 @@ def blocked_training_phase(torch, store, report):
     mbs = list(MinibatchStream(gen.corpus(6 * D_TRAIN), D_TRAIN,
                                bucket_len=L_TRAIN, seed=0))
     check(len(mbs) == 6, f"{len(mbs)} minibatches, not 6")
+    # one more for the profiled scan step, so the first six are the ones
+    # earlier versions of this script ran
+    extra = next(iter(MinibatchStream(gen.corpus(D_TRAIN), D_TRAIN,
+                                      bucket_len=L_TRAIN, seed=1)))
     warm = max(1, base.warmup_sweeps)
     trainers = {}
 
@@ -1566,7 +1709,8 @@ def blocked_training_phase(torch, store, report):
 
     def run(kind, mb, profiled=False):
         before = (rows_mass(mb), float(store.phi_k.sum()),
-                  fused_estep.launches, topk_estep.launches)
+                  fused_estep.launches, topk_estep.launches,
+                  blocked_sweep.launches)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tr = trainer(kind)
@@ -1578,6 +1722,9 @@ def blocked_training_phase(torch, store, report):
             for name, v in by_op.items():
                 key = ("fused_estep" if "fused_estep_" in name else
                        "topk_estep" if "topk_estep_kernel" in name else
+                       "topk_estep block loop" if "topk_loop_kernel" in name
+                       else "block loop's mu copy" if "copy_kernel" in name
+                       else
                        "sorted folds (index_put_)"
                        if "indexing_backward" in name or "RadixSort" in name
                        else "memcpy HtoD" if "HtoD" in name else
@@ -1602,6 +1749,7 @@ def blocked_training_phase(torch, store, report):
                "writeback_s": m.writeback_seconds,
                "fused_estep_launches": fused_estep.launches - before[2],
                "topk_estep_launches": topk_estep.launches - before[3],
+               "topk_loop_launches": blocked_sweep.launches - before[4],
                "peak_device_gb": peak, "tokens": tokens,
                "rows_mass_growth": rows_growth,
                "phi_k_mass_growth": phi_k_growth,
@@ -1618,9 +1766,11 @@ def blocked_training_phase(torch, store, report):
               f"{kind} step {m.step} train perplexity {m.train_ppl}")
         check(rec["fused_estep_launches"] > 0,
               f"{kind} step {m.step} launched no fused_estep kernel")
-        if kind != "sem":
-            check(rec["topk_estep_launches"] > 0,
-                  f"{kind} step {m.step} launched no topk_estep kernel")
+        if kind != "sem":   # one block-loop launch a scheduled sweep
+            check(rec["topk_loop_launches"] == m.sweeps - warm,
+                  f"{kind} step {m.step}: {rec['topk_loop_launches']} "
+                  f"block-loop launches for {m.sweeps - warm} scheduled "
+                  f"sweeps")
         rel = abs(rows_growth - tokens) / tokens
         check(rel <= STEP_MASS_RTOL,
               f"{kind} step {m.step}: rows grew {rows_growth} for {tokens} "
@@ -1657,20 +1807,23 @@ def blocked_training_phase(torch, store, report):
 
     fused_estep.launches = 0              # counts of the main path only
     topk_estep.launches = 0
+    blocked_sweep.launches = 0
     t0 = time.perf_counter()
     for kind, mb, profiled in (("blocked", mbs[0], False),
                                ("blocked", mbs[1], False),
                                ("scan", mbs[2], False),
                                ("blocked", mbs[3], True),
+                               ("scan", extra, True),
                                ("sem", mbs[4], False),
                                ("sem", mbs[5], False)):
         run(kind, mb, profiled)
     wall = time.perf_counter() - t0
     launches = {"fused_estep": fused_estep.launches,
+                "topk_loop": blocked_sweep.launches,
                 "topk_estep": topk_estep.launches}
-    check(all(v > 0 for v in launches.values()),
-          f"the blocked/SEM paths did not launch both E-step kernels "
-          f"{launches}")
+    check(launches["fused_estep"] > 0 and launches["topk_loop"] > 0,
+          f"the blocked/SEM paths did not launch the fused E-step and the "
+          f"block loop {launches}")
     w, est, ev = report["heldout"]
     _, ppl = TopicServer(store, base, device="cuda").evaluate(w, est, ev)
     check(np.isfinite(ppl) and 1.0 < ppl < base.W,
@@ -2218,30 +2371,41 @@ def main() -> int:
             "bound_by": base["bound_by"],
             "library_ms": None,
         })
-    for name, source, replaces, main, lines in (
-            ("fused_estep", "src/repro_torch/kernels/csrc/fused_estep.cu",
-             "src/repro/kernels/foem_estep.py:64", report["estep_main"],
-             [v for v in report["estep_lines"]
-              if v["kernel"] == "fused_estep"]),
-            ("topk_estep", "src/repro_torch/kernels/csrc/topk_estep.cu",
-             "src/repro/kernels/topk_estep.py:53", report["topk_main"],
-             [v for v in report["estep_lines"]
-              if v["kernel"] == "topk_estep"])):
-        # the blocked sweep's call at T = 16,384 (all calls are in the
-        # "estep kernel" / "topk kernel" lines); the error is μ's
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": report["blocked_training"]["launches"][name],
-            "max_abs_err": max(v["errors"]["mu"]["max_abs"] for v in lines),
-            "ms": main["ms"],
-            "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"],
-            "library_ms": None,
-        })
+    main = report["estep_main"]      # the blocked sweep's call, T = 16,384
+    entries.append({
+        "name": "fused_estep",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_estep.cu",
+        "replaces": "src/repro/kernels/foem_estep.py:64",
+        "launches": report["blocked_training"]["launches"]["fused_estep"],
+        # μ's error over every call (all are in the "estep kernel" lines)
+        "max_abs_err": max(v["errors"]["mu"]["max_abs"]
+                           for v in report["estep_lines"]
+                           if v["kernel"] == "fused_estep"),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+    })
+    # topk_estep.cu on the main path is the block loop, one launch a
+    # blocked or scan sweep: its B = 8 sweep (both sweeps are in the "topk
+    # loop kernel" lines, the slab kernel in the "topk kernel" lines); the
+    # error is μ's over both
+    loop = report["topk_loop_lines"]
+    entries.append({
+        "name": "topk_estep",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_estep.cu",
+        "replaces": "src/repro/kernels/topk_estep.py:53",
+        "launches": report["blocked_training"]["launches"]["topk_loop"],
+        "max_abs_err": max(v["errors"]["mu"]["max_abs"] for v in loop),
+        "ms": loop[0]["ms"],
+        "plain_ms": loop[0]["plain_ms"],
+        "bound_ms": loop[0]["bound_ms"],
+        "bound_by": loop[0]["bound_by"],
+        "library_ms": None,
+    })
     # the granite prefill call (all calls are in the "attention kernel"
     # lines); the error is the largest of every checked call
     main = report["attention_main"]

@@ -15,8 +15,9 @@ through ``kernels.ops.sweep``: the dense and scheduled Hopper sweep kernels
 on the card, their plain versions on the CPU.  A coarse block count
 (``cfg.iem_blocks``) or ``sweep_impl="scan"`` runs the blocked scans: the
 dense one over ``em.estep`` (the fused E-step kernel), the scheduled one
-over ``ops.topk_estep`` (the active-set E-step kernel) with deterministic
-sorted folds, and a standalone ``em.training_perplexity`` on check sweeps.
+through ``kernels.topk_estep.blocked_sweep`` (one persistent block-loop
+launch a sweep on the card), and a standalone ``em.training_perplexity``
+on check sweeps.
 A topic-sharded plan always takes the dispatch
 (``core/foem_sharded.py``).  The inner loop is a Python loop that
 synchronises with the device once per check sweep (one scalar) and nowhere
@@ -40,7 +41,7 @@ from repro_torch.core.types import (
     uniform_responsibilities,
 )
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.gs_sweep import scatter_add_pairs, scatter_add_rows
+from repro_torch.kernels.topk_estep import blocked_sweep
 from repro_torch.runtime.device import Device, resolve_device
 
 
@@ -85,10 +86,11 @@ def scheduled_iem_sweep(
       and the scheduler refresh from its eq. 36 replacement residuals.
       ``check_indices`` is passed to ``ops.sweep``; the active sets come
       from a sort and are in range by construction.
-    * a coarse block count or ``sweep_impl="scan"``: the blocked scan
-      (:func:`_blocked_scheduled_scan`) over ``ops.topk_estep``, then
-      ``scatter_residuals``/``update_residuals`` and, with
-      ``compute_loglik``, ``em.map_log_likelihood``.
+    * a coarse block count or ``sweep_impl="scan"``: the blocked scan,
+      ``kernels.topk_estep.blocked_sweep`` (the block loop on the card, its
+      plain version on the CPU), then ``scatter_residuals``/
+      ``update_residuals`` and, with ``compute_loglik``,
+      ``em.map_log_likelihood``.
 
     Under a topic-sharded ``plan`` (``foem_sharded``: the rank's K/mp
     lanes, ``cfg.topk_shards == mp``) the selection runs on the rank's
@@ -126,9 +128,12 @@ def scheduled_iem_sweep(
     L = batch.word_ids.shape[1]
     B = cfg.resolve_blocks(L)
     if not sharded and (B < L or cfg.sweep_impl != "fused"):
-        theta, phi, ptot, mu, abs_delta, token_topics = \
-            _blocked_scheduled_scan(batch, local, phi_wk, phi_k, word_topics,
-                                    token_active, cfg, B, W)
+        theta, phi, ptot, mu, abs_delta, token_topics = blocked_sweep(
+            *(x.contiguous() for x in (
+                batch.word_ids, batch.counts, word_topics, token_active,
+                local.mu, local.theta_dk, phi_wk, phi_k)),
+            num_blocks=B, alpha_m1=cfg.alpha_m1, beta_m1=cfg.beta_m1,
+            wb=W * cfg.beta_m1)
         # residual refresh (replace touched, keep the rest) — §3.1
         r_new, touched = sched_lib.scatter_residuals(
             abs_delta, batch.word_ids, token_topics, phi_wk.shape[0], cfg.K)
@@ -153,50 +158,6 @@ def scheduled_iem_sweep(
     )
     return (LocalState(mu=r.mu, theta_dk=r.theta), r.phi_wk, r.phi_k,
             scheduler, r.loglik)
-
-
-def _blocked_scheduled_scan(batch, local, phi_wk, phi_k, word_topics,
-                            token_active, cfg, num_blocks, W):
-    """The blocked scan of ``repro.core.foem.scheduled_iem_sweep``: the L
-    columns in ``num_blocks`` blocks of ⌈L/B⌉ (the last one narrower where
-    the JAX package pads with inert slots).  Per block, the active slices
-    θ̂_a, φ̂_a, φ̂(k)_a and μ_prev,a are gathered at each token's (A,) active
-    topics, ``ops.topk_estep`` runs on the block's D·blk tokens, and its
-    Δ folds into θ̂ over (doc, topic), into φ̂ over (word, topic) and into
-    φ̂(k) over topic (``scatter_add_pairs``/``scatter_add_rows``: duplicate
-    pairs add in a fixed order, never with atomics).  Returns
-    ``(θ̂, φ̂, φ̂(k), μ, |Δ| (D, L, A), token_topics (D, L, A))``; no input
-    is modified."""
-    D, L = batch.word_ids.shape
-    A = word_topics.shape[1]
-    blk = -(-L // num_blocks)
-    token_topics = word_topics[batch.word_ids.long()]          # (D, L, A)
-    theta, phi, ptot, mu = (
-        x.clone(memory_format=torch.contiguous_format)
-        for x in (local.theta_dk, phi_wk, phi_k, local.mu))
-    abs_delta = torch.empty((D, L, A), dtype=mu.dtype, device=mu.device)
-    drows = torch.arange(D, device=mu.device)[:, None, None]
-    kw = dict(alpha_m1=cfg.alpha_m1, beta_m1=cfg.beta_m1,
-              wb=W * cfg.beta_m1)
-    for c0 in range(0, L, blk):
-        c1 = min(c0 + blk, L)
-        top = token_topics[:, c0:c1].long()                    # (D, nb, A)
-        wid = batch.word_ids[:, c0:c1].long()[..., None].expand_as(top)
-        doc = drows.expand_as(top)
-        mu_prev_a = mu[:, c0:c1].gather(-1, top)
-        T = top.shape[0] * top.shape[1]
-        mu_new_a, delta = kops.topk_estep(
-            theta[doc, top].reshape(T, A), phi[wid, top].reshape(T, A),
-            ptot[top].reshape(T, A), mu_prev_a.reshape(T, A),
-            batch.counts[:, c0:c1].reshape(T),
-            token_active[:, c0:c1].reshape(T), **kw)
-        delta = delta.reshape(top.shape)
-        scatter_add_pairs(theta, doc, top, delta)
-        scatter_add_pairs(phi, wid, top, delta)
-        scatter_add_rows(ptot, top, delta.reshape(-1))
-        mu[:, c0:c1].scatter_(-1, top, mu_new_a.reshape(top.shape))
-        abs_delta[:, c0:c1] = delta.abs()
-    return theta, phi, ptot, mu, abs_delta, token_topics
 
 
 # ---------------------------------------------------------------------------

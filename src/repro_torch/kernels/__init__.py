@@ -19,8 +19,10 @@
                         ``"scan"`` sweeps, BEM and SEM;
                         ``csrc/fused_estep.cu`` replacing
                         ``repro.kernels.foem_estep.fused_estep_pallas``
-* ``topk_estep``      — the (T, A) active-set E-step of the blocked
-                        scheduled sweep; ``csrc/topk_estep.cu`` replacing
+* ``topk_estep``      — the (T, A) active-set E-step, and the block loop
+                        that runs a whole blocked or ``"scan"`` scheduled
+                        sweep in one launch; ``csrc/topk_estep.cu``
+                        replacing
                         ``repro.kernels.topk_estep.topk_estep_pallas``
 * ``flash_attention`` — blockwise online-softmax grouped-query attention,
                         the attention core of the LM's prefill and decode;

@@ -1,6 +1,8 @@
 // The active-set column loop shared by the scheduled sweep
 // (scheduled_sweep.cu) and the sharded fold (sharded_sweep.cu), for NVIDIA
-// Hopper (sm_90a):
+// Hopper (sm_90a); its copy pass, grid barrier, cooperative launch and
+// φ̂(k) fold (fold_blocks, fold_topic_at, templated on the loop's operands)
+// also serve topk_estep.cu's block loop:
 //
 //   * copy_kernel and    — the streaming pass: μ_new = μ_old, then
 //     zero_kernel          residual = 0, for every (token, lane) entry,
@@ -169,24 +171,32 @@ inline int sm_count() {
   return sms;
 }
 
+// Launch the streaming copy dst = src on `stream` (1 launch); returns the
+// error.
+inline cudaError_t launch_copy(const float* src, float* dst, size_t n,
+                               cudaStream_t stream) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(dst);
+  const int vec = ((a | b) & 15u) == 0;
+  const size_t cap = (size_t)sm_count() * kPassCtasPerSm;
+  size_t grid = ((vec ? (n + 3) / 4 : n) + kThreads - 1) / kThreads;
+  if (grid > cap) grid = cap;
+  if (grid == 0) return cudaSuccess;
+  copy_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(src, dst, n, vec);
+  return cudaGetLastError();
+}
+
 // Launch the streaming pass on `stream` (2 launches); returns the first
 // error.
 inline cudaError_t launch_stream_pass(const float* src, float* dst,
                                       float* zero, size_t n,
                                       cudaStream_t stream) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t b = reinterpret_cast<uintptr_t>(dst);
-  const uintptr_t c = reinterpret_cast<uintptr_t>(zero);
-  const int vec_copy = ((a | b) & 15u) == 0;
-  const int vec_zero = (c & 15u) == 0;
-  const size_t cap = (size_t)sm_count() * kPassCtasPerSm;
-  size_t grid = ((vec_copy ? (n + 3) / 4 : n) + kThreads - 1) / kThreads;
-  if (grid > cap) grid = cap;
-  if (grid == 0) return cudaSuccess;
-  copy_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(src, dst, n, vec_copy);
-  cudaError_t err = cudaGetLastError();
+  if (n == 0) return cudaSuccess;
+  cudaError_t err = launch_copy(src, dst, n, stream);
   if (err != cudaSuccess) return err;
-  grid = ((vec_zero ? (n + 3) / 4 : n) + kThreads - 1) / kThreads;
+  const int vec_zero = (reinterpret_cast<uintptr_t>(zero) & 15u) == 0;
+  const size_t cap = (size_t)sm_count() * kPassCtasPerSm;
+  size_t grid = ((vec_zero ? (n + 3) / 4 : n) + kThreads - 1) / kThreads;
   if (grid > cap) grid = cap;
   zero_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(zero, n, vec_zero);
   return cudaGetLastError();
@@ -394,20 +404,43 @@ __device__ __forceinline__ void fold_word_run(const ActiveLoop& p,
   *dst = v;
 }
 
+// Fold phase (a) of one step's pair order (npairs sorted positions, the
+// step's Δ in p.compact): a warp a block of 32 positions. P is a loop's
+// operands: ActiveLoop, or topk_estep.cu's BlockLoop.
+template <class P>
+__device__ __forceinline__ void fold_blocks(const P& p, const int* order,
+                                            const int* key, int npairs,
+                                            int gwarp, int nwarps, int lane) {
+  for (int b = gwarp; 32 * b < npairs; b += nwarps)
+    scan_block(order, key, npairs, b, p.compact, p.parts, lane);
+}
+
+// Fold phase (b) at sorted pair position q (of npairs): where a topic's
+// run starts, add the run's total, from fold phase (a)'s parts, to φ̂(k).
+template <class P>
+__device__ __forceinline__ void fold_topic_at(const P& p,
+                                              const int* pair_order,
+                                              const int* pair_key,
+                                              int npairs, int q) {
+  if (pair_order[q] < 0) return;
+  const int k = pair_key[q];
+  if (q == 0 || pair_key[q - 1] != k)
+    p.phi_k[k] = __fadd_rn(ld_l2(p.phi_k + k),
+                           run_total(pair_key, npairs, q, k, p.parts));
+}
+
 // Fold phase (a) of column l: a warp a block of the pair order.
 __device__ __forceinline__ void active_fold_blocks(const ActiveLoop& p, int l,
                                                    int gwarp, int nwarps,
                                                    int lane) {
   const int npairs = p.D * p.A;
-  const int* order = p.pair_order + (size_t)l * npairs;
-  const int* key = p.pair_key + (size_t)l * npairs;
-  for (int b = gwarp; 32 * b < npairs; b += nwarps)
-    scan_block(order, key, npairs, b, p.compact, p.parts, lane);
+  fold_blocks(p, p.pair_order + (size_t)l * npairs,
+              p.pair_key + (size_t)l * npairs, npairs, gwarp, nwarps, lane);
 }
 
 // Fold phase (b) of column l, a thread an item: (sorted row position, slot)
 // items, where a word's documents start, fold them into its φ̂ row entry;
-// pair positions, where a topic's run starts, add its total to φ̂(k).
+// pair positions, fold_topic_at.
 __device__ __forceinline__ void active_fold_runs(const ActiveLoop& p, int l,
                                                  int gtid, int nthreads) {
   const int D = p.D;
@@ -425,12 +458,7 @@ __device__ __forceinline__ void active_fold_runs(const ActiveLoop& p, int l,
       if (q == 0 || row_key[q - 1] != w)
         fold_word_run(p, row_order, row_key, q, w, a);
     } else {
-      const int q = i - npairs;
-      if (pair_order[q] < 0) continue;
-      const int k = pair_key[q];
-      if (q == 0 || pair_key[q - 1] != k)
-        p.phi_k[k] = __fadd_rn(ld_l2(p.phi_k + k),
-                               run_total(pair_key, npairs, q, k, p.parts));
+      fold_topic_at(p, pair_order, pair_key, npairs, i - npairs);
     }
   }
 }

@@ -17,11 +17,14 @@ the port of ``repro.analysis.validate``):
   :func:`theta_sweep.theta_sweep` call each, with its convergence stop; a
   topic-sharded plan runs the fit in plain PyTorch with its reductions over
   the model axis.
-* :func:`fused_estep` / :func:`topk_estep` — the (T, K) E-step and the
-  (T, A) active-set E-step of the coarse-block and ``"scan"`` sweeps, BEM
-  and SEM (``em.estep``, ``foem.scheduled_iem_sweep``): one
-  :func:`foem_estep.fused_estep` or :func:`topk_estep.topk_estep` call each,
-  on the device the tensors lie on.
+* :func:`fused_estep` / :func:`topk_estep` — the (T, K) E-step of the
+  coarse-block and ``"scan"`` sweeps, BEM and SEM (``em.estep``), and the
+  (T, A) active-set E-step (the JAX package's ``kops.topk_estep``; the
+  blocked scheduled sweep runs its arithmetic inside
+  ``topk_estep.blocked_sweep``'s block loop): one
+  :func:`foem_estep.fused_estep` or
+  :func:`topk_estep.topk_estep` call each, on the device the tensors lie
+  on.
 * :func:`attention` — grouped-query attention over the flattened
   (BH, S, d) head layout, the core of the LM's ``attention_apply`` in
   prefill and decode: one :func:`flash_attention.flash_attention` call, on

@@ -33,9 +33,15 @@ The E-step kernels (``fused_estep``, ``topk_estep``) are held against their
 plain versions at odd K (10,001) and A ∈ {1, 16, 32, 40}, with and without
 the exclusion and the residual, θ̂ in G-token groups, pad lanes and
 inactive tokens; two launches give the same bits and a row's bits do not
-depend on T.  The coarse-block and ``"scan"`` sweeps and SEM repeat bitwise
-on the card (their folds are sorted segment sums, not atomics), and the
-blocked and SEM trainers give the same store bits with prefetch on and off.
+depend on T.  The block loop of the blocked and ``"scan"`` scheduled
+sweeps (``blocked_sweep``) is held against its plain version at B = L, a
+ragged B and B = 1, A = 1, A = K and A > 32, one word in the whole batch,
+topics shared within a document's block, pad lanes, zero-count and
+inactive tokens and more documents than the card holds CTAs: one loop
+launch a sweep, the same bits from two launches, inputs untouched.  The
+coarse-block and ``"scan"`` sweeps and SEM repeat bitwise on the card
+(their folds take fixed orders, not atomics), and the blocked and SEM
+trainers give the same store bits with prefetch on and off.
 
 The attention kernel (``flash_attention``) is held against its plain
 version at head dims 17, 32, 120 and 128, Sq = 1 (decode, up to an 8,192-
@@ -97,7 +103,13 @@ from repro_torch.kernels.theta_sweep import (
     theta_sweep_reference,
     word_lane_masks,
 )
-from repro_torch.kernels.topk_estep import topk_estep, topk_estep_reference
+from repro_torch.kernels.topk_estep import (
+    block_width,
+    blocked_sweep,
+    blocked_sweep_reference,
+    topk_estep,
+    topk_estep_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -936,6 +948,96 @@ def test_topk_estep_matches_plain(cuda, T, A):
     assert torch.equal(part[0], got[0][:T // 3])
 
 
+def _loop_inputs(D, L, K, W, A, dev, seed=0):
+    """A blocked sweep's operands: duplicate words across documents and
+    columns, zero counts (a padded last column, an active token of count
+    0), 25% inactive tokens, and pad lanes — topic 0, active for every
+    word, carries no μ and no θ̂ in the first two documents."""
+    rng = np.random.default_rng(seed)
+    wid = rng.integers(0, W, (D, L)).astype(np.int32)
+    cnt = rng.integers(0, 5, (D, L)).astype(np.float32)
+    cnt[:, -1] = 0.0
+    mu = rng.dirichlet(np.ones(K), (D, L)).astype(np.float32)
+    mu[:2, :, 0] = 0.0
+    theta = np.einsum("dlk,dl->dk", mu, cnt).astype(np.float32)
+    phi = (rng.gamma(1.0, 1.0, (W, K)) * 3).astype(np.float32)
+    phi += np.einsum("dlk,dl,dlw->wk", mu, cnt,
+                     np.eye(W, dtype=np.float32)[wid])   # the batch's own
+    wt = np.stack([np.concatenate([[0], 1 + rng.choice(K - 1, A - 1,
+                                                       replace=False)])
+                   for _ in range(W)]).astype(np.int32)
+    act = (rng.random((D, L)) > 0.25) & (cnt > 0)
+    act[2, 0], cnt[2, 0] = True, 0.0
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return [t(wid), t(cnt), t(wt), t(act), t(mu), t(theta), t(phi),
+            t(phi.sum(0))]
+
+
+# (D, L, K, W, A, B)
+LOOP_CASES = {
+    "stream_1k_A_B=3": (40, 12, 3000, 30, 16, 3),
+    "stream_1k_A_B=L": (40, 12, 3000, 30, 16, 12),
+    "A>32_ragged": (33, 10, 1001, 9, 40, 4),     # nb 3, last block 1 column
+    "A=1_B=1": (16, 8, 257, 9, 1, 1),
+    "A=K": (10, 5, 48, 6, 48, 2),
+    "one_word": (64, 6, 301, 1, 4, 2),            # one run of every token
+    "shared_topics": (24, 7, 9, 5, 8, 3),         # a document's tokens share
+    "many_lone_words": (20, 9, 77, 400, 5, 3),
+    "D_over_grid": (4500, 3, 24, 50, 2, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_topk_loop_matches_plain(cuda, case):
+    """The block loop against its plain version on the card (the blocked
+    scan over the E-step's plain version, sorted ``index_put_`` folds):
+    within the sweep tolerance, token topic ids equal; two launches give
+    the same bits; one loop launch a sweep (3 CUDA operations: the μ copy,
+    the barrier's zeroing, the loop); no input modified; inactive tokens
+    keep μ, and they and zero-count slots carry no |Δ|; pad lanes keep no
+    mass."""
+    D, L, K, W, A, B = LOOP_CASES[case]
+    args = _loop_inputs(D, L, K, W, A, cuda, seed=D + K + B)
+    before = [x.clone() for x in args]
+    n = blocked_sweep.launches
+    got = blocked_sweep(*args, num_blocks=B, **SWEEP_KW)
+    torch.cuda.synchronize()
+    assert blocked_sweep.launches == n + 1
+    assert blocked_sweep.launches_per_call == 3
+    want = blocked_sweep_reference(*args, num_blocks=B, **SWEEP_KW)
+    names = ("theta", "phi_wk", "phi_k", "mu", "abs_delta")
+    for name, a, b in zip(names, got[:5], want[:5]):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-5 * scale,
+                                   msg=name)
+    assert torch.equal(got[5], want[5])
+    again = blocked_sweep(*args, num_blocks=B, **SWEEP_KW)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    for x, y in zip(args, before):
+        assert torch.equal(x, y)
+    cnt, act, mu = args[1], args[3], args[4]
+    assert torch.equal(got[3][~act], mu[~act])
+    assert float(got[4][~act].abs().max()) == 0.0
+    assert float(got[4][cnt == 0].abs().max()) == 0.0
+    assert float(got[3][:2, :, 0].abs().max()) == 0.0
+
+
+def test_topk_loop_block_counts(cuda):
+    """Every block count of one minibatch, B = 1 … L: the loop against its
+    plain version (the ragged last blocks of B = 5, 7, 9, 11)."""
+    D, L, K, W, A = 24, 12, 200, 10, 6
+    args = _loop_inputs(D, L, K, W, A, cuda, seed=5)
+    for B in range(1, L + 1):
+        assert block_width(L, B)[0] == -(-L // B)
+        got = blocked_sweep(*args, num_blocks=B, **SWEEP_KW)
+        want = blocked_sweep_reference(*args, num_blocks=B, **SWEEP_KW)
+        for a, b in zip(got[:5], want[:5]):
+            scale = max(1.0, float(b.abs().max()))
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-5 * scale,
+                                       msg=f"B={B}")
+
+
 @pytest.mark.parametrize("blocks,impl,A", [(3, "fused", 0), (0, "scan", 0),
                                            (3, "fused", 4), (0, "scan", 4)])
 def test_blocked_sweeps_bitwise_repeatable(cuda, blocks, impl, A):
@@ -992,7 +1094,7 @@ def test_blocked_and_sem_training_prefetch_bitwise_on_card(cuda, tmp_path,
 
     corpus, _ = synthetic_lda_corpus(120, 150, 5, mean_doc_len=30, seed=11)
     out = []
-    before = (fused_estep.launches, topk_estep.launches)
+    before = (fused_estep.launches, blocked_sweep.launches)
     for depth in (0, 1):
         cfg = LDAConfig(num_topics=5, vocab_size=150, max_sweeps=6,
                         active_topics=2, ppl_check_every=2,
@@ -1009,7 +1111,7 @@ def test_blocked_and_sem_training_prefetch_bitwise_on_card(cuda, tmp_path,
     np.testing.assert_array_equal(out[0][1], out[1][1])
     assert fused_estep.launches > before[0]
     if algorithm == "foem":
-        assert topk_estep.launches > before[1]
+        assert blocked_sweep.launches > before[1]
 
 
 @pytest.mark.parametrize("blocks,impl,A", [(3, "fused", 0), (0, "scan", 0),

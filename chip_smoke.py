@@ -20,7 +20,14 @@ order:
    ``ParameterStore`` at the ``stream_1k`` width (capacity W = 141,043 rows
    × K = 10,000, 5.6 GB of float32 written to ``build/``, deleted at the
    end) — and checks the answers; one warm batch runs under
-   ``torch.profiler``;
+   ``torch.profiler``; then the continuous-batching ``ServingEngine``
+   (256-document launches, 16-token L buckets, a 5 ms deadline) over the
+   same store: 1,024 Zipf requests replayed unpaced, then paced at half the
+   unpaced documents/s (documents/s, p50/p99 latency, batches, fill,
+   ``theta_sweep`` launches, every θ row summing to 1), the per-document
+   θ̂₀ draw of a full batch timed alone, and 32 documents of a
+   ``rel_tol=0`` engine equal bitwise to the same documents in another
+   packing through ``TopicServer.infer``;
 3. holds the two training sweep kernels (``gs_sweep``, ``scheduled_sweep``)
    against their plain versions at the ``stream_1k`` training shapes (one
    bucketed 1,024 × 128 minibatch, K = 10,000, A = 16), with and without
@@ -60,7 +67,17 @@ order:
    ``FOEMTrainer(device="cuda")`` with ``iem_blocks=8`` for two minibatches,
    one with ``sweep_impl="scan"``, one more blocked step and one more scan
    step under ``torch.profiler``, then ``algorithm="sem"`` for two
-   minibatches — and serves the held-out batch from the trained store.
+   minibatches — and serves the held-out batch from the trained store;
+   then holds ``fused_estep`` in the two input forms of the OVB and SCVB
+   E-steps (OVB: exp Ψ inputs, a = b = c = 0; SCVB: a = α, b = β, c = Wβ)
+   against its plain version at SEM's shape from the trained store's rows
+   (``baselines kernel`` lines: path, ms, bound, launches per call), and
+   drives OVB, SCVB and OGS (``core/baselines.py``) at the stream_1k width,
+   two minibatches each from zero statistics on the card, the minibatches
+   read by ``load_docword`` from the training corpus written as a gzipped
+   UCI docword file (``baselines step`` lines: wall ms, ``fused_estep``
+   launches — ``max_sweeps`` a step for OVB and SCVB, 0 for OGS —, train
+   perplexity, peak device memory, Σφ̂(k) against the merge's mass).
 9. holds the flash-attention kernel against its plain version at the LM
    serving path's shapes (bf16): granite-8b prefill (8 prompts × 32 query
    heads over 8 KV heads, S = 2,048, d = 128, causal) and decode (Sq = 1 at
@@ -153,6 +170,12 @@ PRIOR_MS_THETA = {"f32 dense": 11.14, "f32 scheduled A=16": 3.47,
 PRIOR_MS_ESTEP = {"blocked, with residual": 2.30, "blocked": 1.68,
                   "ragged, with residual": None,
                   "SEM, with residual": 15.24, "SEM": None}
+# The serving engine phase: 1,024 Zipf requests into 256-document launches
+# with a 5 ms flush deadline.
+ENGINE_REQUESTS, ENGINE_BATCH, ENGINE_DELAY_MS = 1024, 256, 5.0
+BASELINE_MASS_RTOL = 1e-4   # a baseline step's Σφ̂(k) against (1−ρ)·before
+# + ρ·tokens: float32 sums over W·K = 1.4e9 entries, each μ row summing to 1
+# within a few ulps
 PHI_K_SUM_RTOL = 1e-4       # phi_k against sum_w phi_wk after a sweep:
 # two float32 sums of ~2e4 rows of ~1e4-token magnitude in different orders
 MP = 4                      # model ranks of the sharded phases
@@ -584,6 +607,142 @@ def serving_phase(torch, store, gen, report):
     report["serving"] = rec
 
 
+def serving_engine_phase(torch, store, report):
+    """The continuous-batching engine at the stream_1k width on the store:
+    ServingEngine(max_batch = 256, 16-token L buckets up to 256, 5 ms
+    deadline) over TopicServer(device="cuda"); 1,024 Zipf(1.1) requests
+    replayed unpaced, then paced at half the unpaced documents/s; the
+    per-document θ̂₀ draw of a full batch timed alone; then 32 documents of
+    a rel_tol = 0 engine against the same documents in another packing
+    through TopicServer.infer, bitwise."""
+    import numpy as np
+
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.kernels.theta_sweep import theta_sweep
+    from repro_torch.launch.serve import (
+        ServingEngine, TopicServer, TrafficGenerator, document_theta0,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = lda_config(lda_shape("stream_1k"))
+    traffic = TrafficGenerator(vocab_size=store.capacity, doc_len=DOC_LEN,
+                               seed=31)
+    docs = [traffic.document() for _ in range(ENGINE_REQUESTS)]
+    srv = TopicServer(store, cfg, device="cuda")
+    kw = dict(max_batch=ENGINE_BATCH, bucket_multiple=16,
+              max_len=DOC_LEN[1], max_delay_ms=ENGINE_DELAY_MS)
+    runs = {}
+    with ServingEngine(srv, **kw) as eng:
+        t0 = time.perf_counter()
+        warm = eng.prewarm()
+        warm_s = time.perf_counter() - t0
+        rng = np.random.default_rng(37)
+        rate = None
+        for mode in ("unpaced", "paced"):
+            if mode == "unpaced":
+                trace = [(0.0, w, c) for w, c in docs]
+            else:          # Poisson arrivals at half the unpaced docs/s
+                t_arr = np.cumsum(rng.exponential(1.0 / rate, len(docs)))
+                trace = [(float(t), w, c) for t, (w, c) in zip(t_arr, docs)]
+            eng.metrics(reset=True)
+            theta_sweep.launches = 0      # counts of the main path only
+            t0 = time.perf_counter()
+            futs = TrafficGenerator.replay(trace, eng.submit,
+                                           pace=mode == "paced")
+            thetas = np.stack([f.result(timeout=120) for f in futs])
+            wall = time.perf_counter() - t0
+            eng.drain()                   # the last batch's accounting
+            launches = theta_sweep.launches
+            m = eng.metrics(reset=False)
+            log = list(eng.batch_log)
+            check(thetas.shape == (len(docs), K_FULL)
+                  and np.isfinite(thetas).all(),
+                  f"engine {mode}: θ has the wrong shape or is not finite")
+            row_err = float(np.abs(thetas.sum(1, dtype=np.float64)
+                                   - 1.0).max())
+            check(row_err <= 1e-5,
+                  f"engine {mode}: a θ row sums to 1 ± {row_err}")
+            check(m["requests"] == len(docs) and m["failed_batches"] == 0,
+                  f"engine {mode}: {m}")
+            check(launches > 0, f"engine {mode} launched no theta_sweep")
+            if rate is None:
+                rate = 0.5 * len(docs) / wall
+            runs[mode] = {
+                "requests": len(docs), "wall_s": wall,
+                "docs_per_s": len(docs) / wall,
+                "offered_docs_per_s": None if mode == "unpaced" else rate,
+                "p50_ms": m["p50_ms"], "p99_ms": m["p99_ms"],
+                "mean_ms": m["mean_ms"], "batches": m["batches"],
+                "mean_fill": m["mean_fill"],
+                "L_buckets": sorted({b["L"] for b in log}),
+                "launch_ms_mean": 1e3 * float(np.mean(
+                    [b["launch_seconds"] for b in log])),
+                "fetch_ms_mean": 1e3 * float(np.mean(
+                    [b["fetch_seconds"] for b in log])),
+                "fit_ms_mean": 1e3 * float(np.mean(
+                    [b["fit_seconds"] for b in log])),
+                "theta_sweep_launches": launches,
+                "max_row_sum_error": row_err}
+            print(f"serving engine ({mode}) " + json.dumps(runs[mode]))
+
+    # the per-document θ̂₀ draw of a full batch (256 × 256 × 10⁴ draws)
+    cd = np.ones((ENGINE_BATCH, DOC_LEN[1]), np.float32)
+    seeds = np.arange(ENGINE_BATCH)
+    draw = lambda: document_theta0(seeds, cd, cfg, device="cuda")  # noqa
+    draw_ms = cuda_time_ms(draw, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draw()
+    torch.cuda.synchronize()
+    draw_wall_ms = (time.perf_counter() - t0) * 1e3
+    _, _, by_op, draw_busy_ms = device_profile(torch, draw)
+    del cd
+
+    # slot invariance: 32 documents through a rel_tol = 0 engine, then the
+    # same documents, grouped by L bucket, in reverse slot order after 16
+    # strangers through TopicServer.infer with their per-document θ̂₀
+    exact = TopicServer(store, cfg, rel_tol=0.0, device="cuda")
+    few = docs[:32]
+    seeds = np.random.default_rng(41).integers(0, 2**32, len(few))
+    with ServingEngine(exact, **kw) as eng:
+        got = [f.result(timeout=120) for f in
+               [eng.submit(w, c, seed=int(s)) for (w, c), s
+                in zip(few, seeds)]]
+    groups = {}
+    for i, (w, _) in enumerate(few):
+        groups.setdefault(eng._bucket(len(w)), []).append(i)
+    strangers = docs[32:48]
+    for L, ids in groups.items():
+        wp = np.zeros((ENGINE_BATCH, L), np.int32)
+        cp = np.zeros((ENGINE_BATCH, L), np.float32)
+        sp = np.full(ENGINE_BATCH, -1, np.int64)
+        slots = {}
+        for slot, (w, c) in enumerate(strangers):
+            n = min(len(w), L)
+            wp[slot, :n], cp[slot, :n], sp[slot] = w[:n], c[:n], 1000 + slot
+        for slot, i in enumerate(reversed(ids), start=len(strangers)):
+            w, c = few[i]
+            wp[slot, : len(w)], cp[slot, : len(c)] = w, c
+            sp[slot] = seeds[i]
+            slots[i] = slot
+        direct = exact.infer(wp, cp, theta0=document_theta0(
+            sp, cp, cfg, device="cuda"))
+        for i, slot in slots.items():
+            check(np.array_equal(got[i], direct[slot]),
+                  f"engine: document {i} (L = {L}) differs from the same "
+                  "document in another packing")
+    rec = {"prewarm_launches": warm, "prewarm_s": warm_s,
+           "theta0_draw_ms": draw_ms, "theta0_draw_wall_ms": draw_wall_ms,
+           "theta0_draw_busy_ms": draw_busy_ms if by_op else None,
+           "theta0_draw_shape": [ENGINE_BATCH, DOC_LEN[1], K_FULL],
+           "slot_invariance": {"documents": len(few),
+                               "buckets": sorted(groups),
+                               "bitwise": True},
+           "phase_s": time.perf_counter() - t_phase}
+    print("serving engine " + json.dumps(rec))
+    report["serving_engine"] = dict(rec, runs=runs)
+
+
 def _bound(nbytes, flops) -> tuple:
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / FP32_FLOPS * 1e3
@@ -901,6 +1060,7 @@ def training_phase(torch, store, report):
           f"eq. 21 perplexity {ppl} of the trained store is not finite "
           "and in (1, W)")
     print(f"served from the trained store: eq. 21 perplexity {ppl}")
+    report["training_corpus"] = corpus     # the baselines step reads it
     report["training"] = {"steps": steps, "train_s": train_s,
                           "corpus_s": corpus_s, "launches": launches,
                           "profiled": profiled, "served_ppl": ppl}
@@ -1834,6 +1994,194 @@ def blocked_training_phase(torch, store, report):
     report["blocked_training"] = dict(rec, lines=lines)
 
 
+def write_docword(path, corpus) -> None:
+    """``corpus`` as a gzipped UCI docword file (1-based ids, integer
+    counts), the format ``repro_torch.data.load_docword`` reads."""
+    import gzip
+
+    import numpy as np
+
+    counts = corpus.counts.astype(np.int64)
+    check(np.array_equal(counts, corpus.counts),
+          "the corpus counts are not integers")
+    docs = np.repeat(np.arange(1, corpus.num_docs + 1),
+                     np.diff(corpus.indptr))
+    body = "\n".join(f"{d} {w} {c}" for d, w, c in zip(
+        docs.tolist(), (corpus.word_ids.astype(np.int64) + 1).tolist(),
+        counts.tolist()))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with gzip.open(path, "wt") as f:
+        f.write(f"{corpus.num_docs}\n{corpus.vocab_size}\n{corpus.nnz}\n")
+        f.write(body + "\n")
+
+
+def baselines_kernel_phase(torch, dev, store, report):
+    """fused_estep in the two input forms of the OVB and SCVB E-steps at
+    SEM's shape (D = 1,024, L = 128, T = 131,072, K = 10⁴, θ̂ one row per
+    document), its inputs from the trained store's rows, against its plain
+    version."""
+    import numpy as np
+
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.core.perplexity import init_theta
+    from repro_torch.core.types import MinibatchData
+    from repro_torch.kernels.foem_estep import (
+        estep_path, fused_estep, fused_estep_reference,
+    )
+    from repro_torch.launch.serve import TrafficGenerator
+    from repro_torch.sparse import MinibatchStream
+
+    torch.cuda.empty_cache()
+    cfg = lda_config(lda_shape("stream_1k"))
+    gen = TrafficGenerator(vocab_size=store.capacity, doc_len=DOC_LEN,
+                           seed=43)
+    mb = next(iter(MinibatchStream(gen.corpus(D_TRAIN), D_TRAIN,
+                                   bucket_len=L_TRAIN, seed=0)))
+    D, L, K = D_TRAIN, L_TRAIN, K_FULL
+    T = D * L
+    wid = torch.from_numpy(mb.local_word_ids).to(dev).reshape(-1).long()
+    cnt = torch.from_numpy(mb.counts).to(dev)
+    phi = torch.from_numpy(store.fetch_rows(mb.local_vocab)).to(dev)
+    ptot = torch.from_numpy(store.phi_k.astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    theta = init_theta(g, MinibatchData(wid.reshape(D, L), cnt), cfg)
+    alpha, beta = cfg.alpha_m1 + 1.0, cfg.beta_m1 + 1.0
+    dg = torch.special.digamma
+    lines = []
+    for form in ("OVB", "SCVB"):
+        if form == "OVB":
+            args = (dg(theta + alpha).exp_(),
+                    phi[wid].add_(beta).digamma_().exp_(),
+                    dg(ptot + cfg.W * beta).exp_(), None, None, None)
+            kw = dict(alpha_m1=0.0, beta_m1=0.0, wb=0.0)
+        else:
+            args = (theta, phi[wid], ptot, None, None, None)
+            kw = dict(alpha_m1=alpha, beta_m1=beta, wb=cfg.W * beta)
+        before = fused_estep.launches
+        got = fused_estep(*args, **kw)
+        torch.cuda.synchronize()
+        per_call = fused_estep.launches - before
+        want = fused_estep_reference(*args, **kw)
+        err = _check_close(f"fused_estep {form} form", "mu", got[0],
+                           want[0], ESTEP_TOL["mu"])
+        del want
+        check(torch.equal(got[0], fused_estep(*args, **kw)[0]),
+              f"fused_estep {form} form: two launches differ")
+        del got
+        ms = cuda_time_ms(lambda: fused_estep(*args, **kw), 5)
+        plain_ms = cuda_time_ms(lambda: fused_estep_reference(*args, **kw),
+                                1)
+        bound = _estep_bound(T, K, D, False, False)
+        rec = {"form": form, "kernel": "fused_estep",
+               "shape": {"D": D, "L": L, "T": T, "K": K, "G": L},
+               "alpha_m1": kw["alpha_m1"], "beta_m1": kw["beta_m1"],
+               "wb": kw["wb"], "path": estep_path(K, args[:5]).kind,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+               "bound_by": bound[1], "share_of_bound": bound[0] / ms,
+               "launches_per_call": per_call, "errors": {"mu": err},
+               "bitwise_repeat": True}
+        print("baselines kernel " + json.dumps(rec))
+        lines.append(rec)
+        del args
+        torch.cuda.empty_cache()
+    report["baselines_kernel"] = lines
+    del phi, ptot, theta
+    torch.cuda.empty_cache()
+
+
+def baselines_step_phase(torch, report):
+    """OVB, SCVB and OGS at the stream_1k width (rho_mode = "stepwise",
+    zero statistics on the card), two minibatches each, read from the
+    training phase's corpus written as a gzipped UCI docword file and
+    loaded back with load_docword."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.core.baselines import ALGORITHMS
+    from repro_torch.core.types import GlobalStats, MinibatchData
+    from repro_torch.data import load_docword
+    from repro_torch.kernels.foem_estep import fused_estep
+    from repro_torch.sparse import MinibatchStream
+
+    torch.cuda.empty_cache()
+    corpus = report["training_corpus"]
+    path = ROOT / "build" / "chip_smoke_uci" / "docword.stream_1k.txt.gz"
+    t0 = time.perf_counter()
+    write_docword(path, corpus)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mat = load_docword(str(path))
+    load_s = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in (
+        (mat.indptr, corpus.indptr), (mat.word_ids, corpus.word_ids),
+        (mat.counts, corpus.counts))) and mat.vocab_size == corpus.vocab_size
+    check(same, "load_docword did not read back the corpus it was written "
+                "from")
+    print("uci corpus " + json.dumps({
+        "documents": mat.num_docs, "nnz": mat.nnz, "tokens": mat.ntokens(),
+        "gz_bytes": path.stat().st_size, "write_s": write_s,
+        "load_s": load_s, "bitwise_equal": True}))
+    shutil.rmtree(path.parent, ignore_errors=True)
+
+    cfg = dataclasses.replace(lda_config(lda_shape("stream_1k")),
+                              rho_mode="stepwise")
+    mbs = list(MinibatchStream(mat, D_TRAIN, bucket_len=L_TRAIN, seed=0))[:2]
+    dev = torch.device("cuda")
+    lines = []
+    for algo, step in ALGORITHMS.items():
+        stats = GlobalStats(torch.zeros((cfg.W, cfg.K), device=dev),
+                            torch.zeros(cfg.K, device=dev),
+                            torch.zeros((), dtype=torch.int32, device=dev))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for mb in mbs:
+            before_k = float(stats.phi_k.double().sum())
+            s = int(stats.step) + 1
+            rho = (cfg.tau0 + s) ** (-cfg.kappa)
+            tokens = float(mb.counts.sum(dtype=np.float64))
+            launched = fused_estep.launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            new, local, diag = step(
+                gen, MinibatchData(mb.word_ids, mb.counts), stats, cfg,
+                device="cuda")
+            ppl = float(diag.final_train_ppl)           # waits for the card
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            launched = fused_estep.launches - launched
+            del local
+            after_k = float(new.phi_k.double().sum())
+            want_k = (1.0 - rho) * before_k + rho * tokens
+            rel = abs(after_k - want_k) / want_k
+            rec = {"algorithm": algo, "step": int(new.step),
+                   "sweeps": diag.sweeps_run, "wall_ms": wall_ms,
+                   "fused_estep_launches": launched, "train_ppl": ppl,
+                   "peak_device_gb": peak, "tokens": tokens, "rho": rho,
+                   "phi_k_mass": after_k, "phi_k_mass_expected": want_k,
+                   "phi_k_mass_rel_err": rel}
+            print("baselines step " + json.dumps(rec))
+            lines.append(rec)
+            want_launches = 0 if algo == "ogs" else cfg.max_sweeps
+            check(launched == want_launches,
+                  f"{algo} step {s}: {launched} fused_estep launches, not "
+                  f"{want_launches}")
+            check(np.isfinite(ppl) and 1.0 < ppl < cfg.W,
+                  f"{algo} step {s}: train perplexity {ppl} is not finite "
+                  "and in (1, W)")
+            check(float(new.phi_wk.min()) >= 0.0,
+                  f"{algo} step {s}: a φ̂ entry is negative")
+            check(rel <= BASELINE_MASS_RTOL,
+                  f"{algo} step {s}: Σφ̂(k) = {after_k}, expected {want_k} "
+                  f"(relative {rel})")
+            stats = new
+            del new
+        del stats
+        torch.cuda.empty_cache()
+    report["baselines_step"] = lines
+
+
 def _attn_bound(q, k, pairs, kv_rows) -> tuple:
     """Least time of one attention call: q and o once, the visible keys and
     values once (``kv_rows`` rows of each KV head), against 4·d operations
@@ -2285,6 +2633,7 @@ def main() -> int:
     try:
         store, gen = make_store(store_dir, report)
         serving_phase(torch, store, gen, report)
+        serving_engine_phase(torch, store, report)
         sweep_kernel_phase(torch, dev, store, report)
         training_phase(torch, store, report)
         cap = report["store_capacity"]
@@ -2292,6 +2641,8 @@ def main() -> int:
         sharded_training_phase(torch, cap, report)
         estep_kernel_phase(torch, dev, store, report)
         blocked_training_phase(torch, store, report)
+        baselines_kernel_phase(torch, dev, store, report)
+        baselines_step_phase(torch, report)
         del store
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)

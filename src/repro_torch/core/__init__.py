@@ -2,8 +2,9 @@
 
 The typed containers, the E-step, folds and sweeps (``em``), the residual
 scheduler (``scheduling``), the FOEM inner loop (``foem``), the SEM baseline
-(``sem``), the streaming trainer (``trainer``), held-out inference (§2.4 /
-eq. 21, ``perplexity``) and the disk-backed parameter store
+(``sem``), the paper's other online baselines OVB, SCVB and OGS
+(``baselines``), the streaming trainer (``trainer``), held-out inference
+(§2.4 / eq. 21, ``perplexity``) and the disk-backed parameter store
 (``streaming``).
 """
 from repro_torch.core.types import (
@@ -19,7 +20,7 @@ from repro_torch.core.types import (
     from_numpy,
     uniform_responsibilities,
 )
-from repro_torch.core import em, foem, perplexity, scheduling, sem
+from repro_torch.core import baselines, em, foem, perplexity, scheduling, sem
 from repro_torch.core.streaming import (
     CacheStats,
     HotRowCache,
@@ -42,6 +43,7 @@ __all__ = [
     "SweepResult",
     "from_numpy",
     "uniform_responsibilities",
+    "baselines",
     "em",
     "foem",
     "perplexity",

@@ -317,8 +317,12 @@ def map_log_likelihood(
     ``vocab_size`` carries the global W for the φ normaliser.
     """
     theta = normalize_theta(theta_dk, cfg)                     # (D, K)
-    phi = normalize_phi(phi_wk, phi_k, cfg, vocab_size=vocab_size)
-    rows = gather_phi_rows(phi, batch.word_ids)                # (D, L, K)
+    # gather, then eq. 10 in place on the gathered rows: normalize_phi's
+    # elementwise operations on the same values, without a (W, K) temporary
+    W = cfg.W if vocab_size is None else vocab_size
+    den = (phi_k + W * cfg.beta_m1).clamp_min(1e-30)
+    rows = gather_phi_rows(phi_wk, batch.word_ids)             # (D, L, K)
+    rows.add_(cfg.beta_m1).div_(den)
     lik = torch.einsum("dlk,dk->dl", rows, theta).clamp_min(1e-30)
     return (batch.counts * torch.log(lik)).sum()
 

@@ -819,6 +819,13 @@ class HotRowCache:
     def resident_rows(self) -> int:
         return int((self._ids >= 0).sum())
 
+    def reset_stats(self) -> None:
+        """Zero both counters under the lock (prewarm discards warm-up
+        traffic without racing a concurrent launcher fetch)."""
+        with self._lock:
+            self.stats = CacheStats()
+            self._window = CacheStats()
+
     def window_stats(self, reset: bool = True) -> CacheStats:
         """Hit/miss counters since the last window."""
         with self._lock:

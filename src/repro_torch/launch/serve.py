@@ -9,26 +9,36 @@ behind a ``HotRowCache``); the fit routes through ``kernels.ops.infer``,
 whose chunks run the hand-written Hopper kernel on the card.
 
     serve_lda (CLI) ─► TopicServer.infer_stream / infer / evaluate
-                          │  localize_vocab → fetch φ̂ rows (HotRowCache →
-                          │  ParameterStore) → pad W_s to vocab_pad
-                          ▼
-                       _infer_local: eq. 10 with the global W → ops.infer
-                          │  check_every-sweep chunks, rel_tol stop
-                          ▼
-                       theta_sweep kernel (csrc/theta_sweep.cu)
+       │                  │  localize_vocab → fetch φ̂ rows (HotRowCache →
+       │                  │  ParameterStore) → pad W_s to vocab_pad
+       │                  ▼
+       │               _infer_local: eq. 10 with the global W → ops.infer
+       │                  │  check_every-sweep chunks, rel_tol stop
+       │                  ▼
+       │               theta_sweep kernel (csrc/theta_sweep.cu)
+       │
+       └─ --traffic ─► serve_traffic: TrafficGenerator.replay → ServingEngine
+                          AdmissionRouter (slots by L bucket, deadline
+                          flush) → launcher thread: pad_batch →
+                          document_theta0 (a seed per document) →
+                          TopicServer.infer
 
-The continuous-batching engine, the admission router, lifelong hot-swap
-and replicas come with later slices.
+Lifelong hot-swap and replicas come with later slices.
 
 Run the CLI on a GPU host with
 ``PYTHONPATH=src python -m repro_torch.launch.serve --workdir DIR --topics K
---vocab W [--make-store]``.
+--vocab W [--make-store] [--traffic --qps Q [--pace]]``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import os
+import queue
+import threading
 import time
+from concurrent.futures import Future
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,7 +51,12 @@ from repro_torch.core.streaming import (
     ParameterStore,
     store_from_arrays,
 )
-from repro_torch.core.types import InferPlan, LDAConfig, MinibatchData
+from repro_torch.core.types import (
+    InferPlan,
+    LDAConfig,
+    MinibatchData,
+    uniform_responsibilities,
+)
 from repro_torch.data.synthetic import trained_like_phi_blocks
 from repro_torch.kernels import ops as kops
 from repro_torch.runtime.device import Device, resolve_device
@@ -221,14 +236,468 @@ class TopicServer:
                                                 w.dtype)])
                 c = np.concatenate([c, np.zeros((padding, c.shape[1]),
                                                 c.dtype)])
-            theta = self.infer(w, c, seed=_batch_seed(seed, i))
+            theta = self.infer(w, c, seed=_sub_seed(seed, i))
             yield chunk, theta[: len(chunk)]
 
 
-def _batch_seed(seed: int, index: int) -> int:
-    """The init seed of batch ``index`` of a stream seeded with ``seed``."""
+def _sub_seed(seed: int, index: int) -> int:
+    """The init seed of item ``index`` (a stream's batch, an engine's
+    document) under ``seed``: a uint32 from ``SeedSequence((seed, index))``."""
     return int(np.random.SeedSequence((int(seed), int(index)))
                .generate_state(1)[0])
+
+
+def document_theta0(seeds, counts, cfg: LDAConfig, *,
+                    device: Device = "cuda") -> torch.Tensor:
+    """Per-document θ̂₀ of a (B, L) batch: (B, K) on ``device``.
+
+    Row i folds the counts of document i through μ₀ drawn as
+    ``uniform_responsibilities`` over (L, K) from a generator seeded with
+    ``seeds[i]`` alone; a negative seed marks an empty slot, whose θ̂₀ is 0.
+    Each row is computed by the same operations on same-shaped tensors
+    whatever its slot and batch-mates, so it is bitwise a function of its
+    seed, its counts and L.
+    """
+    dev = resolve_device(device)
+    counts = torch.as_tensor(counts).to(device=dev, dtype=cfg.dtype)
+    B, L = counts.shape
+    theta = torch.zeros((B, cfg.K), dtype=cfg.dtype, device=dev)
+    gen = torch.Generator(device=dev)
+    for i, s in enumerate(np.asarray(seeds, np.int64).tolist()):
+        if s < 0:
+            continue
+        gen.manual_seed(s)
+        mu0 = uniform_responsibilities(gen, (L, cfg.K), cfg.dtype)
+        theta[i] = (mu0 * counts[i, :, None]).sum(0)
+    return theta
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching — the high-throughput serving engine
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Request:
+    """One admitted document, waiting in an in-flight slot."""
+
+    seq: int
+    word_ids: np.ndarray         # (n,) token word ids (unpadded)
+    counts: np.ndarray           # (n,) token counts
+    seed: int                    # per-document θ̂₀ seed (uint32)
+    future: Future
+    t_submit: float
+
+
+def pad_batch(L: int, reqs: Sequence[_Request], max_batch: int
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad a flushed bucket to its ``(max_batch, L)`` launch shape:
+    ``(word_ids, counts, seeds)``.
+
+    Tail slots are empty documents (exactly like ``infer_stream``'s tail
+    padding) with seed −1, whose θ̂₀ is 0 (:func:`document_theta0`).  The
+    padded arrays, not the request list, are the launch's whole input:
+    re-issuing them reproduces the launch bitwise.  Under ``rel_tol > 0``
+    the convergence stop is batch-global, so re-issue parity requires the
+    same padded batch, never a repacking of its documents.
+    """
+    w = np.zeros((max_batch, L), np.int32)
+    c = np.zeros((max_batch, L), np.float32)
+    seeds = np.full(max_batch, -1, np.int64)
+    for i, r in enumerate(reqs):
+        w[i, : len(r.word_ids)] = r.word_ids
+        c[i, : len(r.counts)] = r.counts
+        seeds[i] = r.seed
+    return w, c, seeds
+
+
+class AdmissionRouter:
+    """Deadline-aware admission front: in-flight slots, a collector thread
+    and a bounded flush queue, decoupled from whatever runs the batches.
+
+    * ``submit`` (caller thread) appends the request to the in-flight
+      slots of its document-length bucket — O(1) under a lock — stamps a
+      per-document θ̂₀ seed, and returns a Future;
+    * the *collector* thread flushes a bucket into the bounded queue when
+      it fills ``max_batch`` slots, or when its **oldest** request has
+      waited ``max_delay_ms`` (deadline-aware: a straggling slot never
+      holds a full bucket hostage, a lone request never waits more than
+      the deadline);
+    * the single consumer (the engine's launcher thread) pulls
+      ``(L, reqs)`` items with :meth:`next_batch` and reports outcomes
+      through :meth:`resolve_batch` / :meth:`fail_batch`, which keep the
+      resolved/latency/batch accounting that :meth:`drain` and
+      :meth:`metrics` read.
+
+    ``close()`` is idempotent and safe under concurrent callers: every
+    caller blocks until the collector is joined, so nobody can observe a
+    half-stopped router.
+    """
+
+    def __init__(self, *, max_batch: int = 64, bucket_multiple: int = 16,
+                 max_delay_ms: float = 5.0, max_len: int = 256,
+                 queue_depth: int = 4, seed: int = 0):
+        self.max_batch = int(max_batch)
+        self.bucket_multiple = int(bucket_multiple)
+        self.max_delay = float(max_delay_ms) / 1e3
+        self.max_len = int(max_len)
+        self.queue_depth = int(queue_depth)
+        self.seed = int(seed)
+        self._pending: dict = {}             # L bucket -> list[_Request]
+        self._seq = 0
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._queue: "queue.Queue" = queue.Queue(maxsize=self.queue_depth)
+        self._stop = False
+        self._resolved = 0                   # futures resolved (ok or error)
+        self.failed_batches = 0              # buckets resolved with an error
+        self.latencies: List[float] = []     # per request, submit -> resolve
+        self.batch_log: List[dict] = []      # per launched batch
+        self._collector = threading.Thread(
+            target=self._collect_loop, name="serve-collector", daemon=True
+        )
+        self._collector.start()
+
+    # ------------------------------------------------------------- admission
+
+    def _bucket(self, n: int) -> int:
+        return _round_up(max(n, 1), self.bucket_multiple)
+
+    def submit(self, word_ids: np.ndarray,
+               counts: Optional[np.ndarray] = None,
+               seed: Optional[int] = None) -> Future:
+        """Admit one document; resolves to its (K,) normalized θ (eq. 9).
+        ``seed`` overrides the document's θ̂₀ seed (default: derived from
+        the router's seed and the admission number)."""
+        w = np.asarray(word_ids, np.int32).ravel()
+        c = (np.ones(len(w), np.float32) if counts is None
+             else np.asarray(counts, np.float32).ravel())
+        if len(w) > self.max_len:
+            raise ValueError(
+                f"document has {len(w)} tokens > engine max_len "
+                f"{self.max_len}; raise max_len at construction"
+            )
+        fut: Future = Future()
+        with self._cond:
+            if self._stop:
+                raise RuntimeError("admission router is closed")
+            seq = self._seq
+            self._seq += 1
+            req = _Request(seq, w, c,
+                           _sub_seed(self.seed, seq) if seed is None
+                           else int(seed),
+                           fut, time.perf_counter())
+            self._pending.setdefault(self._bucket(len(w)), []).append(req)
+            self._cond.notify()
+        return fut
+
+    # ------------------------------------------------------------- collector
+
+    def _collect_loop(self) -> None:
+        while True:
+            flush: List[Tuple[int, List[_Request]]] = []
+            with self._cond:
+                while True:
+                    if self._stop and not self._pending:
+                        break
+                    now = time.perf_counter()
+                    deadline = None
+                    for L, reqs in self._pending.items():
+                        if len(reqs) >= self.max_batch or self._stop:
+                            flush.append((L, reqs[: self.max_batch]))
+                            self._pending[L] = reqs[self.max_batch:]
+                            continue
+                        age_out = reqs[0].t_submit + self.max_delay
+                        if age_out <= now:
+                            flush.append((L, reqs))
+                            self._pending[L] = []
+                        elif deadline is None or age_out < deadline:
+                            deadline = age_out
+                    self._pending = {
+                        L: r for L, r in self._pending.items() if r
+                    }
+                    if flush or (self._stop and not self._pending):
+                        break
+                    self._cond.wait(
+                        timeout=None if deadline is None else deadline - now
+                    )
+                stopping = self._stop and not self._pending
+            for item in flush:       # bounded put OUTSIDE the lock:
+                self._queue.put(item)  # backpressure must not stall submit()
+            if stopping and not flush:
+                self._queue.put(None)
+                return
+
+    # -------------------------------------------------------------- consumer
+
+    def next_batch(self) -> Optional[Tuple[int, List[_Request]]]:
+        """Block for the next flushed ``(L, reqs)`` bucket.  ``None`` is
+        the shutdown sentinel: admission stopped and every pending slot
+        has been flushed ahead of it."""
+        return self._queue.get()
+
+    def resolve_batch(self, reqs: Sequence[_Request], thetas,
+                      version: int, rec: dict) -> None:
+        """Resolve a launched bucket and commit its accounting (batch
+        record + per-request latencies).  Resolutions are counted one by
+        one: if ``set_result`` ever raises mid-loop (a cancelled future),
+        the already-resolved prefix still reaches ``_resolved``, or
+        ``drain()`` would wait forever on the lost counts."""
+        t1 = time.perf_counter()
+        ok = 0
+        try:
+            for i, r in enumerate(reqs):
+                r.future.set_result(
+                    ThetaResult.wrap(np.array(thetas[i]), version)
+                )
+                ok += 1
+        finally:
+            with self._lock:
+                self._resolved += ok
+                self.batch_log.append(rec)
+                self.latencies.extend(t1 - r.t_submit for r in reqs)
+
+    def fail_batch(self, reqs: Sequence[_Request],
+                   exc: BaseException) -> None:
+        """Resolve a failed bucket with ``exc`` — never hang the callers."""
+        n_err = 0
+        for r in reqs:
+            if not r.future.done():
+                r.future.set_exception(exc)
+                n_err += 1
+        with self._lock:
+            self._resolved += n_err
+            self.failed_batches += 1
+
+    # ------------------------------------------------------------ accounting
+
+    def metrics(self, reset: bool = False) -> dict:
+        """Latency/throughput/cache summary over the recorded window."""
+        with self._lock:
+            lats = np.asarray(self.latencies, np.float64)  # lint: host-f64
+            log = list(self.batch_log)
+            failed = self.failed_batches
+            if reset:
+                self.latencies = []
+                self.batch_log = []
+        out = {
+            "requests": int(lats.size),
+            "batches": len(log),
+            "failed_batches": failed,
+            "mean_fill": (
+                float(np.mean([b["filled"] for b in log])) if log else 0.0
+            ),
+            "cache_hits": int(sum(b["cache_hits"] for b in log)),
+            "cache_misses": int(sum(b["cache_misses"] for b in log)),
+        }
+        if lats.size:
+            out.update(
+                p50_ms=float(np.percentile(lats, 50) * 1e3),
+                p99_ms=float(np.percentile(lats, 99) * 1e3),
+                mean_ms=float(lats.mean() * 1e3),
+            )
+        return out
+
+    def drain(self) -> None:
+        """Block until every admitted request has resolved."""
+        while True:
+            with self._lock:
+                idle = not self._pending and self._queue.empty()
+                resolved, admitted = self._resolved, self._seq
+            if idle and resolved >= admitted:
+                return
+            time.sleep(0.001)
+
+    def close(self) -> None:
+        """Stop admission, flush the remaining slots, join the collector.
+
+        Idempotent and safe under concurrent callers: every caller blocks
+        on the join (``Thread.join`` is multi-caller safe), so no caller
+        returns while the collector is still flushing.
+        """
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._collector.join()
+
+
+def prewarm_server(srv: TopicServer, *, max_batch: int,
+                   bucket_multiple: int, max_len: int,
+                   lengths: Optional[Sequence[int]] = None) -> int:
+    """One full ``(max_batch, L)`` launch per reachable L bucket, before
+    traffic: the kernel build, the allocator's blocks and the hot-row
+    cache warm up here and not under a request's deadline.  There is no
+    trace cache to fill (the JAX package compiles a grid of shapes here).
+
+    ``lengths`` defaults to the ``bucket_multiple`` grid up to ``max_len``;
+    a length off the grid is skipped.  Every document of a launch reads
+    words 0 … L − 1 (mod the store's rows): a cheap fetch.  Returns the
+    launch count, and resets the cache and store stat windows so warm-up
+    traffic does not pollute the serving counters.
+    """
+    kops.refuse_debug_checks(srv.cfg.debug_checks, "prewarm_server")
+    if lengths is None:
+        lengths = range(bucket_multiple, max_len + 1, bucket_multiple)
+    rows = min(srv.cfg.W, srv.store.capacity)
+    count = 0
+    for L in lengths:
+        if _round_up(max(L, 1), bucket_multiple) != L:
+            continue
+        w = np.tile(np.arange(L) % rows, (max_batch, 1)).astype(np.int32)
+        c = np.ones_like(w, np.float32)
+        srv.infer(w, c, theta0=document_theta0(
+            np.arange(max_batch), c, srv.cfg, device=srv.device))
+        count += 1
+    if srv.hot_cache is not None:
+        srv.hot_cache.reset_stats()
+    srv.store.stats_window(reset=True)
+    return count
+
+
+class ServingEngine:
+    """Continuous batching over :class:`TopicServer`.
+
+    Admission (in-flight slots, deadline-aware collector, bounded launch
+    queue, per-document θ̂₀ seeds) is an :class:`AdmissionRouter`; the
+    engine adds the single *launcher* thread that consumes flushed
+    buckets, pads each to its (``max_batch``, L-bucket) shape
+    (:func:`pad_batch`), draws every document's θ̂₀ from its own seed
+    (:func:`document_theta0`) and runs one ``TopicServer.infer`` per
+    bucket on the server's device.  Admission never blocks on compute: the
+    bounded queue is the only backpressure.  A launch that raises resolves
+    every future of its bucket with the exception (``fail_batch``).
+
+    A document's θ is thereby independent of which slot and batch the
+    collector packed it into — continuous batching is semantically
+    invisible (bitwise, under ``rel_tol=0``: the θ-sweep keeps documents
+    independent of their batch-mates).  ``prewarm()`` runs one launch per
+    L bucket up front (:func:`prewarm_server`).  Every ``batch_log`` entry
+    records ``version = -1``: φ̂ is served straight from the store (the
+    lifelong hot-swap is not ported yet).
+    """
+
+    def __init__(self, server: TopicServer, *,
+                 max_batch: int = 64,
+                 bucket_multiple: int = 16,
+                 max_delay_ms: float = 5.0,
+                 max_len: int = 256,
+                 queue_depth: int = 4,
+                 seed: int = 0):
+        kops.refuse_debug_checks(server.cfg.debug_checks, "ServingEngine")
+        self.server = server
+        self.router = AdmissionRouter(
+            max_batch=max_batch, bucket_multiple=bucket_multiple,
+            max_delay_ms=max_delay_ms, max_len=max_len,
+            queue_depth=queue_depth, seed=seed,
+        )
+        self.max_batch = self.router.max_batch
+        self.bucket_multiple = self.router.bucket_multiple
+        self.max_delay = self.router.max_delay
+        self.max_len = self.router.max_len
+        self.queue_depth = self.router.queue_depth
+        self._launcher = threading.Thread(
+            target=self._launch_loop, name="serve-launcher", daemon=True
+        )
+        self._launcher.start()
+
+    # ------------------------------------------------------------- admission
+
+    # Accounting lives on the router; these delegations keep the engine's
+    # surface (eng._resolved, eng._seq, eng.batch_log, eng.latencies).
+
+    @property
+    def _resolved(self) -> int:
+        return self.router._resolved
+
+    @property
+    def _seq(self) -> int:
+        return self.router._seq
+
+    @property
+    def batch_log(self) -> List[dict]:
+        return self.router.batch_log
+
+    @property
+    def latencies(self) -> List[float]:
+        return self.router.latencies
+
+    def _bucket(self, n: int) -> int:
+        return self.router._bucket(n)
+
+    def submit(self, word_ids: np.ndarray, counts: Optional[np.ndarray] = None,
+               seed: Optional[int] = None) -> Future:
+        """Admit one document; resolves to its (K,) normalized θ (eq. 9)."""
+        return self.router.submit(word_ids, counts, seed)
+
+    # -------------------------------------------------------------- launcher
+
+    def _launch_loop(self) -> None:
+        dev = self.server.device
+        # this thread's current device is the server's, for every launch
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            while True:
+                item = self.router.next_batch()
+                if item is None:
+                    return
+                L, reqs = item
+                try:
+                    self._launch(L, reqs)
+                except Exception as e:   # resolve, never hang the callers
+                    self.router.fail_batch(reqs, e)
+
+    def _launch(self, L: int, reqs: List[_Request]) -> None:
+        w, c, seeds = pad_batch(L, reqs, self.max_batch)
+        t0 = time.perf_counter()
+        theta0 = document_theta0(seeds, c, self.server.cfg,
+                                 device=self.server.device)
+        theta = self.server.infer(w, c, theta0=theta0)
+        t1 = time.perf_counter()
+        cache = self.server.hot_cache
+        cw = cache.window_stats() if cache is not None else None
+        rec = {
+            "L": L, "filled": len(reqs), "capacity": self.max_batch,
+            "launch_seconds": t1 - t0,
+            "fetch_seconds": self.server.last_seconds["fetch"],
+            "fit_seconds": self.server.last_seconds["fit"],
+            "sweeps": self.server.last_sweeps,
+            "cache_hits": cw.hits if cw else 0,
+            "cache_misses": cw.misses if cw else 0,
+            "version": -1,
+        }
+        self.router.resolve_batch(reqs, theta, -1, rec)
+
+    # -------------------------------------------------------------- plumbing
+
+    def prewarm(self, lengths: Optional[Sequence[int]] = None) -> int:
+        """One launch per L bucket up front (:func:`prewarm_server`);
+        returns the launch count."""
+        return prewarm_server(self.server, max_batch=self.max_batch,
+                              bucket_multiple=self.bucket_multiple,
+                              max_len=self.max_len, lengths=lengths)
+
+    def metrics(self, reset: bool = False) -> dict:
+        """Latency/throughput/cache summary over the recorded window."""
+        return self.router.metrics(reset=reset)
+
+    def drain(self) -> None:
+        """Block until every admitted request has resolved."""
+        self.router.drain()
+
+    def close(self) -> None:
+        """Flush remaining slots, stop both threads.
+
+        Idempotent and safe under concurrent callers: every caller blocks
+        until both the collector and the launcher are joined.
+        """
+        self.router.close()
+        self._launcher.join()
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +751,25 @@ class TrafficGenerator:
                 out.append((t, w, c))
         return out
 
+    @staticmethod
+    def replay(trace, submit, pace: bool = True) -> List[Future]:
+        """Drive ``submit(word_ids, counts)`` with a precomputed trace.
+
+        ``pace=True`` honours the arrival timestamps (open-loop latency
+        measurement: late arrivals are submitted immediately, queueing
+        delay counts against the server); ``pace=False`` submits
+        back-to-back (closed-loop sustained-throughput measurement).
+        """
+        futures = []
+        t0 = time.perf_counter()
+        for t_arr, w, c in trace:
+            if pace:
+                delay = t0 + t_arr - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+            futures.append(submit(w, c))
+        return futures
+
     def word_ranks(self) -> np.ndarray:
         """(W,) 1-based Zipf rank of each word id in this traffic."""
         ranks = np.empty(self.vocab, np.int64)
@@ -316,6 +804,38 @@ def make_store(workdir: str, vocab: int, topics: int, *, seed: int = 0
     )
 
 
+def serve_traffic(args, server: TopicServer) -> None:
+    """Drive the continuous-batching engine with synthetic Zipf/Poisson
+    traffic and report the latency and throughput numbers (p50/p99
+    latency, documents/s, batches and their fill, cache)."""
+    gen = TrafficGenerator(args.vocab, doc_len=(args.min_len, args.max_len),
+                           seed=123)
+    trace = gen.trace([(args.qps, args.requests)])
+    with ServingEngine(server, max_batch=args.batch,
+                       max_delay_ms=args.max_delay_ms,
+                       max_len=_round_up(gen.doc_len[1], 16),
+                       seed=args.seed) as eng:
+        warm = eng.prewarm()
+        t0 = time.time()
+        futs = TrafficGenerator.replay(trace, eng.submit, pace=args.pace)
+        for f in futs:
+            f.result()
+        dt = time.time() - t0
+        eng.drain()                      # the last batch's accounting
+        m = eng.metrics()
+    print(f"served {m['requests']} requests in {dt:.2f}s "
+          f"({m['requests']/dt:.1f} docs/s sustained, target {args.qps} "
+          f"QPS, {'paced' if args.pace else 'unpaced'}; {warm} warm-up "
+          f"launches, device={server.device})")
+    print(f"  latency p50 {m.get('p50_ms', 0):.1f}ms  "
+          f"p99 {m.get('p99_ms', 0):.1f}ms  "
+          f"batches {m['batches']} (mean fill {m['mean_fill']:.1f})")
+    if server.hot_cache is not None:
+        s = server.hot_cache.stats
+        print(f"  hot-row cache: {s.hits} hits / {s.misses} misses "
+              f"({100 * s.hit_rate:.1f}%)")
+
+
 def serve_lda(args) -> None:
     cfg = LDAConfig(num_topics=args.topics, vocab_size=args.vocab)
     if args.make_store and not os.path.exists(
@@ -332,6 +852,9 @@ def serve_lda(args) -> None:
     server = TopicServer(store, cfg, active_topics=args.active_topics,
                          phi_dtype=args.phi_dtype, hot_rows=args.hot_rows,
                          device=args.device)
+    if args.traffic:
+        serve_traffic(args, server)
+        return
     # Requests: Zipf traffic (the JAX CLI draws an LDA corpus, whose dense
     # (K, W) topic draw does not scale to full-width models)
     gen = TrafficGenerator(args.vocab, doc_len=(args.min_len, args.max_len),
@@ -367,7 +890,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="restrict each word's fit support to its top-A "
                          "topics by trained φ mass (0 = dense fit)")
     ap.add_argument("--requests", type=int, default=512)
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=64,
+                    help="documents a launch (the engine's max_batch)")
+    ap.add_argument("--traffic", action="store_true",
+                    help="drive the continuous-batching engine with "
+                         "synthetic Zipf/Poisson traffic and report "
+                         "p50/p99 latency and sustained documents/s")
+    ap.add_argument("--qps", type=float, default=200.0,
+                    help="offered request rate for --traffic")
+    ap.add_argument("--pace", action="store_true",
+                    help="honour arrival timestamps (open-loop latency "
+                         "run) instead of submitting back-to-back")
+    ap.add_argument("--max-delay-ms", type=float, default=5.0,
+                    help="continuous-batching flush deadline")
     ap.add_argument("--min-len", type=int, default=16,
                     help="fewest tokens in a request")
     ap.add_argument("--max-len", type=int, default=64,

@@ -51,6 +51,13 @@ non-causal and unaligned bases (the bf16 path's plain-load staging), in
 float32 and bfloat16; two launches give the same bits and a query row's
 bits do not depend on Sq; the reduced granite and danube LMs' prefill and
 decode on the card agree with the CPU's, in float32 and bfloat16.
+
+The baselines' two ``fused_estep`` input forms (OVB: exp Ψ inputs with
+a = b = c = 0; SCVB: a = α, b = β, c = Wβ) are held against the plain
+version on every kernel path; OVB, SCVB and OGS steps on the card agree
+with the CPU (OGS's sampled topics bit for bit) and repeat bitwise; the
+serving engine's documents on the card equal bitwise the same documents in
+another packing, and alone.
 """
 import numpy as np
 import pytest
@@ -1285,3 +1292,136 @@ def test_reduced_lm_prefill_and_decode_match_the_cpu(cuda, name, dtype):
     rtol, atol = LM_TOL[dtype]
     torch.testing.assert_close(lg_g, lg_c, rtol=rtol, atol=atol)
     torch.testing.assert_close(dec_g, dec_c, rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The baselines (OVB, SCVB, OGS) and the serving engine
+# ---------------------------------------------------------------------------
+
+def _baseline_estep_args(form, T, K, G, dev, seed=0):
+    """``fused_estep``'s operands in the OVB form (exp Ψ of θ̂+α, φ̂_w+β,
+    φ̂(k)+Wβ; a = b = c = 0) or the SCVB form (raw statistics, a = α,
+    b = β, c = Wβ), θ̂ one row per G tokens."""
+    th, ph, pt, _, _, _ = _estep_inputs(T, K, G, dev, seed=seed)
+    alpha = beta = 1.01
+    W = 141_043
+    if form == "ovb":
+        dg = torch.special.digamma
+        return ((dg(th + alpha).exp(), dg(ph + beta).exp(),
+                 dg(pt + W * beta).exp(), None, None, None),
+                dict(alpha_m1=0.0, beta_m1=0.0, wb=0.0))
+    return ((th, ph, pt, None, None, None),
+            dict(alpha_m1=alpha, beta_m1=beta, wb=W * beta))
+
+
+@pytest.mark.parametrize("form", ["ovb", "scvb"])
+@pytest.mark.parametrize("T,K,G", [(256, 10_000, 128), (45, 10_001, 15),
+                                   (24, 50_000, 8), (96, 300, 32)])
+def test_fused_estep_baseline_forms_match_plain(cuda, form, T, K, G):
+    """The two input forms no earlier caller launched (a = 0 with c = 0;
+    a = α, b = β, c = Wβ) against the plain version, on every path."""
+    args, kw = _baseline_estep_args(form, T, K, G, cuda, seed=T + K)
+    before = fused_estep.launches
+    got = fused_estep(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_estep.launches == before + 1
+    _check_estep(got, fused_estep_reference(*args, **kw))
+    assert torch.equal(got[0], fused_estep(*args, **kw)[0])
+
+
+@pytest.mark.parametrize("algo", ["ovb", "scvb", "ogs"])
+def test_baselines_on_card_match_the_cpu(cuda, algo):
+    """Each baseline step on the card against the same step on the CPU
+    (μ₀, z₀ and the Gumbel draws injected): OVB and SCVB within the
+    cross-package tolerance, one ``fused_estep`` launch a sweep, the same
+    bits twice; OGS's sampled topics and θ̂ bit for bit (integer-count
+    sums) and no ``fused_estep`` launch."""
+    from repro_torch.core.baselines import ALGORITHMS
+
+    rng = np.random.default_rng(6)
+    D, L, K, W = 16, 12, 1001, 40
+    wid = rng.integers(0, W, (D, L)).astype(np.int32)
+    cnt = rng.integers(0, 4, (D, L)).astype(np.float32)
+    phi = (rng.gamma(1.0, 1.0, (W, K)) * 5).astype(np.float32)
+    cfg = LDAConfig(num_topics=K, vocab_size=W, max_sweeps=6,
+                    rho_mode="stepwise")
+    stats = GlobalStats(phi, phi.sum(0), np.int32(2))
+    if algo == "ogs":
+        kw = dict(z0=rng.integers(0, K, (D, L)),
+                  gumbel=[rng.gumbel(size=(D, L, K)).astype(np.float32)
+                          for _ in range(8)])
+    else:
+        kw = dict(mu0=rng.dirichlet(np.ones(K), (D, L)).astype(np.float32))
+    before = fused_estep.launches
+    runs = [ALGORITHMS[algo](None, MinibatchData(wid, cnt), stats, cfg,
+                             device=dev, **kw) for dev in (cuda, cuda, "cpu")]
+    launched = fused_estep.launches - before
+    assert launched == (0 if algo == "ogs" else 2 * cfg.max_sweeps)
+    for a, b in zip(runs[0][0][:2], runs[1][0][:2]):
+        assert torch.equal(a, b)
+    (gpu, gloc, gdiag), (cpu, cloc, cdiag) = runs[0], runs[2]
+    if algo == "ogs":
+        assert torch.equal(gloc.mu.cpu(), cloc.mu)
+        assert torch.equal(gloc.theta_dk.cpu(), cloc.theta_dk)
+    torch.testing.assert_close(gpu.phi_wk.cpu(), cpu.phi_wk, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(gloc.theta_dk.cpu(), cloc.theta_dk,
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gdiag.final_train_ppl.cpu(),
+                               cdiag.final_train_ppl, rtol=1e-4, atol=0)
+
+
+def test_engine_slot_invariance_on_card(cuda, tmp_path):
+    """Through the engine on the card (rel_tol = 0), a document's θ equals
+    bitwise the same document in another packing of the engine's launch
+    shape through ``TopicServer.infer`` with its per-document θ̂₀ — beside
+    strangers and alone — and every θ row sums to 1."""
+    from repro_torch.core import ParameterStore
+    from repro_torch.launch.serve import (
+        ServingEngine,
+        TopicServer,
+        document_theta0,
+    )
+
+    K, W = 1000, 500
+    rng = np.random.default_rng(0)
+    phi = rng.gamma(0.5, 1.0, (W, K)).astype(np.float32) * 100
+    store = ParameterStore(str(tmp_path / "phi"), num_topics=K,
+                           vocab_capacity=W, buffer_rows=0)
+    store.write_rows(np.arange(W), phi)
+    store.phi_k[:] = phi.sum(0)
+    srv = TopicServer(store, LDAConfig(num_topics=K, vocab_size=W),
+                      fit_sweeps=20, rel_tol=0.0, check_every=10,
+                      vocab_pad=64, device=cuda)
+    docs = []
+    for n in rng.integers(20, 32, 12):
+        w = rng.choice(W, size=int(n), replace=False).astype(np.int32)
+        docs.append((w, rng.integers(1, 5, len(w)).astype(np.float32)))
+    seeds = rng.integers(0, 2**32, len(docs)).tolist()
+    with ServingEngine(srv, max_batch=16, bucket_multiple=32,
+                       max_delay_ms=50.0, max_len=32) as eng:
+        got = [f.result(timeout=120) for f in
+               [eng.submit(w, c, seed=s) for (w, c), s in zip(docs, seeds)]]
+    for th in got:
+        np.testing.assert_allclose(th.sum(), 1.0, rtol=1e-5)
+    order = list(range(len(docs)))[::-1]
+    wp = np.zeros((16, 32), np.int32)
+    cp = np.zeros((16, 32), np.float32)
+    sp = np.full(16, -1, np.int64)
+    for slot, i in enumerate(order):
+        w, c = docs[i]
+        wp[slot + 3, : len(w)] = w
+        cp[slot + 3, : len(c)] = c
+        sp[slot + 3] = seeds[i]
+    stranger = rng.choice(W, size=30, replace=False)
+    wp[0, :30], cp[0, :30], sp[0] = stranger, 2.0, 99
+    direct = srv.infer(wp, cp, theta0=document_theta0(sp, cp, srv.cfg,
+                                                      device=cuda))
+    for slot, i in enumerate(order):
+        assert np.array_equal(got[i], direct[slot + 3]), i
+    # alone in a launch of the engine's shape, in another slot
+    wa, ca, sa = np.zeros_like(wp), np.zeros_like(cp), np.full(16, -1)
+    wa[9], ca[9], sa[9] = wp[3], cp[3], sp[3]
+    alone = srv.infer(wa, ca, theta0=document_theta0(sa, ca, srv.cfg,
+                                                     device=cuda))
+    assert np.array_equal(alone[9], direct[3])

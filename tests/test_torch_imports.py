@@ -7,8 +7,10 @@
 * The entry points — serving (``TopicServer``, ``ops.infer``, the serve
   CLI), training (``FOEMTrainer``, ``ops.sweep``, ``foem_minibatch``,
   the train CLI), the sharded step's meshes (``make_host_mesh``,
-  ``spawn_mesh``) and the LM's serving path (``LM``, ``build``,
-  ``params_from_jax``) — default to ``device="cuda"`` and raise on a host
+  ``spawn_mesh``), the LM's serving path (``LM``, ``build``,
+  ``params_from_jax``), the baselines (``ovb_step``, ``scvb_step``,
+  ``ogs_step``) and the serving engine's θ̂₀ draw and ``--traffic`` CLI —
+  default to ``device="cuda"`` and raise on a host
   without a GPU instead of falling back to the CPU (SEM's and the
   coarse-block trainer's: ``tests/test_torch_blocked.py``).
 """
@@ -248,3 +250,55 @@ def test_lm_entry_points_default_to_the_gpu():
     p = m.init_params(torch.Generator().manual_seed(0))
     logits, _ = m.prefill(p, {"tokens": torch.zeros((1, 3), dtype=torch.long)})
     assert logits.device.type == "cpu" and logits.shape == (1, 3, 512)
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.data.uci",
+    "repro_torch.core.baselines",
+    "repro_torch.launch.serve",
+])
+def test_baselines_and_engine_modules_stand_alone(name):
+    """The corpus loader, the baselines and the serving engine import
+    without JAX, and the E-step kernel OVB and SCVB run on is one of the
+    build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.kernels import build\n"
+        "assert 'fused_estep' in build.KERNELS\n"
+        "assert (build.CSRC / 'fused_estep.cu').exists()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_baselines_and_engine_entry_points_default_to_the_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core import GlobalStats, LDAConfig, MinibatchData
+    from repro_torch.core.baselines import ALGORITHMS
+    from repro_torch.launch import serve
+
+    cfg = LDAConfig(num_topics=4, vocab_size=8, max_sweeps=2)
+    w = np.zeros((2, 3), np.int32)
+    c = np.ones((2, 3), np.float32)
+    phi = np.ones((8, 4), np.float32)
+    stats = GlobalStats(phi, phi.sum(0), np.int32(0))
+    for name, step in ALGORITHMS.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            step(torch.Generator(), MinibatchData(w, c), stats, cfg)
+        # the explicit CPU choice runs the plain path
+        new, _, diag = step(torch.Generator(), MinibatchData(w, c), stats,
+                            cfg, device="cpu")
+        assert new.phi_wk.device.type == "cpu", name
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.document_theta0([0, 1], c, cfg)
+    assert serve.document_theta0([0, 1], c, cfg, device="cpu").shape == (2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--workdir", str(tmp_path / "cli"), "--topics", "4",
+                    "--vocab", "8", "--make-store", "--traffic",
+                    "--requests", "4"])

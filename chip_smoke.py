@@ -77,8 +77,27 @@ order:
    read by ``load_docword`` from the training corpus written as a gzipped
    UCI docword file (``baselines step`` lines: wall ms, ``fused_estep``
    launches — ``max_sweeps`` a step for OVB and SCVB, 0 for OGS —, train
-   perplexity, peak device memory, Σφ̂(k) against the merge's mass).
-9. holds the flash-attention kernel against its plain version at the LM
+   perplexity, peak device memory, Σφ̂(k) against the merge's mass);
+9. drives the lifelong train-while-serve path at the stream_1k width on a
+   store of its own (the same seeded rows, written twice): a replica run
+   trains four minibatches with a ``SnapshotPublisher`` (a publish every
+   2 steps, ``retain`` 2: v1, v2, v3) and no serving, and a fresh server
+   subscribed to it scores the held-out batch; the live run
+   (``launch.lifelong.serve_while_training``) trains the same minibatches
+   while the ``ServingEngine`` (256-document launches, 16-token buckets,
+   a 5 ms deadline) over a subscribed ``TopicServer`` (16,384 hot rows)
+   serves waves of 512 Zipf requests unpaced.  Each version's crc must
+   equal the replica's, every request resolve with a committed version,
+   launch versions never decrease nor fall more than ``retain`` behind,
+   θ rows sum to 1, ``theta_sweep``/``gs_sweep``/``scheduled_sweep``
+   launch, the eq. 21 perplexity equal the replica server's (rtol 1e-3)
+   and an int8-subscribed server's θ stay within 0.05 of f32
+   (``lifelong publish`` / ``lifelong swap`` lines, then a ``lifelong``
+   line: publish and swap seconds, rows changed against cache rows dropped
+   and resident, p50/p99 and documents/s beside the engine phase's, live
+   step seconds beside the replica's, host ``MemAvailable`` before and
+   peak RSS during the phase, its wall time);
+10. holds the flash-attention kernel against its plain version at the LM
    serving path's shapes (bf16): granite-8b prefill (8 prompts × 32 query
    heads over 8 KV heads, S = 2,048, d = 128, causal) and decode (Sq = 1 at
    q_offset 2,048..2,079 in a 4,096-slot cache), danube-3-4b (d = 120,
@@ -89,7 +108,7 @@ order:
    one ``scaled_dot_product_attention`` call on the same inputs (a
    yardstick the port never calls); after the build it counts the
    tensor-core instructions (HGMMA, HMMA) in the attention library's SASS;
-10. drives the dense LM's serving path — ``build(granite-8b)`` at full width
+11. drives the dense LM's serving path — ``build(granite-8b)`` at full width
    (36 layers, bf16, seeded random weights) prefills 8 prompts of 2,048
    tokens and takes 32 greedy ``decode_step``s into a 4,096-slot cache
    (one more under ``torch.profiler``); a float32 copy's decode logits and
@@ -173,6 +192,16 @@ PRIOR_MS_ESTEP = {"blocked, with residual": 2.30, "blocked": 1.68,
 # The serving engine phase: 1,024 Zipf requests into 256-document launches
 # with a 5 ms flush deadline.
 ENGINE_REQUESTS, ENGINE_BATCH, ENGINE_DELAY_MS = 1024, 256, 5.0
+LIFELONG_STEPS = 4          # training minibatches of the lifelong phase
+LIFELONG_PUBLISH_EVERY = 2  # v1 before training, then v2 and v3
+LIFELONG_RETAIN = 2         # snapshots the publisher keeps
+LIFELONG_HOT_ROWS = 16_384  # the lifelong server's hot-row cache
+LIFELONG_WAVE = 512         # requests a traffic wave, replayed unpaced
+LIFELONG_PPL_RTOL = 1e-3    # eq. 21 perplexity of the lifelong server against
+                            # a fresh server subscribed to the replica: the
+                            # same φ bits, so equal bits are expected
+LIFELONG_INT8_ATOL = 0.05   # int8-subscribed θ against f32 (per-row int8
+                            # steps of amax/254 move θ by a few 1e-3)
 BASELINE_MASS_RTOL = 1e-4   # a baseline step's Σφ̂(k) against (1−ρ)·before
 # + ρ·tokens: float32 sums over W·K = 1.4e9 entries, each μ row summing to 1
 # within a few ulps
@@ -2182,6 +2211,296 @@ def baselines_step_phase(torch, report):
     report["baselines_step"] = lines
 
 
+def host_mem_available() -> int:
+    """Bytes the host can still give (``MemAvailable`` of /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise SmokeFailure("no MemAvailable line in /proc/meminfo")
+
+
+class RssSampler:
+    """This process's resident set, sampled every ``period`` s in a thread
+    while the ``with`` block runs; ``peak`` is the largest sample (bytes)."""
+
+    def __init__(self, period: float = 0.1):
+        import os
+        import threading
+
+        self.period = period
+        self.peak = 0
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.rss())
+            self._stop.wait(self.period)
+
+    def __enter__(self) -> "RssSampler":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self.rss())
+
+
+def lifelong_phase(torch, report):
+    """The lifelong train-while-serve path at the stream_1k width.
+
+    Its own 5.64 GB store (the store phase's seeded rows), written twice:
+    a replica run trains LIFELONG_STEPS minibatches with a
+    SnapshotPublisher (publish_every = 2, retain = 2: v1 before training,
+    then v2 and v3) and no serving, and a fresh server subscribed to it
+    scores the held-out batch; then the live run
+    (launch.lifelong.serve_while_training) trains the same minibatches
+    while a ServingEngine (256-document launches, 16-token buckets up to
+    256, a 5 ms deadline) over a server subscribed to the publisher
+    (hot_rows = 16,384) serves waves of Zipf requests unpaced.  Every
+    version's crc must equal the replica's (training bitwise under
+    traffic), every request resolve with a committed version, launch
+    versions never decrease nor pass the published version by more than
+    retain, θ rows sum to 1, the three kernels launch, the eq. 21
+    perplexity equal the replica server's within LIFELONG_PPL_RTOL, and an
+    int8-subscribed server's θ stay within LIFELONG_INT8_ATOL of f32."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.core import (
+        FOEMTrainer, ShiftDetector, SnapshotPublisher,
+    )
+    from repro_torch.core.streaming import store_from_arrays
+    from repro_torch.data import trained_like_phi_blocks
+    from repro_torch.kernels.gs_sweep import gs_sweep
+    from repro_torch.kernels.scheduled_sweep import scheduled_sweep
+    from repro_torch.kernels.theta_sweep import theta_sweep
+    from repro_torch.launch.lifelong import serve_while_training
+    from repro_torch.launch.serve import TopicServer, TrafficGenerator
+    from repro_torch.sparse import MinibatchStream
+
+    t_phase = time.perf_counter()
+    cfg = lda_config(lda_shape("stream_1k"))
+    cap = report["store_capacity"]
+    phi_bytes = cap * K_FULL * 4
+    # retained snapshots, the one a publish is copying, the server's pinned
+    # epoch, the store's mapped pages and the int8 copy of the last version
+    need = (LIFELONG_RETAIN + 3) * phi_bytes + phi_bytes // 4 + (4 << 30)
+    avail = host_mem_available()
+    print(f"lifelong host memory: MemAvailable {avail} bytes, need {need} "
+          f"({LIFELONG_RETAIN} retained + 3 more φ copies of {phi_bytes})")
+    check(avail >= need, f"lifelong: {avail} bytes of host memory "
+          f"available, {need} needed at the stream_1k width")
+    store_dir = ROOT / "build" / "chip_smoke_lifelong"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(store_dir.parent).free
+    check(free >= phi_bytes + (2 << 30), f"lifelong: {free} bytes free on "
+          f"disk, {phi_bytes + (2 << 30)} needed for its store")
+    ranks = TrafficGenerator(vocab_size=cap, doc_len=DOC_LEN,
+                             seed=7).word_ranks()
+    mbs = list(MinibatchStream(report["training_corpus"], D_TRAIN,
+                               bucket_len=L_TRAIN, seed=0))[:LIFELONG_STEPS]
+    check(len(mbs) == LIFELONG_STEPS, f"lifelong: {len(mbs)} minibatches")
+    w_ev, est, ev = report["heldout"]
+
+    def fresh():
+        shutil.rmtree(store_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        store = store_from_arrays(
+            str(store_dir), trained_like_phi_blocks(cap, K_FULL, ranks=ranks,
+                                                    seed=0),
+            live_vocab=cap, vocab_capacity=cap)
+        write_s = time.perf_counter() - t0
+        pub = SnapshotPublisher(store, retain=LIFELONG_RETAIN)
+        det = ShiftDetector()
+        trainer = FOEMTrainer(cfg, store, seed=0, publisher=pub,
+                              publish_every=LIFELONG_PUBLISH_EVERY,
+                              shift_detector=det, device="cuda")
+        crcs = {pub.publish().version: pub.latest().crc}     # v1
+        return store, pub, det, trainer, crcs, write_s
+
+    def versions(pub, crcs):
+        for rec in pub.publish_log:
+            snap = pub.get(rec["version"])
+            if snap is not None:
+                crcs[rec["version"]] = snap.crc
+        check(sorted(crcs) == [r["version"] for r in pub.publish_log],
+              f"lifelong: crcs of {sorted(crcs)} only")
+        return crcs
+
+    def counts():
+        return {"theta_sweep": theta_sweep.launches,
+                "gs_sweep": gs_sweep.launches,
+                "scheduled_sweep": scheduled_sweep.launches}
+
+    def zero_counts():
+        theta_sweep.launches = 0
+        gs_sweep.launches = 0
+        scheduled_sweep.launches = 0
+
+    with RssSampler() as rss:
+        # ---- replica: the same steps and publishes, no serving
+        store, pub, det, trainer, crcs, write_s = fresh()
+        zero_counts()                     # counts of the main path only
+        t0 = time.perf_counter()
+        trainer.step(mbs[0])
+        trainer.fit_stream(iter(mbs[1:]), max_steps=LIFELONG_STEPS - 1)
+        train_s = time.perf_counter() - t0
+        crcs = versions(pub, crcs)
+        replica_srv = TopicServer(store, cfg, device="cuda")
+        replica_srv.subscribe(pub)
+        _, ppl_replica = replica_srv.evaluate(w_ev, est, ev)
+        replica = {
+            "store_write_s": write_s, "train_s": train_s,
+            "step_s": [m.seconds for m in trainer.history],
+            "compute_s": [m.compute_seconds for m in trainer.history],
+            "sweeps": [m.sweeps for m in trainer.history],
+            "published": [m.published_version for m in trainer.history],
+            "publish_log": pub.publish_log, "swap_log": replica_srv.swap_log,
+            "crcs": crcs, "heldout_ppl": ppl_replica, "launches": counts()}
+        del store, pub, det, trainer, replica_srv
+        gc.collect()
+
+        # ---- live: the same training while the engine serves
+        store, pub, det, trainer, live_crcs, write_s = fresh()
+        srv = TopicServer(store, cfg, hot_rows=LIFELONG_HOT_ROWS,
+                          device="cuda")
+        srv.subscribe(pub)
+        trace = TrafficGenerator(vocab_size=cap, doc_len=DOC_LEN,
+                                 seed=43).trace([(1000.0, LIFELONG_WAVE)])
+        record = {}
+        zero_counts()                     # counts of the main path only
+        t0 = time.perf_counter()
+        rep = serve_while_training(
+            trainer, pub, det, srv, iter(mbs), trace, steps=LIFELONG_STEPS,
+            heldout=(w_ev, est, ev), max_batch=ENGINE_BATCH,
+            max_delay_ms=ENGINE_DELAY_MS, max_len=DOC_LEN[1], pace=False,
+            seed=0, record=record)
+        live_s = time.perf_counter() - t0
+        launches = counts()
+        live_crcs = versions(pub, live_crcs)
+
+        # an int8-subscribed server on the final version against f32
+        c_ev = est + ev
+        t0 = time.perf_counter()
+        q = TopicServer(store, cfg, phi_dtype="int8", device="cuda")
+        q.subscribe(pub)
+        int8_swap_s = time.perf_counter() - t0
+        th8 = q.infer(w_ev, c_ev)
+        th32 = srv.infer(w_ev, c_ev)
+        int8_err = float(np.abs(th8 - th32).max())
+        cache = srv.hot_cache.stats
+        resident = srv.hot_cache.resident_rows()
+        history = trainer.history
+        del q, srv, trainer, det, pub, store
+        gc.collect()
+    shutil.rmtree(store_dir, ignore_errors=True)
+
+    # ---- checks
+    check(live_crcs == replica["crcs"],
+          f"lifelong: snapshot crcs under traffic {live_crcs} differ from "
+          f"the replica's {replica['crcs']}")
+    check(sorted(live_crcs) == [1, 2, 3],
+          f"lifelong: versions {sorted(live_crcs)}, expected [1, 2, 3]")
+    check(rep["failed_requests"] == 0 and rep["uncommitted_versions"] == []
+          and record["metrics"]["failed_batches"] == 0,
+          f"lifelong: {rep['failed_requests']} failed requests, "
+          f"uncommitted versions {rep['uncommitted_versions']}")
+    thetas = np.stack(record["thetas"])
+    check(len(thetas) == rep["requests"] and thetas.shape[1] == K_FULL
+          and np.isfinite(thetas).all(),
+          "lifelong: θ has the wrong shape or is not finite")
+    committed = set(live_crcs)
+    check(all(t.version in committed for t in record["thetas"]),
+          "lifelong: a θ carries an uncommitted version")
+    row_err = float(np.abs(thetas.sum(1, dtype=np.float64) - 1.0).max())
+    check(row_err <= 1e-5, f"lifelong: a θ row sums to 1 ± {row_err}")
+    del thetas
+    log = record["batch_log"]
+    vers = [b["version"] for b in log]
+    check(all(v >= 1 for v in vers) and vers == sorted(vers),
+          f"lifelong: launch versions {vers} decrease or are unpublished")
+    stale = [b["published_version"] - b["version"] for b in log]
+    check(all(0 <= x <= LIFELONG_RETAIN for x in stale),
+          f"lifelong: staleness {stale} outside [0, {LIFELONG_RETAIN}]")
+    check(all(v > 0 for v in launches.values()),
+          f"lifelong: a kernel of the path did not launch {launches}")
+    ppl_diff = rep["heldout_ppl"] / replica["heldout_ppl"] - 1.0
+    check(abs(ppl_diff) <= LIFELONG_PPL_RTOL,
+          f"lifelong: eq. 21 perplexity {rep['heldout_ppl']} against the "
+          f"replica server's {replica['heldout_ppl']}")
+    check(int8_err <= LIFELONG_INT8_ATOL,
+          f"lifelong: int8 θ within {int8_err} of f32")
+
+    for name, plog in (("replica", replica["publish_log"]),
+                       ("live", rep["publish_log"])):
+        for r in plog:
+            print(f"lifelong publish ({name}) " + json.dumps(r))
+    for r in rep["swap_log"]:
+        print("lifelong swap " + json.dumps(r))
+    print(f"lifelong int8 swap (verify + quantize) {int8_swap_s:.3f} s")
+    engine = report["serving_engine"]["runs"]["unpaced"]
+    served = len(record["thetas"])
+    rec = {
+        "steps": LIFELONG_STEPS, "retain": LIFELONG_RETAIN,
+        "publish_every": LIFELONG_PUBLISH_EVERY,
+        "versions": sorted(live_crcs), "crcs_equal_replica": True,
+        "publish_s": [r["seconds"] for r in rep["publish_log"]],
+        "replica_publish_s": [r["seconds"] for r in replica["publish_log"]],
+        "swap_s": [r["seconds"] for r in rep["swap_log"]],
+        "int8_swap_s": int8_swap_s,
+        "changed_rows": [r["changed_rows"] for r in rep["publish_log"]],
+        "cache_rows_dropped": cache.rows_dropped,
+        "cache_invalidations": cache.invalidations,
+        "cache_rows_resident": resident, "cache_hit_rate": cache.hit_rate,
+        "requests": rep["requests"], "waves": rep["traffic_waves"],
+        "failed_requests": rep["failed_requests"],
+        "launch_versions": sorted(set(vers)),
+        "max_staleness_versions": rep["staleness_versions_max"],
+        "p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"],
+        "docs_per_s": served / record["traffic_seconds"],
+        "traffic_s": record["traffic_seconds"],
+        "batches": record["metrics"]["batches"],
+        "launch_ms_mean": 1e3 * float(np.mean(
+            [b["launch_seconds"] for b in log])),
+        "fetch_ms_mean": 1e3 * float(np.mean(
+            [b["fetch_seconds"] for b in log])),
+        "fit_ms_mean": 1e3 * float(np.mean([b["fit_seconds"] for b in log])),
+        "mean_fill": rep["mean_fill"],
+        "engine_unpaced": {k: engine[k] for k in
+                           ("p50_ms", "p99_ms", "docs_per_s")},
+        "live_step_s": [m.seconds for m in history],
+        "replica_step_s": replica["step_s"],
+        "live_compute_s": [m.compute_seconds for m in history],
+        "replica_compute_s": replica["compute_s"],
+        "live_sweeps": [m.sweeps for m in history],
+        "replica_sweeps": replica["sweeps"],
+        "training_slowdown": (sum(m.seconds for m in history[1:])
+                              / sum(replica["step_s"][1:])),
+        "heldout_ppl": rep["heldout_ppl"],
+        "replica_heldout_ppl": replica["heldout_ppl"],
+        "heldout_ppl_rel_diff": ppl_diff,
+        "int8_max_abs_theta_diff": int8_err, "max_row_sum_error": row_err,
+        "shift_events": rep["shift_events"],
+        "launches": launches, "replica_launches": replica["launches"],
+        "live_s": live_s,
+        "store_write_s": [replica["store_write_s"], write_s],
+        "mem_available_bytes": avail, "peak_rss_bytes": rss.peak,
+        "phase_s": time.perf_counter() - t_phase}
+    print("lifelong " + json.dumps(rec))
+    report["lifelong"] = rec
+
+
 def _attn_bound(q, k, pairs, kv_rows) -> tuple:
     """Least time of one attention call: q and o once, the visible keys and
     values once (``kv_rows`` rows of each KV head), against 4·d operations
@@ -2647,6 +2966,12 @@ def main() -> int:
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+    try:
+        lifelong_phase(torch, report)
+    finally:
+        shutil.rmtree(ROOT / "build" / "chip_smoke_lifelong",
+                      ignore_errors=True)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     attention_kernel_phase(torch, dev, report)
     t1 = time.perf_counter()
@@ -2656,6 +2981,11 @@ def main() -> int:
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
 
     f32 = report["variants"][0]
+    # the lifelong path's launches (replica and live runs) join the serving
+    # and training paths' counts of the same kernels
+    life = report["lifelong"]
+    life_launches = {k: life["launches"][k] + life["replica_launches"][k]
+                     for k in life["launches"]}
     max_err = max(e["max_abs"] for v in report["variants"]
                   for e in v["errors"].values())
     entries = [{
@@ -2663,7 +2993,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/theta_sweep.cu",
         "replaces": "src/repro/kernels/theta_sweep.py:262",
-        "launches": report["serving"]["launches"],
+        "launches": (report["serving"]["launches"]
+                     + life_launches["theta_sweep"]),
         "max_abs_err": max_err,
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -2684,7 +3015,8 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": report["training"]["launches"][name],
+            "launches": (report["training"]["launches"][name]
+                         + life_launches[name]),
             # μ_new, the sweep's per-token output (all outputs are in the
             # "sweep kernel" lines)
             "max_abs_err": max(v["errors"]["mu"]["max_abs"] for v in mine),

@@ -4,8 +4,9 @@ The typed containers, the E-step, folds and sweeps (``em``), the residual
 scheduler (``scheduling``), the FOEM inner loop (``foem``), the SEM baseline
 (``sem``), the paper's other online baselines OVB, SCVB and OGS
 (``baselines``), the streaming trainer (``trainer``), held-out inference
-(§2.4 / eq. 21, ``perplexity``) and the disk-backed parameter store
-(``streaming``).
+(§2.4 / eq. 21, ``perplexity``), the disk-backed parameter store with the
+lifelong snapshot publisher (``streaming``) and the topic-shift detector
+(``scheduling``).
 """
 from repro_torch.core.types import (
     GlobalStats,
@@ -21,10 +22,13 @@ from repro_torch.core.types import (
     uniform_responsibilities,
 )
 from repro_torch.core import baselines, em, foem, perplexity, scheduling, sem
+from repro_torch.core.scheduling import ShiftDetector, ShiftEvent
 from repro_torch.core.streaming import (
     CacheStats,
     HotRowCache,
     ParameterStore,
+    PhiSnapshot,
+    SnapshotPublisher,
     StoreStats,
     StreamPrefetcher,
     store_from_arrays,
@@ -53,6 +57,10 @@ __all__ = [
     "FOEMTrainer",
     "HotRowCache",
     "ParameterStore",
+    "PhiSnapshot",
+    "ShiftDetector",
+    "ShiftEvent",
+    "SnapshotPublisher",
     "StepMetrics",
     "StoreStats",
     "StreamPrefetcher",

@@ -12,13 +12,17 @@ renormalisation (eq. 38) preserves the inactive topics' mass.
 
 The residual segment sums go through ``gs_sweep.segment_sum``, whose order is
 fixed on every device: a flipped last bit in r_w(k) could change an active
-set, and with it the rest of the minibatch.  The topic-shift detector comes
-with the lifelong slice.
+set, and with it the rest of the minibatch.
+
+:class:`ShiftDetector` watches a lifelong stream's per-step signals (the
+eq. 36 residual mass, the train perplexity, the φ(k) shares) on the host.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import LDAConfig, SchedulerState
@@ -180,3 +184,109 @@ def full_sweep_residuals(
     return residuals_from_sweep(
         (mu_new - mu_old).abs_().mul_(counts[..., None]), word_ids,
         num_words)
+
+
+# ---------------------------------------------------------------------------
+# Topic-shift detection — lifelong-stream drift over eq. 36 / eq. 21 signals
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftEvent:
+    """One detected stream event, surfaced through ``StepMetrics``."""
+
+    step: int
+    kind: str        # "residual-shift" | "ppl-shift" | "topic-birth" | "topic-death"
+    value: float     # signal magnitude (deviation, share, ...)
+    topic: int = -1  # topic id for birth/death events
+
+
+class ShiftDetector:
+    """EWMA drift detector over the trainer's per-step stream signals.
+
+    Lifelong streams are non-stationary: when the document distribution
+    shifts, the eq. 36 replacement-residual mass (how much of μ the sweep
+    rewrote) and the train perplexity both jump relative to their recent
+    history.  This detector keeps an exponentially weighted mean and
+    mean-absolute-deviation per signal; a point farther than
+    ``threshold × dev`` from the mean (after ``warmup`` observations) fires
+    a shift event and re-arms the estimator at the new level.  A fired
+    shift latches ``consume_refresh()`` so the trainer can grant the next
+    step extra warm-up (full, unscheduled) sweeps — the Fig. 4 residual
+    re-initialisation applied mid-stream instead of only at t = 0.
+
+    Topic birth/death tracks the normalized φ_k mass shares: a topic whose
+    share crosses ``topic_floor_frac / K`` (a fraction of the uniform
+    share) in either direction emits one event at the crossing.
+
+    Host Python only, single writer: ``update`` is called from the trainer
+    thread alone (there is no internal locking).
+    """
+
+    def __init__(self, *, alpha: float = 0.25, threshold: float = 6.0,
+                 warmup: int = 8, topic_floor_frac: float = 0.05):
+        self.alpha = float(alpha)
+        self.threshold = float(threshold)
+        self.warmup = int(warmup)
+        self.topic_floor_frac = float(topic_floor_frac)
+        self._sig: dict = {}          # name -> [ewma_mean, ewma_dev, n_obs]
+        self._alive = None            # (K,) bool from the last update
+        self._refresh = False
+        self.events: list = []        # full event history, oldest first
+
+    def _drift(self, name: str, x: float, step: int) -> Optional[ShiftEvent]:
+        st = self._sig.setdefault(name, [0.0, 0.0, 0])
+        mean, dev, n = st
+        if n == 0:
+            st[:] = [x, 0.0, 1]
+            return None
+        d = abs(x - mean)
+        if n >= self.warmup and d > self.threshold * max(dev, 1e-12):
+            # re-arm at the new level; keep dev so a noisy regime doesn't
+            # look calm the moment after a shift
+            st[:] = [x, dev, 1]
+            return ShiftEvent(step=step, kind=f"{name}-shift", value=d)
+        st[0] = mean + self.alpha * (x - mean)
+        st[1] = dev + self.alpha * (d - dev)
+        st[2] = n + 1
+        return None
+
+    def update(self, *, step: int, residual_mass: float = float("nan"),
+               perplexity: float = float("nan"), phi_k=None) -> list:
+        """Feed one trainer step's signals; returns the events it fired."""
+        evs = []
+        if residual_mass == residual_mass:        # not NaN
+            ev = self._drift("residual", float(residual_mass), step)
+            if ev is not None:
+                evs.append(ev)
+        if perplexity == perplexity:
+            ev = self._drift("ppl", float(perplexity), step)
+            if ev is not None:
+                evs.append(ev)
+        if phi_k is not None:
+            pk = np.asarray(phi_k, np.float64)    # lint: host-f64
+            tot = pk.sum()
+            if tot > 0:
+                shares = pk / tot
+                floor = self.topic_floor_frac / len(pk)
+                alive = shares >= floor
+                if self._alive is not None:
+                    for k in np.flatnonzero(alive & ~self._alive):
+                        evs.append(ShiftEvent(step=step, kind="topic-birth",
+                                              value=float(shares[k]),
+                                              topic=int(k)))
+                    for k in np.flatnonzero(self._alive & ~alive):
+                        evs.append(ShiftEvent(step=step, kind="topic-death",
+                                              value=float(shares[k]),
+                                              topic=int(k)))
+                self._alive = alive
+        if any(ev.kind.endswith("-shift") for ev in evs):
+            self._refresh = True
+        self.events.extend(evs)
+        return evs
+
+    def consume_refresh(self) -> bool:
+        """Latched 'grant extra warm-up sweeps' flag; cleared on read."""
+        out = self._refresh
+        self._refresh = False
+        return out

@@ -7,11 +7,13 @@ the current batch's vocabulary W_s and a hot-word LRU buffer of ``W*`` rows
 are resident.  Because the canonical state is externalised, a crash loses at
 most the current minibatch (§3.2).
 
-This module is numpy-only, like the JAX package's: the store is host I/O,
-and the device sees only the rows a batch fetches.  **The on-disk format
-is the JAX store's, byte for byte** (``store.json`` manifest with its crc,
-``phi_wk.mmap`` backing file, ``store.wal`` commit record), so a store that
-the JAX ``FOEMTrainer`` wrote opens here as it is, and the other way round.
+This module is host code, like the JAX package's: the store is host I/O,
+and the device sees only the rows a batch fetches (torch appears only as
+the CPU container of bf16 snapshot storage, which numpy lacks).  **The
+on-disk format is the JAX store's, byte for byte** (``store.json``
+manifest with its crc, ``phi_wk.mmap`` backing file, ``store.wal`` commit
+record), so a store that the JAX ``FOEMTrainer`` wrote opens here as it
+is, and the other way round.
 
 This slice carries:
 
@@ -21,12 +23,15 @@ This slice carries:
   readonly ``attach`` used by serving processes;
 * :func:`store_from_arrays` — writes a store straight into the memmap in
   row blocks (a full-width φ̂ never goes through a WAL record);
-* :class:`HotRowCache` — the serving-side read-only hot-word row LRU;
+* :class:`PhiSnapshot` / :class:`SnapshotPublisher` — the lifelong
+  train-while-serve publish protocol: immutable, crc-manifested φ
+  versions committed by a WAL flush (crcs equal the JAX package's for one
+  store state);
+* :class:`HotRowCache` — the serving-side read-only hot-word row LRU, with
+  per-version epoch invalidation under the publish protocol;
 * :class:`StreamPrefetcher` — the training pipeline's background row
   fetch, whose items carry the ``write_version`` they are consistent with
   so the trainer can reconcile them against newer write-backs.
-
-The snapshot publisher comes with the lifelong slice.
 """
 from __future__ import annotations
 
@@ -39,9 +44,10 @@ import struct
 import threading
 import time
 import zlib
-from typing import Iterable, Iterator, NamedTuple, Optional, Tuple
+from typing import Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.sparse.minibatch import prefetch_iterator
@@ -183,6 +189,9 @@ class ParameterStore:
         self.stats = StoreStats()
         self.write_version = 0                   # bumps on every write_rows
         self.flush_version = 0                   # bumps on every committed flush
+        # rows written since the last take_changed() — the publish delta a
+        # SnapshotPublisher turns into per-version cache epoch invalidation
+        self._changed = np.zeros((self.capacity,), bool)
         self.faults = faults                     # seeded fault-injection plan
         self.recovered_from_wal = False          # last open replayed a WAL
         self.readonly = bool(readonly)
@@ -344,6 +353,7 @@ class ParameterStore:
         with self._lock:
             ids = np.asarray(word_ids, np.int64)
             rows = np.asarray(rows, self.dtype)
+            self._changed[ids] = True
             if self.buffer_rows > 0:
                 self._insert(ids, rows, dirty=True)
             else:
@@ -614,6 +624,18 @@ class ParameterStore:
                 self.stats.buffer_hits,
             )
 
+    def take_changed(self, reset: bool = True) -> np.ndarray:
+        """Row ids written since the last take — the delta one φ publish
+        covers.  ``SnapshotPublisher.publish`` drains this under the store
+        lock, so per-version cache invalidation drops exactly the rows that
+        changed instead of the whole cache.  Rows written by
+        :func:`store_from_arrays` before the store opened are not in it."""
+        with self._lock:
+            ids = np.flatnonzero(self._changed)
+            if reset:
+                self._changed[ids] = False
+            return ids
+
     def dense_phi(self) -> np.ndarray:
         """Materialise the live (W, K) matrix (tests / small corpora only).
         A writable store flushes first."""
@@ -687,6 +709,214 @@ def store_from_arrays(
 
 
 # ---------------------------------------------------------------------------
+# Versioned φ snapshots — the lifelong train-while-serve publish protocol
+# ---------------------------------------------------------------------------
+
+#: Rows a block of :func:`_host_quantize_rows`: one pass over a whole
+#: (capacity, K) φ at the stream_1k width would make several 5.64 GB
+#: temporaries on the host.
+QUANT_BLOCK_ROWS = 4096
+
+
+def _host_quantize_rows(phi: np.ndarray, phi_dtype: Optional[str]):
+    """Host-side serving storage of a snapshot's φ: ``(values, scale)``.
+
+    * ``"float32"`` (or None): ``phi`` itself, no scale;
+    * ``"bfloat16"``: a CPU ``torch.bfloat16`` tensor, rounded to nearest
+      even (the bits of ``ml_dtypes.bfloat16``); numpy has no bf16, and the
+      JAX package's quiet float32 fallback without ``ml_dtypes`` is not
+      copied — bf16 storage is always bf16;
+    * ``"int8"``: symmetric per-row int8 with ``scale_w = max_k |φ_w(k)| /
+      127`` (1.0 for all-zero rows), the JAX function's float32 arithmetic
+      element for element (``np.round`` rounds half to even), so the
+      values and scales are bitwise the JAX package's.
+
+    Both quantized forms are computed ``QUANT_BLOCK_ROWS`` rows at a time.
+    """
+    if phi_dtype in (None, "float32"):
+        return phi, None
+    n = phi.shape[0]
+    blocks = [(lo, min(lo + QUANT_BLOCK_ROWS, n))
+              for lo in range(0, n, QUANT_BLOCK_ROWS)]
+    if phi_dtype == "bfloat16":
+        out = torch.empty(phi.shape, dtype=torch.bfloat16)
+        for lo, hi in blocks:
+            out[lo:hi] = torch.from_numpy(np.array(phi[lo:hi], np.float32))
+        return out, None
+    if phi_dtype == "int8":
+        q = np.empty(phi.shape, np.int8)
+        scale = np.empty((n,), np.float32)
+        for lo, hi in blocks:
+            blk = phi[lo:hi]
+            amax = np.abs(blk).max(axis=-1)
+            s = np.where(amax > 0, amax / np.float32(127.0),
+                         np.float32(1.0)).astype(np.float32)
+            q[lo:hi] = np.clip(np.round(blk / s[:, None]), -127, 127)
+            scale[lo:hi] = s
+        return q, scale
+    raise ValueError(
+        f"unknown phi_dtype {phi_dtype!r}; expected float32/bfloat16/int8"
+    )
+
+
+class PhiSnapshot:
+    """One immutable, crc-manifested φ version — the publish unit of the
+    lifelong train-while-serve protocol.
+
+    A snapshot owns read-only copies of the full (capacity, K) φ̂ block and
+    the (K,) topic totals as of one committed flush, stamped with the
+    publish ``version`` (the subscriber-facing epoch), the store's
+    ``write_version``/``flush_version`` it captured, and the row ids the
+    publish changed (``changed_ids`` — what per-version cache invalidation
+    drops).  ``crc`` is computed over the copied bytes at publish (φ, then
+    φ(k), then the ``version:step:write_version`` header — the JAX
+    package's manifest, so one store state gives one crc in both);
+    ``verify()`` recomputes it, so a reader holding a torn or mutated φ
+    fails loudly instead of serving garbage.
+
+    Readers *pin* a version by holding the reference: nothing the trainer
+    does after publish can change these arrays, so an in-flight request
+    batch is consistent end to end.  ``quantize`` memoizes the bf16/int8
+    serving storage per dtype — built once per version at hot-swap time,
+    shared by every later launch on this version.
+    """
+
+    def __init__(self, *, version: int, phi: np.ndarray, phi_k: np.ndarray,
+                 step: int, live_vocab: int, write_version: int,
+                 flush_version: int, changed_ids: np.ndarray):
+        phi = np.ascontiguousarray(phi)
+        phi.setflags(write=False)
+        phi_k = np.ascontiguousarray(phi_k)
+        phi_k.setflags(write=False)
+        changed_ids = np.ascontiguousarray(np.asarray(changed_ids, np.int64))
+        changed_ids.setflags(write=False)
+        self.version = int(version)
+        self.phi = phi                 # (capacity, K) read-only
+        self.phi_k = phi_k             # (K,) read-only
+        self.step = int(step)
+        self.live_vocab = int(live_vocab)
+        self.write_version = int(write_version)
+        self.flush_version = int(flush_version)
+        self.changed_ids = changed_ids
+        self.crc = self._crc()
+        self._quant: dict = {}
+        self._quant_lock = threading.Lock()
+
+    @property
+    def K(self) -> int:
+        return self.phi.shape[1]
+
+    def _crc(self) -> int:
+        crc = zlib.crc32(self.phi)
+        crc = zlib.crc32(self.phi_k, crc)
+        header = f"{self.version}:{self.step}:{self.write_version}".encode()
+        return zlib.crc32(header, crc)
+
+    def verify(self) -> bool:
+        """Recompute the manifest crc — a torn/mutated φ fails here."""
+        return self._crc() == self.crc
+
+    def fetch_rows(self, word_ids: np.ndarray) -> np.ndarray:
+        """Gather (len(ids), K) f32 rows — always from THIS version."""
+        return np.asarray(
+            self.phi[np.asarray(word_ids, np.int64)], np.float32
+        )
+
+    def quantize(self, phi_dtype: Optional[str]):
+        """Memoized ``(values, scale)`` serving storage of this version
+        (:func:`_host_quantize_rows`; thread-safe: the first caller
+        builds, everyone else shares)."""
+        key = phi_dtype or "float32"
+        with self._quant_lock:
+            got = self._quant.get(key)
+            if got is None:
+                got = _host_quantize_rows(self.phi, key)
+                self._quant[key] = got
+            return got
+
+
+class SnapshotPublisher:
+    """Versioned φ publish/subscribe over a :class:`ParameterStore`.
+
+    ``publish()`` is the trainer-side commit: under the store lock it
+    drives the WAL-committed ``ParameterStore.flush()`` (the durable commit
+    point — a crash mid-publish recovers to a consistent version), captures
+    an immutable :class:`PhiSnapshot` of the post-flush state (a copy of
+    the whole backing block and its crc, all under the lock), drains the
+    store's changed-row delta, and stamps the next monotonically increasing
+    snapshot version.  The last ``retain`` versions stay referenced so
+    readers pinned to an older epoch finish their in-flight batches before
+    the arrays are dropped; the staleness of any launch is therefore ≤
+    ``retain`` versions by construction.
+
+    Readers never block writers: ``latest()`` is one lock-protected list
+    read, ``wait_for(version)`` parks on a condition until the trainer
+    catches up.  ``publish_log`` keeps one ``{version, step, changed_rows,
+    seconds}`` record per publish.
+    """
+
+    def __init__(self, store: ParameterStore, retain: int = 2):
+        if retain < 1:
+            raise ValueError("retain must be >= 1")
+        self.store = store
+        self.retain = int(retain)
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._snaps: List[PhiSnapshot] = []
+        self.version = 0                  # last published version (0 = none)
+        self.publish_log: List[dict] = []
+
+    def publish(self) -> PhiSnapshot:
+        """Commit the current φ (WAL flush) and publish it as a snapshot."""
+        t0 = time.perf_counter()
+        with self._cond:                      # serialize publishers
+            with self.store._lock:            # atomic wrt trainer writes
+                self.store.flush()            # ---- the COMMIT point ----
+                snap = PhiSnapshot(
+                    version=self.version + 1,
+                    phi=self.store._arr.copy(),
+                    phi_k=self.store.phi_k.copy(),
+                    step=self.store.step,
+                    live_vocab=self.store.live_vocab,
+                    write_version=self.store.write_version,
+                    flush_version=self.store.flush_version,
+                    changed_ids=self.store.take_changed(reset=True),
+                )
+            self.version = snap.version
+            self._snaps.append(snap)
+            del self._snaps[: -self.retain]
+            self.publish_log.append({
+                "version": snap.version,
+                "step": snap.step,
+                "changed_rows": int(len(snap.changed_ids)),
+                "seconds": time.perf_counter() - t0,
+            })
+            self._cond.notify_all()
+        return snap
+
+    def latest(self) -> Optional[PhiSnapshot]:
+        with self._lock:
+            return self._snaps[-1] if self._snaps else None
+
+    def get(self, version: int) -> Optional[PhiSnapshot]:
+        """A still-retained snapshot by version (None once aged out)."""
+        with self._lock:
+            for snap in self._snaps:
+                if snap.version == version:
+                    return snap
+            return None
+
+    def wait_for(self, version: int,
+                 timeout: Optional[float] = None) -> Optional[PhiSnapshot]:
+        """Block until ``version`` (or newer) is published; None on timeout."""
+        with self._cond:
+            ok = self._cond.wait_for(
+                lambda: self.version >= version, timeout=timeout
+            )
+            return self._snaps[-1] if ok else None
+
+
+# ---------------------------------------------------------------------------
 # Serving-side hot-word row cache — read-only LRU above the store
 # ---------------------------------------------------------------------------
 
@@ -697,7 +927,7 @@ class CacheStats:
 
     hits: int = 0            # rows served from the cache
     misses: int = 0          # rows fetched through the store
-    invalidations: int = 0   # whole-cache drops
+    invalidations: int = 0   # epoch installs / whole-cache drops
     rows_dropped: int = 0    # resident rows evicted by invalidation
 
     @property
@@ -715,13 +945,17 @@ class HotRowCache:
 
     * misses fall through with ``store.fetch_rows(..., promote=False)`` so
       a serving miss is cached exactly once (here);
-    * the cache invalidates whole when ``store.write_version`` moves — the
-      frozen-φ serving contract means version changes are rare;
+    * an unpinned cache invalidates whole when ``store.write_version``
+      moves — the frozen-φ serving contract means version changes are rare;
+    * under the lifelong publish protocol the server instead calls
+      ``install_version(v, changed_ids)`` at each hot-swap: only the rows
+      the publish changed are dropped (per-version *epoch* invalidation),
+      so the Zipf head survives a publish; fetches then pass the pinned
+      epoch and the snapshot source, so a straggler launch on an older
+      version bypasses the cache instead of mixing epochs;
     * hit/miss counters are windowed (``window_stats``).
 
-    Rows within one ``fetch`` must be unique.  Per-version epoch
-    invalidation for the lifelong publish protocol comes with the lifelong
-    slice.
+    Rows within one ``fetch`` must be unique.
     """
 
     def __init__(self, store: ParameterStore, capacity: int):
@@ -735,6 +969,7 @@ class HotRowCache:
         self._clock_v = np.zeros((self.capacity,), np.int64)
         self._slot_of = np.full((store.capacity,), -1, np.int64)
         self._clock = 0
+        self._pinned = False             # True once install_version() ran
         self.stats = CacheStats()        # cumulative
         self._window = CacheStats()      # since last window_stats(reset=True)
 
@@ -752,15 +987,58 @@ class HotRowCache:
         self._slot_of.fill(-1)
         self._count(inval=1, rows_dropped=dropped)
 
-    def fetch(self, word_ids: np.ndarray) -> np.ndarray:
-        """Gather φ̂ rows for a request batch's unique vocabulary."""
+    def install_version(self, version: int,
+                        changed_ids: Optional[np.ndarray] = None) -> int:
+        """Pin the cache to a published φ epoch, dropping only the rows the
+        publish changed (``changed_ids=None`` drops everything).  Returns
+        the number of rows dropped.  After the first call the cache stops
+        invalidating on raw ``store.write_version`` movement — the publish
+        protocol owns epoch transitions."""
+        with self._lock:
+            if changed_ids is None:
+                dropped = int((self._ids >= 0).sum())
+                self._ids.fill(-1)
+                self._slot_of.fill(-1)
+            else:
+                ids = np.asarray(changed_ids, np.int64)
+                ids = ids[ids < len(self._slot_of)]
+                slots = self._slot_of[ids]
+                res = slots >= 0
+                dropped = int(res.sum())
+                if dropped:
+                    s = slots[res]
+                    self._slot_of[self._ids[s]] = -1
+                    self._ids[s] = -1
+            self._pinned = True
+            self._version = int(version)
+            self._count(inval=1, rows_dropped=dropped)
+            return dropped
+
+    def fetch(self, word_ids: np.ndarray, source=None,
+              version: Optional[int] = None) -> np.ndarray:
+        """Gather φ̂ rows for a request batch's unique vocabulary.
+
+        ``source`` (anything with ``fetch_rows(ids) -> (n, K) f32``, e.g. a
+        pinned snapshot view) replaces the store as the miss path;
+        ``version`` is the caller's pinned epoch — if it differs from the
+        cache's installed epoch the fetch bypasses the cache entirely (a
+        straggler on an old version must not pollute the new epoch, and
+        must not read rows cached from it)."""
         ids = np.asarray(word_ids, np.int64)
+        if source is not None:
+            fill = source.fetch_rows
+        else:
+            def fill(miss):
+                return self.store.fetch_rows(miss, promote=False)
         if self.capacity == 0:
             with self._lock:
                 self._count(misses=len(ids))
-            return self.store.fetch_rows(ids, promote=False)
+            return fill(ids)
         with self._lock:
-            if self.store.write_version != self._version:
+            if version is not None and int(version) != self._version:
+                self._count(misses=len(ids))
+                return fill(ids)
+            if not self._pinned and self.store.write_version != self._version:
                 self._invalidate()
                 self._version = self.store.write_version
             slots = self._slot_of[ids]
@@ -773,7 +1051,7 @@ class HotRowCache:
                 return out
             miss_idx = np.flatnonzero(~hit)
             miss_ids = ids[miss_idx]
-            rows = self.store.fetch_rows(miss_ids, promote=False)
+            rows = fill(miss_ids)
             if n_hit == 0:
                 out = rows
             else:

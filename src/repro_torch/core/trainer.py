@@ -28,6 +28,14 @@ background thread while the device computes minibatch s, and stage 4's
 write-back is reconciled against in-flight fetches (see
 ``streaming.StreamPrefetcher``): the results are bitwise identical to the
 synchronous loop.
+
+Lifelong train-while-serve (``launch/lifelong.py``): after the write-back
+a step publishes a committed φ snapshot every ``publish_every`` steps
+through a ``streaming.SnapshotPublisher``, and feeds a
+``scheduling.ShiftDetector`` its residual mass, train perplexity and the
+store's new float64 φ(k); a shift the detector latched gives the next step
+``refresh_extra_sweeps`` more warm-up (dense) sweeps.  Both loops publish
+alike, since both go through ``_step_with_rows``.
 """
 from __future__ import annotations
 
@@ -60,6 +68,9 @@ class StepMetrics:
     prefetch_hit: bool = False      # rows were staged before we needed them
     overlap_seconds: float = 0.0    # host I/O hidden behind device compute
     residual_mass: float = float("nan")  # eq. 36 Σ r_w at sweep exit
+    published_version: int = -1     # φ snapshot published at this step (-1: none)
+    shift_events: Tuple = ()        # ShiftEvents the detector fired this step
+    scheduler_refresh: bool = False  # step ran with extra warm-up sweeps
     # host seconds of the step's three stages: the row fetch (the queue
     # wait when prefetched), the device compute (host→device copies, the
     # inner loop, device→host copies) and the store write-back
@@ -77,9 +88,13 @@ class FOEMTrainer:
     seeded with ``seed``.  ``mu0_fn(minibatch)``, when given, supplies each
     step's (D, L, K) μ₀ instead (the cross-package tests pass the JAX
     package's).  ``algorithm`` is ``"foem"`` or ``"sem"`` (SEM's steps
-    report ``residual_mass`` NaN: it has no residual scheduler).  The
-    snapshot publisher, the topic-shift detector and its refresh sweeps
-    come with the lifelong slice.
+    report ``residual_mass`` NaN: it has no residual scheduler).
+
+    Lifelong knobs: ``publisher`` (a ``SnapshotPublisher``) publishes a
+    committed snapshot after every ``publish_every``-th step;
+    ``shift_detector`` (a ``ShiftDetector``) is fed each step's signals,
+    and a shift it latched runs the next step with ``warmup_sweeps +
+    refresh_extra_sweeps`` warm-up sweeps (at most ``max_sweeps``).
     """
 
     def __init__(
@@ -94,6 +109,10 @@ class FOEMTrainer:
         faults: Optional[fault_lib.FaultPlan] = None,
         mu0_fn: Optional[Callable[[Minibatch], np.ndarray]] = None,
         device: Device = "cuda",
+        publisher=None,             # streaming.SnapshotPublisher | None
+        publish_every: int = 0,     # publish a φ snapshot every N steps
+        shift_detector=None,        # scheduling.ShiftDetector | None
+        refresh_extra_sweeps: int = 2,  # extra warm-ups on a detected shift
     ):
         if store.K != cfg.K:
             raise ValueError("store/config topic count mismatch")
@@ -110,6 +129,10 @@ class FOEMTrainer:
         self.prefetch_depth = int(prefetch_depth)
         self.faults = faults
         self.mu0_fn = mu0_fn
+        self.publisher = publisher
+        self.publish_every = int(publish_every)
+        self.shift_detector = shift_detector
+        self.refresh_extra_sweeps = int(refresh_extra_sweeps)
         # steps whose contribution a seeded "drop" fault discarded — the
         # re-issue queue a driver replays through MinibatchStream
         self.dropped_steps: List[int] = []
@@ -143,7 +166,6 @@ class FOEMTrainer:
         reconciliation log.  ``t0`` is when the step's host I/O started, so
         ``StepMetrics.seconds`` covers fetch + compute + write-back.
         """
-        cfg = self.cfg
         if t0 is None:
             t0 = time.perf_counter()
         # pre-probe: a "kill" raises before any state is touched; a "drop"
@@ -165,6 +187,16 @@ class FOEMTrainer:
                                                      np.float32)).to(dev)
         phi_k = torch.from_numpy(self.store.phi_k.astype(np.float32)).to(dev)
         mu0 = self.mu0_fn(mb) if self.mu0_fn is not None else None
+        refresh = (
+            self.shift_detector.consume_refresh()
+            if self.shift_detector is not None else False
+        )
+        cfg = self.cfg
+        if refresh:
+            # a detected shift grants extra full (unscheduled) warm-up
+            # sweeps — the Fig. 4 residual re-initialisation mid-stream
+            cfg = dataclasses.replace(cfg, warmup_sweeps=min(
+                cfg.max_sweeps, cfg.warmup_sweeps + self.refresh_extra_sweeps))
         live_w = max(self.store.live_vocab, cfg.W)
         if self.algorithm == "sem":
             stats = GlobalStats(rows, phi_k,
@@ -211,6 +243,20 @@ class FOEMTrainer:
             self.store.flush()
         writeback = time.perf_counter() - tw
 
+        # --- lifelong: publish a committed φ snapshot on the cadence ---
+        published = -1
+        if (self.publisher is not None and self.publish_every
+                and self.store.step % self.publish_every == 0):
+            published = self.publisher.publish().version
+
+        # --- topic-shift detection over this step's stream signals ---
+        events: Tuple = ()
+        if self.shift_detector is not None:
+            events = tuple(self.shift_detector.update(
+                step=self.store.step, residual_mass=res_mass,
+                perplexity=ppl, phi_k=new_phi_k,
+            ))
+
         base = self._stats_base
         self._stats_base = self.store.bump_pipeline_stats(
             overlap_seconds=overlap_seconds, prefetch_hit=prefetch_hit
@@ -226,6 +272,9 @@ class FOEMTrainer:
             prefetch_hit=prefetch_hit,
             overlap_seconds=overlap_seconds,
             residual_mass=res_mass,
+            published_version=published,
+            shift_events=events,
+            scheduler_refresh=refresh,
             fetch_seconds=fetch_seconds,
             compute_seconds=compute,
             writeback_seconds=writeback,

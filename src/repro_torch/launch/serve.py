@@ -23,7 +23,12 @@ whose chunks run the hand-written Hopper kernel on the card.
                           document_theta0 (a seed per document) →
                           TopicServer.infer
 
-Lifelong hot-swap and replicas come with later slices.
+Lifelong train-while-serve (``launch/lifelong.py``): a server subscribed to
+a ``SnapshotPublisher`` (``TopicServer.subscribe``) serves committed φ
+snapshot versions instead of the live store; the engine's launcher
+hot-swaps to the newest one between launches (``TopicServer.refresh``), so
+every launch reads one pinned epoch and every θ comes back stamped with
+its version (``ThetaResult.version``).  Replicas come with a later slice.
 
 Run the CLI on a GPU host with
 ``PYTHONPATH=src python -m repro_torch.launch.serve --workdir DIR --topics K
@@ -49,6 +54,8 @@ from repro_torch.core.perplexity import init_theta, serving_active_topics
 from repro_torch.core.streaming import (
     HotRowCache,
     ParameterStore,
+    PhiSnapshot,
+    SnapshotPublisher,
     store_from_arrays,
 )
 from repro_torch.core.types import (
@@ -68,9 +75,10 @@ def _round_up(n: int, multiple: int) -> int:
 
 
 class ThetaResult(np.ndarray):
-    """A (K,) θ mixture stamped with the φ version that produced it (−1
-    when serving straight from the store).  Behaves exactly like the plain
-    ndarray; the version tag rides along as an attribute."""
+    """A (K,) θ mixture stamped with the committed φ snapshot version that
+    produced it (−1 when serving straight from the store, i.e. not
+    subscribed to a publisher).  Behaves exactly like the plain ndarray;
+    the version tag rides along as an attribute."""
 
     version: int = -1
 
@@ -79,6 +87,57 @@ class ThetaResult(np.ndarray):
         out = np.asarray(theta).view(ThetaResult)
         out.version = int(version)
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _ServingVersion:
+    """One pinned, immutable φ epoch the server launches against.
+
+    Holds the snapshot plus its (possibly quantized) serving storage —
+    built once at hot-swap (``TopicServer.refresh``) and shared by every
+    launch on this version.  In-flight launches keep their reference, so a
+    concurrent swap never tears a batch: rows and ``phi_k`` always come
+    from the same epoch.
+    """
+
+    snapshot: PhiSnapshot
+    version: int
+    phi_k: np.ndarray                  # (K,) float32
+    values: object                     # (capacity, K) f32 / int8 ndarray, or
+                                       # a CPU torch.bfloat16 tensor
+    scale: Optional[np.ndarray]        # (capacity,) f32 int8 scales, or None
+
+    def fetch_rows(self, word_ids: np.ndarray) -> np.ndarray:
+        """Dequantized f32 rows of THIS version (never the live store)."""
+        ids = np.asarray(word_ids, np.int64)
+        if isinstance(self.values, torch.Tensor):        # bf16 storage
+            rows = self.values[torch.from_numpy(ids)].float().numpy()
+        else:
+            rows = np.asarray(self.values[ids], np.float32)
+        if self.scale is not None:
+            rows = rows * self.scale[ids][:, None]
+        return rows
+
+
+def _changed_since(pub: SnapshotPublisher, cur: Optional[_ServingVersion],
+                   snap: PhiSnapshot) -> Optional[np.ndarray]:
+    """Rows that differ between the pinned epoch ``cur`` and ``snap``: the
+    ids the hot-row cache must drop when the server swaps.
+
+    ``snap``'s own delta when it is the next version; the union of every
+    delta since ``cur`` when the launcher skipped versions; ``None`` (drop
+    everything) on the first swap, whose cache rows came from the store,
+    or when a skipped version has aged out of the publisher.  (The JAX
+    package drops only ``snap``'s delta, so after a skipped version its
+    cache can serve a row that version changed from the older epoch.)
+    """
+    if cur is None:
+        return None
+    deltas = [pub.get(v) for v in range(cur.version + 1, snap.version)]
+    if any(d is None for d in deltas):
+        return None
+    return np.unique(np.concatenate(
+        [d.changed_ids for d in deltas] + [snap.changed_ids]))
 
 
 def _infer_local(word_ids, counts, ev_counts, rows, phi_k, cfg: LDAConfig,
@@ -135,6 +194,11 @@ class TopicServer:
     ``vocab_pad`` rounds W_s up so batches share shapes.  ``device``
     defaults to ``"cuda"`` and raises without a GPU; ``device="cpu"`` runs
     the plain PyTorch path.
+
+    Lifelong mode: after ``subscribe(publisher)`` the server reads
+    committed φ snapshots only, never the store; ``refresh()`` hot-swaps to
+    the newest version (``swap_log`` keeps one record a swap) and
+    ``last_version`` is the version the last call used.
     """
 
     def __init__(self, store: ParameterStore, cfg: LDAConfig,
@@ -165,17 +229,89 @@ class TopicServer:
         # host seconds of the last call: row fetch (store/cache + W_s
         # padding) and fit (host→device copy, eq. 10, ops.infer, θ back)
         self.last_seconds = {"fetch": 0.0, "fit": 0.0}
+        # --- lifelong publish/subscribe state ---
+        self._publisher: Optional[SnapshotPublisher] = None
+        self._active: Optional[_ServingVersion] = None   # pinned epoch
+        self.swap_log: List[dict] = []       # one record per hot-swap
+        self.last_version = -1               # version the last launch used
 
-    def _fetch_rows(self, uniq: np.ndarray) -> np.ndarray:
+    # -------------------------------------------------- lifelong hot-swap
+
+    def subscribe(self, publisher: SnapshotPublisher,
+                  refresh: bool = True) -> None:
+        """Serve committed φ snapshot versions from ``publisher`` instead
+        of the live store — the lifelong train-while-serve mode.  Once
+        subscribed, launches never read store rows again: a concurrent
+        trainer can write freely and the server only moves at
+        ``refresh()`` (called between launches by the engine)."""
+        self._publisher = publisher
+        if refresh:
+            self.refresh()
+
+    def refresh(self) -> bool:
+        """Hot-swap to the newest published version, if any.  Verifies the
+        snapshot's crc manifest, (re)builds the quantized serving storage,
+        installs the new epoch in the hot-row cache (dropping only the rows
+        the publish changed), and atomically replaces the pinned epoch.  In
+        flight launches finish on the old version they captured.  Returns
+        True iff a swap happened; raises on a snapshot that fails its crc."""
+        pub = self._publisher
+        if pub is None:
+            return False
+        snap = pub.latest()
+        if snap is None:
+            return False
+        cur = self._active
+        if cur is not None and cur.version == snap.version:
+            return False
+        t0 = time.perf_counter()
+        if not snap.verify():
+            raise RuntimeError(
+                f"φ snapshot v{snap.version} fails its crc manifest — "
+                "torn or mutated publish; refusing to swap"
+            )
+        values, scale = snap.quantize(self.phi_dtype)   # re-quantize on swap
         if self.hot_cache is not None:
+            self.hot_cache.install_version(
+                snap.version, changed_ids=_changed_since(pub, cur, snap)
+            )
+        sv = _ServingVersion(
+            snapshot=snap,
+            version=snap.version,
+            phi_k=np.asarray(snap.phi_k, np.float32),
+            values=values,
+            scale=scale,
+        )
+        self._active = sv                    # the atomic swap point
+        self.swap_log.append({
+            "version": snap.version,
+            "seconds": time.perf_counter() - t0,
+            "changed_rows": int(len(snap.changed_ids)),
+        })
+        return True
+
+    # ------------------------------------------------------------ inference
+
+    def _fetch_rows(self, uniq: np.ndarray,
+                    active: Optional[_ServingVersion] = None) -> np.ndarray:
+        if self.hot_cache is not None:
+            if active is not None:
+                return self.hot_cache.fetch(
+                    uniq, source=active, version=active.version
+                )
             return self.hot_cache.fetch(uniq)
+        if active is not None:
+            return active.fetch_rows(uniq)
         return self.store.fetch_rows(uniq)
 
     def _run(self, word_ids: np.ndarray, counts: np.ndarray,
              ev_counts: Optional[np.ndarray], seed: int, theta0):
         t0 = time.perf_counter()
+        # pin ONE epoch for the whole launch: rows and phi_k below both come
+        # from `active`, so a concurrent refresh() can never tear the batch
+        active = self._active
         uniq, local = localize_vocab(np.asarray(word_ids))
-        rows = self._fetch_rows(uniq)                      # streamed φ̂
+        rows = self._fetch_rows(uniq, active)              # streamed φ̂
         # pad the local vocab to a bucket boundary so batches share shapes
         # (padded rows are never indexed by `local`)
         pad = _round_up(len(uniq), self.vocab_pad) - len(uniq)
@@ -185,7 +321,9 @@ class TopicServer:
             )
         t1 = time.perf_counter()
         theta, sweeps, ev_ll = _infer_local(
-            local, counts, ev_counts, rows, self.store.phi_k, self.cfg,
+            local, counts, ev_counts, rows,
+            active.phi_k if active is not None else self.store.phi_k,
+            self.cfg,
             fit_sweeps=self.fit_sweeps, check_every=self.check_every,
             rel_tol=self.rel_tol, active_topics=self.active_topics,
             phi_dtype=self.phi_dtype, seed=seed, theta0=theta0,
@@ -193,6 +331,7 @@ class TopicServer:
         )
         theta = theta.cpu().numpy()          # waits for the device
         self.last_sweeps = int(sweeps)
+        self.last_version = active.version if active is not None else -1
         self.last_seconds = {"fetch": t1 - t0,
                              "fit": time.perf_counter() - t1}
         return theta, ev_ll
@@ -490,6 +629,16 @@ class AdmissionRouter:
             "cache_hits": int(sum(b["cache_hits"] for b in log)),
             "cache_misses": int(sum(b["cache_misses"] for b in log)),
         }
+        # staleness actually observed: how many committed versions behind
+        # the newest publish each launch served (lifelong mode only)
+        stale = [
+            b["published_version"] - b["version"]
+            for b in log
+            if b.get("version", -1) >= 0
+            and b.get("published_version", -1) >= 0
+        ]
+        if stale:
+            out["max_staleness_versions"] = int(max(stale))
         if lats.size:
             out.update(
                 p50_ms=float(np.percentile(lats, 50) * 1e3),
@@ -571,9 +720,15 @@ class ServingEngine:
     collector packed it into — continuous batching is semantically
     invisible (bitwise, under ``rel_tol=0``: the θ-sweep keeps documents
     independent of their batch-mates).  ``prewarm()`` runs one launch per
-    L bucket up front (:func:`prewarm_server`).  Every ``batch_log`` entry
-    records ``version = -1``: φ̂ is served straight from the store (the
-    lifelong hot-swap is not ported yet).
+    L bucket up front (:func:`prewarm_server`).
+
+    Before each launch the launcher calls ``server.refresh()``: a
+    subscribed server hot-swaps to the newest committed φ version between
+    launches, never during one (a snapshot that fails its crc fails that
+    bucket's futures).  Every ``batch_log`` entry records the ``version``
+    the launch served and the publisher's ``published_version`` after it
+    (both −1 when the server reads the store), and every θ resolves as a
+    ``ThetaResult`` stamped with its version.
     """
 
     def __init__(self, server: TopicServer, *,
@@ -642,6 +797,10 @@ class ServingEngine:
                     return
                 L, reqs = item
                 try:
+                    # hot-swap point: the launcher is the only thread that
+                    # launches, so swapping BETWEEN launches means no
+                    # launch ever straddles two versions
+                    self.server.refresh()
                     self._launch(L, reqs)
                 except Exception as e:   # resolve, never hang the callers
                     self.router.fail_batch(reqs, e)
@@ -653,6 +812,8 @@ class ServingEngine:
                                  device=self.server.device)
         theta = self.server.infer(w, c, theta0=theta0)
         t1 = time.perf_counter()
+        version = self.server.last_version
+        pub = self.server._publisher
         cache = self.server.hot_cache
         cw = cache.window_stats() if cache is not None else None
         rec = {
@@ -663,9 +824,12 @@ class ServingEngine:
             "sweeps": self.server.last_sweeps,
             "cache_hits": cw.hits if cw else 0,
             "cache_misses": cw.misses if cw else 0,
-            "version": -1,
+            # staleness audit trail: the version this launch served vs the
+            # newest committed version at launch end
+            "version": version,
+            "published_version": pub.version if pub is not None else -1,
         }
-        self.router.resolve_batch(reqs, theta, -1, rec)
+        self.router.resolve_batch(reqs, theta, version, rec)
 
     # -------------------------------------------------------------- plumbing
 

@@ -58,6 +58,12 @@ version on every kernel path; OVB, SCVB and OGS steps on the card agree
 with the CPU (OGS's sampled topics bit for bit) and repeat bitwise; the
 serving engine's documents on the card equal bitwise the same documents in
 another packing, and alone.
+
+The lifelong path on the card: a trainer publishing snapshots while the
+engine serves from them gives the same store bits and snapshot crcs as the
+same training without traffic; a latched refresh step launches
+``gs_sweep`` ``refresh_extra_sweeps`` more times than a plain step; an
+int8-subscribed server's θ is within 0.05 of the f32 server's.
 """
 import numpy as np
 import pytest
@@ -1425,3 +1431,139 @@ def test_engine_slot_invariance_on_card(cuda, tmp_path):
     alone = srv.infer(wa, ca, theta0=document_theta0(sa, ca, srv.cfg,
                                                      device=cuda))
     assert np.array_equal(alone[9], direct[3])
+
+
+# ---------------------------------------------------------------------------
+# Lifelong train-while-serve
+# ---------------------------------------------------------------------------
+
+def _lifelong_store(path, K, W, seed=7):
+    from repro_torch.core import ParameterStore
+
+    rng = np.random.default_rng(seed)
+    phi = rng.gamma(1.0, 1.0, (W, K)).astype(np.float32) * 1e3
+    store = ParameterStore(str(path), num_topics=K, vocab_capacity=W + 16,
+                           buffer_rows=16)
+    store.write_rows(np.arange(W), phi)
+    store.phi_k[:] = phi.sum(0, dtype=np.float64)
+    store.ensure_vocab(W - 1)
+    return store
+
+
+def test_lifelong_training_bitwise_under_traffic_on_card(cuda, tmp_path):
+    """Training on the card while the engine serves every committed
+    version gives the store bits and snapshot crcs of the same training
+    without traffic; every θ carries a committed version."""
+    import threading
+
+    from repro_torch.core import FOEMTrainer, SnapshotPublisher
+    from repro_torch.data import synthetic_lda_corpus
+    from repro_torch.launch.serve import (
+        ServingEngine, TopicServer, TrafficGenerator,
+    )
+    from repro_torch.sparse import MinibatchStream
+
+    K, W = 64, 300
+    corpus, _ = synthetic_lda_corpus(200, W, 8, mean_doc_len=24, seed=2)
+    cfg = LDAConfig(num_topics=K, vocab_size=W, max_sweeps=8,
+                    active_topics=4)
+    runs = []
+    for traffic in (True, False):
+        store = _lifelong_store(tmp_path / f"t{traffic}", K, W)
+        pub = SnapshotPublisher(store, retain=2)
+        crcs = {pub.publish().version: pub.latest().crc}
+        tr = FOEMTrainer(cfg, store, seed=5, publisher=pub, publish_every=2,
+                         device=cuda)
+        stream = iter(MinibatchStream(corpus, 50, seed=1, epochs=None))
+        got = []
+        if traffic:
+            srv = TopicServer(store, cfg, fit_sweeps=8, rel_tol=0.0,
+                              check_every=8, vocab_pad=64, hot_rows=64,
+                              device=cuda)
+            srv.subscribe(pub)
+            errors = []
+
+            def train():
+                try:
+                    with torch.cuda.device(cuda):
+                        tr.fit_stream(stream, max_steps=6, callback=lambda m:
+                                      crcs.update({m.published_version:
+                                                   pub.latest().crc}))
+                except BaseException as e:
+                    errors.append(e)
+
+            trace = TrafficGenerator(W, doc_len=(4, 14), seed=9).trace(
+                [(500.0, 80)])
+            with ServingEngine(srv, max_batch=8, max_delay_ms=2.0,
+                               max_len=16) as eng:
+                th = threading.Thread(target=train)
+                th.start()
+                while th.is_alive():
+                    got += [f.result(timeout=120) for f in
+                            TrafficGenerator.replay(trace, eng.submit,
+                                                    pace=False)]
+                th.join(timeout=120)
+                assert not th.is_alive() and not errors, errors
+            committed = {r["version"] for r in pub.publish_log}
+            assert got and all(t.version in committed for t in got)
+        else:
+            tr.fit_stream(stream, max_steps=6, callback=lambda m: crcs.update(
+                {m.published_version: pub.latest().crc}))
+        crcs.pop(-1, None)
+        runs.append((store.dense_phi().copy(), store.phi_k.copy(), crcs))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+    assert runs[0][2] == runs[1][2] and sorted(runs[0][2]) == [1, 2, 3, 4]
+
+
+def test_lifelong_refresh_step_launches_extra_dense_sweeps(cuda, tmp_path):
+    """A step after a latched shift runs ``refresh_extra_sweeps`` more
+    ``gs_sweep`` launches than the same step without it."""
+    from repro_torch.core import FOEMTrainer, ShiftDetector
+    from repro_torch.data import synthetic_lda_corpus
+    from repro_torch.sparse import MinibatchStream
+
+    K, W = 64, 300
+    corpus, _ = synthetic_lda_corpus(100, W, 8, mean_doc_len=24, seed=3)
+    cfg = LDAConfig(num_topics=K, vocab_size=W, max_sweeps=10,
+                    active_topics=4)
+    mb = next(iter(MinibatchStream(corpus, 50, seed=0)))
+    counts = {}
+    for refresh in (False, True):
+        det = ShiftDetector(warmup=1)
+        if refresh:
+            det.update(step=0, residual_mass=1.0)
+            det.update(step=1, residual_mass=2.0)    # fires: latched
+        store = _lifelong_store(tmp_path / f"r{refresh}", K, W)
+        tr = FOEMTrainer(cfg, store, seed=0, shift_detector=det,
+                         refresh_extra_sweeps=3, device=cuda)
+        before = gs_sweep.launches
+        m = tr.step(mb)
+        counts[refresh] = gs_sweep.launches - before
+        assert m.scheduler_refresh is refresh
+    assert counts[False] == cfg.warmup_sweeps
+    assert counts[True] == counts[False] + 3
+
+
+def test_lifelong_int8_server_close_to_f32_on_card(cuda, tmp_path):
+    from repro_torch.core import SnapshotPublisher
+    from repro_torch.launch.serve import TopicServer
+
+    K, W = 1000, 500
+    store = _lifelong_store(tmp_path / "q", K, W)
+    pub = SnapshotPublisher(store)
+    pub.publish()
+    rng = np.random.default_rng(3)
+    w = rng.integers(0, W, (64, 48)).astype(np.int32)
+    c = rng.integers(1, 4, (64, 48)).astype(np.float32)
+    out = {}
+    for dtype in ("float32", "int8"):
+        srv = TopicServer(store, LDAConfig(num_topics=K, vocab_size=W),
+                          fit_sweeps=20, rel_tol=0.0, check_every=10,
+                          vocab_pad=64, phi_dtype=dtype, hot_rows=128,
+                          device=cuda)
+        srv.subscribe(pub)
+        out[dtype] = srv.infer(w, c)
+        assert srv.last_version == 1
+    assert np.isfinite(out["int8"]).all()
+    assert np.abs(out["float32"] - out["int8"]).max() < 0.05

@@ -9,7 +9,9 @@
   the train CLI), the sharded step's meshes (``make_host_mesh``,
   ``spawn_mesh``), the LM's serving path (``LM``, ``build``,
   ``params_from_jax``), the baselines (``ovb_step``, ``scvb_step``,
-  ``ogs_step``) and the serving engine's θ̂₀ draw and ``--traffic`` CLI —
+  ``ogs_step``), the serving engine's θ̂₀ draw and ``--traffic`` CLI, and
+  the lifelong entry points (``run_lifelong``, its CLI, the subscribed
+  server) —
   default to ``device="cuda"`` and raise on a host
   without a GPU instead of falling back to the CPU (SEM's and the
   coarse-block trainer's: ``tests/test_torch_blocked.py``).
@@ -302,3 +304,56 @@ def test_baselines_and_engine_entry_points_default_to_the_gpu(tmp_path):
         serve.main(["--workdir", str(tmp_path / "cli"), "--topics", "4",
                     "--vocab", "8", "--make-store", "--traffic",
                     "--requests", "4"])
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.launch.lifelong",
+    "repro_torch.core.scheduling",
+    "repro_torch.core.streaming",
+])
+def test_lifelong_modules_stand_alone(name):
+    """The lifelong slice's modules import without JAX, and the kernels its
+    path runs are among the build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.kernels import build\n"
+        "for k in ('theta_sweep', 'gs_sweep', 'scheduled_sweep'):\n"
+        "    assert k in build.KERNELS and (build.CSRC / f'{k}.cu').exists()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_lifelong_entry_points_default_to_the_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core import (
+        FOEMTrainer, LDAConfig, ParameterStore, SnapshotPublisher,
+    )
+    from repro_torch.launch import lifelong, serve
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lifelong.run_lifelong(workdir=str(tmp_path / "run"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lifelong.main(["--quick", "--workdir", str(tmp_path / "cli")])
+    assert not (tmp_path / "run").exists()        # raised before any I/O
+    assert not (tmp_path / "cli").exists()
+    store = ParameterStore(str(tmp_path / "s"), num_topics=4,
+                           vocab_capacity=8)
+    pub = SnapshotPublisher(store)
+    cfg = LDAConfig(num_topics=4, vocab_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FOEMTrainer(cfg, store, publisher=pub, publish_every=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.TopicServer(store, cfg)
+    # the explicit CPU choice serves the committed snapshot
+    pub.publish()
+    srv = serve.TopicServer(store, cfg, device="cpu")
+    srv.subscribe(pub)
+    srv.infer(np.zeros((1, 2), np.int32), np.ones((1, 2), np.float32))
+    assert srv.last_version == 1

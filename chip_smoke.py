@@ -27,7 +27,17 @@ order:
    ``theta_sweep`` launches, every θ row summing to 1), the per-document
    θ̂₀ draw of a full batch timed alone, and 32 documents of a
    ``rel_tol=0`` engine equal bitwise to the same documents in another
-   packing through ``TopicServer.infer``;
+   packing through ``TopicServer.infer``; then the multi-replica
+   ``ReplicaPool`` with the engine's settings, ``rel_tol=0``, over 2 worker
+   processes on the card that attach the store READONLY: the same 1,024
+   requests unpaced, then again with replica 0 SIGKILLed before its second
+   launch (every θ bitwise the clean run's, one death, one respawn, back to
+   2 replicas), on that pool a publish of the store (v1, 5.64 GB) broadcast
+   to both workers and 256 requests served on version 1, then a
+   thread-backend pool over 256 of the documents, bitwise the clean run's
+   (``replica pool`` lines: documents/s, p50/p99, dispatch per replica,
+   spawn-to-ready and respawn seconds, swap-ack seconds a replica, peak
+   RSS of the process tree, the workers' ``theta_sweep`` launches);
 3. holds the two training sweep kernels (``gs_sweep``, ``scheduled_sweep``)
    against their plain versions at the ``stream_1k`` training shapes (one
    bucketed 1,024 × 128 minibatch, K = 10,000, A = 16), with and without
@@ -39,7 +49,15 @@ order:
 4. drives the training path — ``FOEMTrainer(device="cuda")`` for three
    minibatches of ``lda_config(stream_1k)`` on the same store, then one
    more step under ``torch.profiler`` — and serves a batch from the
-   trained store;
+   trained store; then the elastic runtime, ``ElasticFOEMRuntime`` over 2
+   shards with dense φ̂ (5.64 GB) on the card, on the first 4 of those
+   minibatches: a clean run, a post-fold drop (re-queued), a pre-probe
+   kill followed by a 5.64 GB checkpoint, the shard's removal, a restore
+   into a fresh runtime through the recovery scan and the resumed rounds,
+   and a kill inside a second save that leaves LATEST on the first
+   (``elastic`` lines: seconds a round, Σφ̂(k) against the tokens, the
+   clean run's and the rows', save and restore GB/s, ``gs_sweep`` /
+   ``scheduled_sweep`` launches);
 5. holds the two kernels of the topic-sharded sweep (``sharded_probe``,
    ``sharded_fold``) against their plain versions at one rank's share of
    the stream_1k width (K/mp = 2,500 of K = 10,000 lanes, all W = 141,043
@@ -126,6 +144,7 @@ and prints no result.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -192,6 +211,18 @@ PRIOR_MS_ESTEP = {"blocked, with residual": 2.30, "blocked": 1.68,
 # The serving engine phase: 1,024 Zipf requests into 256-document launches
 # with a 5 ms flush deadline.
 ENGINE_REQUESTS, ENGINE_BATCH, ENGINE_DELAY_MS = 1024, 256, 5.0
+# The replica pool phase: the engine phase's settings over 2 worker
+# processes on the card; requests served on version 1 after the swap, and
+# documents through the thread backend.
+POOL_REPLICAS, POOL_SWAP_REQUESTS, POOL_THREAD_DOCS = 2, 256, 256
+# Host memory the pool phase's guard asks for, in φ copies (+ 8 GiB): its
+# process tree peaked at 11.1 copies resident on an H100 host.
+POOL_SWAP_PHI_COPIES = 12
+# The elastic phase: the training phase's first 4 minibatches over 2 shards.
+ELASTIC_MINIBATCHES = 4
+ELASTIC_MASS_RTOL = 1e-4    # Σφ̂(k) against the minibatches' tokens: each
+# μ row sums to 1 within a few float32 ulps over K = 1e4 lanes, and the
+# rows' deltas are float32 running totals (as STEP_MASS_RTOL)
 LIFELONG_STEPS = 4          # training minibatches of the lifelong phase
 LIFELONG_PUBLISH_EVERY = 2  # v1 before training, then v2 and v3
 LIFELONG_RETAIN = 2         # snapshots the publisher keeps
@@ -772,6 +803,180 @@ def serving_engine_phase(torch, store, report):
     report["serving_engine"] = dict(rec, runs=runs)
 
 
+def replica_pool_phase(torch, store, store_dir, report):
+    """The multi-replica pool at the stream_1k width on the flushed store,
+    each worker attaching it READONLY: ReplicaPool(process backend,
+    POOL_REPLICAS replicas on the card, the engine phase's 256-document
+    launches, 16-token buckets up to 256, a 5 ms deadline, rel_tol = 0,
+    fit_sweeps 50).  A clean run of the engine phase's 1,024 Zipf(1.1)
+    requests (seed 31) unpaced; the same trace with replica 0 SIGKILLed
+    before its second launch (every θ bitwise the clean run's, one death,
+    one respawn, back to POOL_REPLICAS); on that pool a publish of the
+    store (v1) broadcast to every replica, then POOL_SWAP_REQUESTS requests
+    that must all carry version 1; then a thread-backend pool over the
+    first POOL_THREAD_DOCS documents, bitwise the clean run's."""
+    import numpy as np
+
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.core import SnapshotPublisher
+    from repro_torch.kernels.theta_sweep import theta_sweep
+    from repro_torch.launch.replica import ReplicaPool, ReplicaSpec
+    from repro_torch.launch.serve import TrafficGenerator
+    from repro_torch.runtime.faults import REPLICA_KILL, FaultSpec
+
+    t_phase = time.perf_counter()
+    cfg = lda_config(lda_shape("stream_1k"))
+    cap = store.capacity
+    phi_bytes = cap * K_FULL * 4
+    # the publisher's copy, one pickled payload a replica in the parent's
+    # queue feeders, and a worker's received bytes and unpickled copy are
+    # 7 φ copies at 2 replicas; the phase's process tree was measured at
+    # 62.7 GB resident (11.1 copies, shared pages counted in each process),
+    # so the guard asks for POOL_SWAP_PHI_COPIES and 8 GiB, and the run
+    # checks that the host memory the phase took stayed inside it
+    need = POOL_SWAP_PHI_COPIES * phi_bytes + (8 << 30)
+    avail = host_mem_available()
+    print(f"replica pool host memory: MemAvailable {avail} bytes, need "
+          f"{need} ({POOL_SWAP_PHI_COPIES} φ copies of {phi_bytes})")
+    check(avail >= need, f"replica pool: {avail} bytes of host memory "
+          f"available, {need} needed for the swap at the stream_1k width")
+    traffic = TrafficGenerator(vocab_size=cap, doc_len=DOC_LEN, seed=31)
+    docs = [traffic.document() for _ in range(ENGINE_REQUESTS)]
+    spec = ReplicaSpec(store_path=str(store_dir), cfg=cfg,
+                       vocab_capacity=cap, fit_sweeps=50, rel_tol=0.0,
+                       device="cuda")
+    kw = dict(replicas=POOL_REPLICAS, max_batch=ENGINE_BATCH,
+              bucket_multiple=16, max_len=DOC_LEN[1],
+              max_delay_ms=ENGINE_DELAY_MS)
+    runs, launches = {}, 0
+
+    def serve(pool, name, batch_docs):
+        pool.metrics(reset=True)
+        t0 = time.perf_counter()
+        futs = [pool.submit(w, c) for w, c in batch_docs]
+        got = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        pool.drain()
+        m = pool.metrics(reset=True)
+        thetas = np.stack(got)
+        check(thetas.shape == (len(batch_docs), K_FULL)
+              and np.isfinite(thetas).all(),
+              f"pool {name}: θ has the wrong shape or is not finite")
+        row_err = float(np.abs(thetas.sum(1, dtype=np.float64) - 1.0).max())
+        check(row_err <= 1e-5, f"pool {name}: a θ row sums to 1 ± {row_err}")
+        check(m["requests"] == len(batch_docs) and m["failed_batches"] == 0,
+              f"pool {name}: {m}")
+        rec = {"requests": len(batch_docs), "wall_s": wall,
+               "docs_per_s": len(batch_docs) / wall, "p50_ms": m["p50_ms"],
+               "p99_ms": m["p99_ms"], "batches": m["batches"],
+               "mean_fill": m["mean_fill"], "dispatch": m["dispatch"],
+               "theta_sweep_launches": m["theta_sweep_launches"],
+               "max_row_sum_error": row_err}
+        runs[name] = rec
+        return got, [r.version for r in got], rec
+
+    def ready_record(pool):
+        return {"spawn_to_ready_s": [r["seconds"] for r in pool.ready_log
+                                     if not r["respawn"]],
+                "respawn_s": [r["seconds"] for r in pool.ready_log
+                              if r["respawn"]]}
+
+    # 1. clean run
+    with ReplicaPool(spec, backend="process", **kw) as pool:
+        pool.wait_ready(600)
+        warm = pool.prewarm()
+        clean, _, rec = serve(pool, "clean", docs)
+        rec.update(ready_record(pool), prewarmed_replicas=warm)
+        check(pool.metrics()["deaths"] == 0, "pool clean: a worker died")
+    launches += rec["theta_sweep_launches"] or 0
+    print("replica pool (clean) " + json.dumps(rec))
+
+    # 2. the same trace, replica 0 SIGKILLed before its second launch; 4.
+    # then a publish broadcast to the pool and traffic on version 1
+    kill = (FaultSpec(point=REPLICA_KILL, kind="kill", step=1, shard=0,
+                      hard=True),)
+    swap = {}
+    with RssSampler(tree=True) as rss:
+        with ReplicaPool(dataclasses.replace(spec, fault_specs=kill),
+                         backend="process", **kw) as pool:
+            pool.wait_ready(600)
+            pool.prewarm()
+            faulted, _, rec = serve(pool, "hard kill", docs)
+            deadline = time.monotonic() + 600
+            while pool.respawns < 1 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            pool.wait_ready(600)
+            m = pool.metrics()
+            rec.update(ready_record(pool), deaths=pool.deaths,
+                       respawns=m["respawns"], replicas=m["replicas"])
+            check(m["deaths"] == 1 and m["respawns"] == 1
+                  and m["replicas"] == POOL_REPLICAS,
+                  f"pool hard kill: deaths {m['deaths']}, respawns "
+                  f"{m['respawns']}, replicas {m['replicas']}")
+            check(pool.deaths[0]["kind"] == "hard"
+                  and pool.deaths[0]["exitcode"] == -9,
+                  f"pool hard kill: {pool.deaths}")
+            same = all(np.array_equal(a, b) for a, b in zip(clean, faulted))
+            check(same, "pool hard kill: a θ differs from the clean run")
+            launches += rec["theta_sweep_launches"] or 0
+            print("replica pool (hard kill) " + json.dumps(rec))
+
+            t0 = time.perf_counter()
+            pub = SnapshotPublisher(store)
+            snap = pub.publish()
+            publish_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pool.subscribe(pub)
+            deadline = time.monotonic() + 600
+            while (len({a["rid"] for a in pool.swap_acks}) < POOL_REPLICAS
+                   and not pool.swap_errors
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            acks_s = time.perf_counter() - t0
+            check(not pool.swap_errors, f"pool swap: {pool.swap_errors}")
+            check(pool.balancer.versions() == {
+                r: 1 for r in range(POOL_REPLICAS)},
+                f"pool swap: versions {pool.balancer.versions()}")
+            _, versions, rec = serve(pool, "after swap",
+                                     docs[:POOL_SWAP_REQUESTS])
+            check(set(versions) == {1},
+                  f"pool swap: served versions {sorted(set(versions))}")
+            launches += rec["theta_sweep_launches"] or 0
+            del pub, snap
+    taken = avail - rss.min_available
+    check(taken <= need, f"replica pool: the phase took {taken} bytes of "
+          f"host memory, more than the {need} its guard asks for")
+    swap = {"version": 1, "publish_s": publish_s,
+            "ack_s": {a["rid"]: a["seconds"] for a in pool.swap_acks},
+            "all_acked_s": acks_s, "crc_checked": True,
+            "peak_tree_rss_bytes": rss.peak, "mem_available_bytes": avail,
+            "min_mem_available_bytes": rss.min_available,
+            "host_memory_taken_bytes": taken, "guard_bytes": need}
+    print("replica pool (swap) " + json.dumps(swap))
+
+    # 3. the thread backend: replica r on cuda:{r mod cards}, one process
+    theta_sweep.launches = 0               # counts of this run only
+    with ReplicaPool(spec, backend="thread", **kw) as pool:
+        pool.wait_ready(600)
+        threaded, _, rec = serve(pool, "thread",
+                                 docs[:POOL_THREAD_DOCS])
+    thread_launches = theta_sweep.launches
+    check(thread_launches > 0, "pool thread: no theta_sweep launch")
+    same = all(np.array_equal(a, b) for a, b in zip(clean, threaded))
+    check(same, "pool thread: a θ differs from the process pool's")
+    rec["theta_sweep_launches"] = thread_launches
+    launches += thread_launches
+    print("replica pool (thread) " + json.dumps(rec))
+    check(launches > 0, "the replica pool launched no theta_sweep kernel")
+    out = {"replicas": POOL_REPLICAS, "theta_sweep_launches": launches,
+           "engine_unpaced_docs_per_s":
+               report["serving_engine"]["runs"]["unpaced"]["docs_per_s"],
+           "bitwise_equal_clean": True, "phase_s":
+               time.perf_counter() - t_phase}
+    print("replica pool " + json.dumps(out))
+    report["replica_pool"] = dict(out, runs=runs, swap=swap)
+
+
 def _bound(nbytes, flops) -> tuple:
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / FP32_FLOPS * 1e3
@@ -1093,6 +1298,175 @@ def training_phase(torch, store, report):
     report["training"] = {"steps": steps, "train_s": train_s,
                           "corpus_s": corpus_s, "launches": launches,
                           "profiled": profiled, "served_ppl": ppl}
+
+
+def elastic_phase(torch, report):
+    """The elastic FOEM runtime at the stream_1k width: dense φ̂ (W, K) on
+    the card, the training phase's first ELASTIC_MINIBATCHES minibatches of
+    1,024 × 128 over 2 shards.  A clean run (2 rounds); a run with shard
+    1's delta dropped after its fold in round 0 (re-queued, re-run); a run
+    with shard 1 killed before its probe in round 1, then a checkpoint of
+    the runtime (5.64 GB, fsync'd), the shard removed, the checkpoint
+    restored through the recovery scan into a fresh runtime that takes the
+    killed round's minibatches and resumes; then a kill inside a second
+    save (mid-flush), after which LATEST still names the first.  Every
+    run's Σφ̂(k) must equal the minibatches' tokens and the clean run's
+    within ELASTIC_MASS_RTOL, Σφ̂(k) the rows' float64 sum within
+    PHI_K_ROWS_ATOL, nothing lost."""
+    import numpy as np
+
+    from repro_torch.checkpoint import (
+        latest_step, restore_checkpoint, save_checkpoint, scan_checkpoints,
+    )
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.kernels.gs_sweep import gs_sweep
+    from repro_torch.kernels.scheduled_sweep import scheduled_sweep
+    from repro_torch.runtime import (
+        MID_FLUSH, POST_FOLD, PRE_PROBE, FaultPlan, FaultSpec, InjectedFault,
+    )
+    from repro_torch.runtime.elastic import ElasticFOEMRuntime
+    from repro_torch.sparse import MinibatchStream
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = lda_config(lda_shape("stream_1k"))
+    mbs = list(MinibatchStream(report["training_corpus"], D_TRAIN,
+                               bucket_len=L_TRAIN, seed=0))
+    mbs = mbs[:ELASTIC_MINIBATCHES]
+    check(len(mbs) == ELASTIC_MINIBATCHES, f"elastic: {len(mbs)} minibatches")
+    tokens = sum(float(mb.counts.sum(dtype=np.float64)) for mb in mbs)
+    phi_bytes = cfg.W * cfg.K * 4
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    free = shutil.disk_usage(ckpt).free
+    need = 2 * phi_bytes + (2 << 30)      # a checkpoint and a torn second
+    print(f"elastic disk: {free} bytes free, need {need}")
+    check(free >= need, f"elastic: {free} bytes free on disk, {need} needed "
+          "for two 5.64 GB checkpoints")
+    gs_sweep.launches = 0                 # counts of this path only
+    scheduled_sweep.launches = 0
+    runs = {}
+
+    def record(name, rt, reports, wall):
+        torch.cuda.synchronize()
+        mass = float(rt.phi_k.sum())
+        rows = float(rt.phi_wk.sum(dtype=torch.float64))
+        rec = {"rounds": [r.round_idx for r in reports],
+               "round_s": [r.seconds for r in reports],
+               "shards_run": [r.shards_run for r in reports],
+               "requeued": [r.requeued for r in reports],
+               "train_ppl": [r.train_ppl for r in reports],
+               "lost": rt.lost, "cursor": rt.cursor, "wall_s": wall,
+               "phi_k_mass": mass, "tokens": tokens,
+               "mass_rel_err": mass / tokens - 1.0,
+               "phi_k_minus_rows": mass - rows}
+        check(abs(mass - tokens) <= ELASTIC_MASS_RTOL * tokens,
+              f"elastic {name}: Σφ̂(k) {mass} against {tokens} tokens")
+        check(abs(mass - rows) <= PHI_K_ROWS_ATOL,
+              f"elastic {name}: Σφ̂(k) {mass} against the rows' {rows}")
+        check(rt.lost == [], f"elastic {name}: lost {rt.lost}")
+        if "clean" in runs:
+            clean = runs["clean"]["phi_k_mass"]
+            check(abs(mass - clean) <= ELASTIC_MASS_RTOL * clean,
+                  f"elastic {name}: Σφ̂(k) {mass} against the clean {clean}")
+        runs[name] = rec
+        print(f"elastic ({name}) " + json.dumps(rec))
+
+    def run(name, **kw):
+        rt = ElasticFOEMRuntime(cfg, num_shards=2, device="cuda", **kw)
+        t0 = time.perf_counter()
+        reports = rt.run(iter(mbs))
+        record(name, rt, reports, time.perf_counter() - t0)
+        return rt, reports
+
+    rt, reports = run("clean")
+    check(len(reports) == 2, f"elastic clean: {len(reports)} rounds")
+    del rt
+    plan = FaultPlan([FaultSpec(point=POST_FOLD, kind="drop", step=0,
+                                shard=1)])
+    rt, reports = run("drop", faults=plan)
+    check(reports[0].requeued == 1 and sum(r.requeued for r in reports) == 1,
+          f"elastic drop: requeued {[r.requeued for r in reports]}")
+    del rt
+
+    try:
+        plan = FaultPlan([FaultSpec(point=PRE_PROBE, kind="kill", step=1,
+                                    shard=1)])
+        rt = ElasticFOEMRuntime(cfg, num_shards=2, faults=plan,
+                                device="cuda")
+        t0 = time.perf_counter()
+        try:
+            rt.run(iter(mbs))
+            check(False, "elastic kill: the seeded kill never fired")
+        except InjectedFault as e:
+            check((e.shard, e.step) == (1, 1),
+                  f"elastic kill: fired at shard {e.shard}, round {e.step}")
+        killed_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt), rt.round, rt.checkpoint_tree(), keep=2)
+        save_s = time.perf_counter() - t0
+        rt.remove_shard(1)
+        # a fresh runtime resumes from the checkpoint alone, as after a
+        # crash: it takes the killed round's minibatches back from the
+        # stream replayed from its start
+        fresh = ElasticFOEMRuntime(cfg, num_shards=rt.num_shards, seed=1,
+                                   device="cuda")
+        t0 = time.perf_counter()
+        step, tree = restore_checkpoint(str(ckpt), fresh.checkpoint_tree())
+        fresh.load_checkpoint_tree(tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        owed = tree["retry"].tolist()
+        del tree
+        check(owed == [[3, 1], [4, 1]],
+              f"elastic kill: the checkpoint owes {owed}")
+        check(step == 1 and fresh.round == 1 and fresh.cursor == 4,
+              f"elastic kill: restored step {step}, round {fresh.round}, "
+              f"cursor {fresh.cursor}")
+        check(torch.equal(fresh.phi_wk, rt.phi_wk)
+              and torch.equal(fresh.phi_k, rt.phi_k),
+              "elastic kill: the restored φ̂ differs from the saved one")
+        del rt
+        t0 = time.perf_counter()
+        reports = fresh.run(iter(mbs))
+        record("kill, restore, resume", fresh, reports,
+               killed_s + time.perf_counter() - t0)
+        check(fresh.cursor == 4, f"elastic kill: cursor {fresh.cursor}")
+
+        plan = FaultPlan([FaultSpec(point=MID_FLUSH, kind="kill")])
+        t0 = time.perf_counter()
+        try:
+            save_checkpoint(str(ckpt), fresh.round, fresh.checkpoint_tree(),
+                            keep=2, faults=plan)
+            check(False, "elastic: the mid-flush kill never fired")
+        except InjectedFault:
+            pass
+        torn_s = time.perf_counter() - t0
+        check(latest_step(str(ckpt)) == 1,
+              f"elastic: LATEST names {latest_step(str(ckpt))} after a "
+              "mid-flush kill")
+        check(scan_checkpoints(str(ckpt)) == [1]
+              and not any(p.name.endswith(".tmp") for p in ckpt.iterdir()),
+              "elastic: the recovery scan left a torn checkpoint")
+        del fresh
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {"gs_sweep": gs_sweep.launches,
+                "scheduled_sweep": scheduled_sweep.launches}
+    check(all(v > 0 for v in launches.values()),
+          f"the elastic path did not launch both sweep kernels {launches}")
+    out = {"minibatches": ELASTIC_MINIBATCHES, "shards": 2,
+           "checkpoint_bytes": phi_bytes, "save_s": save_s,
+           "save_gb_per_s": phi_bytes / save_s / 1e9,
+           "restore_s": restore_s,
+           "restore_gb_per_s": phi_bytes / restore_s / 1e9,
+           "torn_save_s": torn_s, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print("elastic " + json.dumps(out))
+    report["elastic"] = dict(out, runs=runs)
 
 
 def phi_slice(cap, lo, hi):
@@ -2221,26 +2595,61 @@ def host_mem_available() -> int:
 
 
 class RssSampler:
-    """This process's resident set, sampled every ``period`` s in a thread
-    while the ``with`` block runs; ``peak`` is the largest sample (bytes)."""
+    """This process's resident set — with ``tree=True`` the sum over it and
+    every process it started (a page shared by several counts in each) —
+    sampled every ``period`` s in a thread while the ``with`` block runs;
+    ``peak`` is the largest sample and ``min_available`` the least
+    ``MemAvailable`` of the host seen at the same samples (bytes)."""
 
-    def __init__(self, period: float = 0.1):
+    def __init__(self, period: float = 0.1, tree: bool = False):
         import os
         import threading
 
         self.period = period
+        self.tree = tree
         self.peak = 0
+        self.min_available = host_mem_available()
+        self._pid = os.getpid()
         self._page = os.sysconf("SC_PAGE_SIZE")
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
+    def _statm(self, pid) -> int:
+        try:
+            with open(f"/proc/{pid}/statm") as f:
+                return int(f.read().split()[1]) * self._page
+        except (OSError, ValueError, IndexError):
+            return 0                      # the process ended meanwhile
+
     def rss(self) -> int:
-        with open("/proc/self/statm") as f:
-            return int(f.read().split()[1]) * self._page
+        if not self.tree:
+            return self._statm("self")
+        import os
+
+        children = {}
+        for name in os.listdir("/proc"):
+            if not name.isdigit():
+                continue
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+            children.setdefault(ppid, []).append(int(name))
+        total, todo = 0, [self._pid]
+        while todo:
+            pid = todo.pop()
+            total += self._statm(pid)
+            todo.extend(children.get(pid, ()))
+        return total
+
+    def _sample(self) -> None:
+        self.peak = max(self.peak, self.rss())
+        self.min_available = min(self.min_available, host_mem_available())
 
     def _run(self) -> None:
         while not self._stop.is_set():
-            self.peak = max(self.peak, self.rss())
+            self._sample()
             self._stop.wait(self.period)
 
     def __enter__(self) -> "RssSampler":
@@ -2250,7 +2659,7 @@ class RssSampler:
     def __exit__(self, *exc) -> None:
         self._stop.set()
         self._thread.join(timeout=10)
-        self.peak = max(self.peak, self.rss())
+        self._sample()
 
 
 def lifelong_phase(torch, report):
@@ -2953,8 +3362,10 @@ def main() -> int:
         store, gen = make_store(store_dir, report)
         serving_phase(torch, store, gen, report)
         serving_engine_phase(torch, store, report)
+        replica_pool_phase(torch, store, store_dir, report)
         sweep_kernel_phase(torch, dev, store, report)
         training_phase(torch, store, report)
+        elastic_phase(torch, report)
         cap = report["store_capacity"]
         sharded_kernel_phase(torch, dev, cap, report)
         sharded_training_phase(torch, cap, report)
@@ -2981,8 +3392,9 @@ def main() -> int:
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
 
     f32 = report["variants"][0]
-    # the lifelong path's launches (replica and live runs) join the serving
-    # and training paths' counts of the same kernels
+    # the lifelong path's launches (replica and live runs), the replica
+    # pool's and the elastic runtime's join the serving and training paths'
+    # counts of the same kernels
     life = report["lifelong"]
     life_launches = {k: life["launches"][k] + life["replica_launches"][k]
                      for k in life["launches"]}
@@ -2993,8 +3405,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/theta_sweep.cu",
         "replaces": "src/repro/kernels/theta_sweep.py:262",
+        # the replica pool's workers report theirs with each batch
         "launches": (report["serving"]["launches"]
-                     + life_launches["theta_sweep"]),
+                     + life_launches["theta_sweep"]
+                     + report["replica_pool"]["theta_sweep_launches"]),
         "max_abs_err": max_err,
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -3016,7 +3430,8 @@ def main() -> int:
             "source": source,
             "replaces": replaces,
             "launches": (report["training"]["launches"][name]
-                         + life_launches[name]),
+                         + life_launches[name]
+                         + report["elastic"]["launches"][name]),
             # μ_new, the sweep's per-token output (all outputs are in the
             # "sweep kernel" lines)
             "max_abs_err": max(v["errors"]["mu"]["max_abs"] for v in mine),

@@ -28,11 +28,14 @@ a ``SnapshotPublisher`` (``TopicServer.subscribe``) serves committed φ
 snapshot versions instead of the live store; the engine's launcher
 hot-swaps to the newest one between launches (``TopicServer.refresh``), so
 every launch reads one pinned epoch and every θ comes back stamped with
-its version (``ThetaResult.version``).  Replicas come with a later slice.
+its version (``ThetaResult.version``).  ``--traffic --replicas N`` serves
+through a ``launch.replica.ReplicaPool`` of N data-parallel workers (one
+spawned process each, or threads with ``--replica-backend thread``) behind
+the same admission router.
 
 Run the CLI on a GPU host with
 ``PYTHONPATH=src python -m repro_torch.launch.serve --workdir DIR --topics K
---vocab W [--make-store] [--traffic --qps Q [--pace]]``.
+--vocab W [--make-store] [--traffic --qps Q [--pace] [--replicas N]]``.
 """
 from __future__ import annotations
 
@@ -969,12 +972,54 @@ def make_store(workdir: str, vocab: int, topics: int, *, seed: int = 0
 
 
 def serve_traffic(args, server: TopicServer) -> None:
-    """Drive the continuous-batching engine with synthetic Zipf/Poisson
-    traffic and report the latency and throughput numbers (p50/p99
-    latency, documents/s, batches and their fill, cache)."""
+    """Drive the continuous-batching engine — or, with ``--replicas N``,
+    the multi-replica pool — with synthetic Zipf/Poisson traffic and report
+    the latency and throughput numbers (p50/p99 latency, documents/s,
+    batches and their fill, cache; the pool's dispatch, deaths and
+    respawns)."""
     gen = TrafficGenerator(args.vocab, doc_len=(args.min_len, args.max_len),
                            seed=123)
     trace = gen.trace([(args.qps, args.requests)])
+    replicas = int(getattr(args, "replicas", 1) or 1)
+    if replicas > 1:
+        # imported lazily: replica.py imports this module
+        from repro_torch.launch.replica import ReplicaPool, ReplicaSpec
+
+        spec = ReplicaSpec(
+            store_path=args.workdir, cfg=server.cfg,
+            vocab_capacity=args.vocab, fit_sweeps=server.fit_sweeps,
+            rel_tol=server.rel_tol, check_every=server.check_every,
+            active_topics=server.active_topics, vocab_pad=server.vocab_pad,
+            phi_dtype=server.phi_dtype, hot_rows=args.hot_rows,
+            device=str(server.device),
+        )
+        backend = getattr(args, "replica_backend", "process")
+        with ReplicaPool(spec, replicas=replicas, backend=backend,
+                         max_batch=args.batch,
+                         max_delay_ms=args.max_delay_ms,
+                         max_len=_round_up(gen.doc_len[1], 16),
+                         seed=args.seed) as pool:
+            pool.wait_ready(600)
+            warm = pool.prewarm()
+            t0 = time.time()
+            futs = TrafficGenerator.replay(trace, pool.submit,
+                                           pace=args.pace)
+            for f in futs:
+                f.result()
+            dt = time.time() - t0
+            pool.drain()
+            m = pool.metrics()
+        print(f"served {m['requests']} requests in {dt:.2f}s over "
+              f"{replicas} {backend} replicas "
+              f"({m['requests']/dt:.1f} docs/s sustained, target "
+              f"{args.qps} QPS, {'paced' if args.pace else 'unpaced'}; "
+              f"{warm} replicas prewarmed, device={server.device})")
+        print(f"  latency p50 {m.get('p50_ms', 0):.1f}ms  "
+              f"p99 {m.get('p99_ms', 0):.1f}ms  "
+              f"batches {m['batches']} (mean fill {m['mean_fill']:.1f}); "
+              f"dispatch {m['dispatch']}, deaths {m['deaths']}, "
+              f"respawns {m['respawns']}")
+        return
     with ServingEngine(server, max_batch=args.batch,
                        max_delay_ms=args.max_delay_ms,
                        max_len=_round_up(gen.doc_len[1], 16),
@@ -1077,6 +1122,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--hot-rows", type=int, default=0,
                     help="capacity of the serving hot-word φ-row cache "
                          "(0 = disabled)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve --traffic through a ReplicaPool of N "
+                         "data-parallel workers (1 = the single-replica "
+                         "engine)")
+    ap.add_argument("--replica-backend", default="process",
+                    choices=("process", "thread"),
+                    help="replica isolation: one spawned process per "
+                         "replica (its own CUDA context) or in-process "
+                         "threads (replica r on cuda:{r mod cards})")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0)

@@ -11,7 +11,9 @@
   ``params_from_jax``), the baselines (``ovb_step``, ``scvb_step``,
   ``ogs_step``), the serving engine's θ̂₀ draw and ``--traffic`` CLI, and
   the lifelong entry points (``run_lifelong``, its CLI, the subscribed
-  server) —
+  server), and the fault-tolerant layer's (``ReplicaSpec.build_server``,
+  ``ReplicaPool`` on both backends, the serve CLI's ``--replicas``,
+  ``ElasticFOEMRuntime``) —
   default to ``device="cuda"`` and raise on a host
   without a GPU instead of falling back to the CPU (SEM's and the
   coarse-block trainer's: ``tests/test_torch_blocked.py``).
@@ -357,3 +359,62 @@ def test_lifelong_entry_points_default_to_the_gpu(tmp_path):
     srv.subscribe(pub)
     srv.infer(np.zeros((1, 2), np.int32), np.ones((1, 2), np.float32))
     assert srv.last_version == 1
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.runtime.fault_tolerance",
+    "repro_torch.runtime.elastic",
+    "repro_torch.checkpoint.ckpt",
+    "repro_torch.checkpoint.elastic",
+    "repro_torch.launch.replica",
+])
+def test_fault_tolerant_modules_stand_alone(name):
+    """The fault-tolerant slice's modules import without JAX, and the
+    kernels its paths run are among the build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.kernels import build\n"
+        "for k in ('theta_sweep', 'gs_sweep', 'scheduled_sweep',\n"
+        "          'sharded_sweep'):\n"
+        "    assert k in build.KERNELS and (build.CSRC / f'{k}.cu').exists()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_fault_tolerant_entry_points_default_to_the_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core import LDAConfig, ParameterStore
+    from repro_torch.launch import serve
+    from repro_torch.launch.replica import ReplicaPool, ReplicaSpec
+    from repro_torch.runtime.elastic import ElasticFOEMRuntime
+
+    cfg = LDAConfig(num_topics=4, vocab_size=8)
+    ParameterStore(str(tmp_path / "s"), num_topics=4,
+                   vocab_capacity=8).flush()
+    spec = ReplicaSpec(store_path=str(tmp_path / "s"), cfg=cfg,
+                       vocab_capacity=8)
+    assert spec.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spec.build_server()
+    for backend in ("process", "thread"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ReplicaPool(spec, replicas=2, backend=backend)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticFOEMRuntime(cfg, num_shards=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--workdir", str(tmp_path / "cli"), "--topics", "4",
+                    "--vocab", "8", "--make-store", "--traffic",
+                    "--requests", "4", "--replicas", "2"])
+    # the explicit CPU choice runs
+    rt = ElasticFOEMRuntime(cfg, num_shards=2, device="cpu")
+    assert rt.phi_wk.device.type == "cpu" and rt.phi_k.dtype == torch.float64
+    srv = ReplicaSpec(store_path=str(tmp_path / "s"), cfg=cfg,
+                      vocab_capacity=8, device="cpu").build_server()
+    assert srv.device.type == "cpu"

@@ -135,6 +135,24 @@ order:
    4,096-slot ring placed from a 6,128-token prefill, against one prefill
    of all 6,144 tokens.
 
+12. the analysis layer: from the build on, every launch the wrappers make
+   is noted (``repro_torch.analysis.launches``) and recorded by its
+   library (``csrc/launch_log.cuh``); after the baselines, a
+   ``debug_checks=True`` ``FOEMTrainer.step`` at the stream_1k width and a
+   served 256-document batch beside the same step and batch without checks,
+   and one dense sweep of the step's minibatch plain and checked
+   (``sanitized`` line: seconds, peak memory, every failed invariant, the
+   float32 φ̂(k) gap against the φ̂ totals bound; only ``SANITIZER_OPEN``
+   may fail, the open finding at this magnitude), and planted faults
+   — a NaN φ row before ``ops.infer``, a negative count before
+   ``ops.sweep``, a perturbed φ̂(k) — each raising ``SanitizerError`` with
+   the JAX package's message; at the end every noted launch, rebuilt from
+   its contract with the card's registers, must equal a recorded launch
+   configuration and back, and every predicted CTAs an SM the runtime's
+   (``analysis`` line: per kernel variant its registers, shared memory,
+   spills, CTAs an SM and grids, with the card's name and power limit, and
+   the reference cells' static check).
+
 Each path's kernel launch counters are set to 0 just before it and read
 just after.  Any failed check exits non-zero before the result lines.  The
 last two lines of standard output are a ``{"kernels": [...]}`` JSON object
@@ -296,6 +314,25 @@ ATTN_TOL_REASON = (
     "bits (one ulp is 7.8e-3 at 1) and round p at another running max: two "
     "ulps at 1")
 # Decode logits against one prefill over the same tokens, float32 copy.
+#: The analysis phase: the JAX package's sanitizer messages that the
+#: planted faults must raise (tests/test_torch_sanitizer.py holds the two
+#: packages' first messages equal on the same faults).
+PHI_LOCKSTEP = ("sanitizer: phi_k deltas inconsistent with column sums of "
+                "phi_wk")
+SANITIZER_FAULTS = {
+    "nan_phi_row": "sanitizer: non-finite values in theta",
+    "negative_count": "sanitizer: negative values in phi_wk",
+    "perturbed_phi_k": PHI_LOCKSTEP,
+}
+#: What a checked sweep at the stream_1k store's magnitude may raise on
+#: results that are right to float32: the φ̂ lockstep invariant, whose
+#: bound a float32 φ̂(k) of ≈ 5·10⁴ cannot meet for a topic that barely
+#: moves (an open finding, PERF.md §7; the JAX package's float32 sweep
+#: raises the same, tests/test_torch_sanitizer.py).  Any other failed
+#: invariant fails the run.
+SANITIZER_OPEN = (PHI_LOCKSTEP,)
+ANALYSIS_BUDGET_S = 60.0    # the sanitized runs and the contract check
+
 LM_TOL = (1e-3, 1e-3)
 LM_TOL_REASON = (
     "logits of scale ~1 in float32: the decode step and the prefill run "
@@ -1716,13 +1753,14 @@ def sharded_kernel_phase(torch, dev, cap, report):
 def _sharded_rank(mesh, cap, minibatches, heldout):
     """One rank of the sharded training phase: its φ̂ slice, two
     ``foem_step_sharded`` minibatches (the second under the profiler on
-    rank 0), the held-out perplexity, then the checks that need the
-    mesh."""
+    rank 0), the held-out perplexity, one step with ``debug_checks=True``,
+    then the checks that need the mesh."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from repro_torch.analysis import SanitizerError
     from repro_torch.configs import lda_config, lda_shape
     from repro_torch.core import em
     from repro_torch.core.foem_sharded import (
@@ -1804,6 +1842,23 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
         cfg, mesh)
     held_s = time.perf_counter() - t0
 
+    # one checked step (debug_checks=True) on the first minibatch, its
+    # result dropped: every failed invariant, summed over the model axis so
+    # that every rank raises alike, or none
+    wid, cnt = minibatches[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        foem_step_sharded(
+            torch.Generator().manual_seed(1),
+            MinibatchData(torch.from_numpy(wid), torch.from_numpy(cnt)),
+            stats, dataclasses.replace(cfg, debug_checks=True), mesh)
+        checked_failed = []
+    except SanitizerError as e:
+        checked_failed = e.failed
+    torch.cuda.synchronize()
+    checked = {"seconds": time.perf_counter() - t0, "failed": checked_failed}
+
     # one dense two-phase sweep from a fresh μ0: Σ_k μ over the ranks is 1
     wid = torch.from_numpy(minibatches[0][0]).to(dev)
     cnt = torch.from_numpy(minibatches[0][1]).to(dev)
@@ -1821,6 +1876,7 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
     return {"rank": mesh.rank, "slice_s": slice_s, "steps": steps,
             "launches": launches, "peak_device_gb": peak / 1e9,
             "heldout_ppl": held, "heldout_s": held_s, "mu_sum_err": mu_err,
+            "checked_step": checked,
             "max_sweeps": cfg.max_sweeps,
             "warmup_sweeps": max(1, cfg.warmup_sweeps)}
 
@@ -1829,7 +1885,9 @@ def sharded_training_phase(torch, cap, report):
     """The topic-sharded main path: four ranks of a (1, 4) mesh share the
     card, each with its 2,500-lane slice of the stream_1k model over all
     rows, two 1,024 × 128 minibatches of foem_step_sharded, then
-    heldout_perplexity_sharded on the serving phase's held-out batch."""
+    heldout_perplexity_sharded on the serving phase's held-out batch and
+    one checked step (its failed invariants, held to ``SANITIZER_OPEN`` by
+    the analysis phase)."""
     import gc
 
     import numpy as np
@@ -1873,6 +1931,8 @@ def sharded_training_phase(torch, cap, report):
               f"{r['mu_sum_err']}")
         check(np.isfinite(r["heldout_ppl"]) and 1.0 < r["heldout_ppl"]
               < W_FULL, f"held-out perplexity {r['heldout_ppl']}")
+    check(len({tuple(r["checked_step"]["failed"]) for r in ranks}) == 1,
+          "the ranks disagree on the checked step's failed invariants")
     check(len({r["heldout_ppl"] for r in ranks}) == 1
           and len({tuple(s["train_ppl"] for s in r["steps"])
                    for r in ranks}) == 1,
@@ -1889,6 +1949,10 @@ def sharded_training_phase(torch, cap, report):
            "heldout_ppl": ranks[0]["heldout_ppl"],
            "heldout_s": ranks[0]["heldout_s"],
            "mu_sum_max_err": max(r["mu_sum_err"] for r in ranks),
+           "checked_step": {
+               "seconds_by_rank": [r["checked_step"]["seconds"]
+                                   for r in ranks],
+               "failed": ranks[0]["checked_step"]["failed"]},
            "launches_by_rank": [r["launches"] for r in ranks],
            "launches": launches}
     print("sharded training " + json.dumps(rec))
@@ -3319,6 +3383,217 @@ def lm_serving_phase(torch, dev, report):
     torch.cuda.empty_cache()
 
 
+def sanitized_phase(torch, store, report):
+    """``debug_checks=True`` on the card, through the CUDA kernels: one
+    dense sweep of the training corpus's first minibatch on the stream_1k
+    store, one ``FOEMTrainer.step`` on it and one served held-out batch,
+    each beside the same call without checks (every failed invariant is
+    recorded and held to ``SANITIZER_OPEN`` at the end of the run); then
+    the planted faults, at a small shape, must each raise
+    ``SanitizerError`` with the JAX package's message."""
+    import numpy as np
+
+    from repro_torch.analysis import SanitizerError
+    from repro_torch.analysis import sanitizer as san
+    from repro_torch.configs import lda_config, lda_shape
+    from repro_torch.core import em
+    from repro_torch.core.trainer import FOEMTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import TopicServer
+    from repro_torch.sparse import MinibatchStream
+
+    t_phase = time.perf_counter()
+    cfg = lda_config(lda_shape("stream_1k"))
+    mb = next(iter(MinibatchStream(report["training_corpus"], D_TRAIN,
+                                   bucket_len=L_TRAIN, seed=0)))
+    rec = {"card": report["card"]}
+    # one dense sweep of the minibatch, its uniform μ folded into the
+    # store's rows and float32 total as foem_minibatch's first sweep has
+    # it, plain and checked: a checked sweep's cost, and how far the
+    # kernels' float32 φ̂(k) moves from the rows' column sums (the φ̂
+    # totals invariant's two sides) at the store's magnitude
+    dev = torch.device("cuda")
+    rows = torch.from_numpy(store.fetch_rows(mb.local_vocab)).to(dev)
+    ptot = torch.from_numpy(np.asarray(store.phi_k, np.float32)).to(dev)
+    wid_b = torch.from_numpy(mb.local_word_ids.astype(np.int32)).to(dev)
+    cnt_b = torch.from_numpy(mb.counts.astype(np.float32)).to(dev)
+    mu_b = torch.full(tuple(cnt_b.shape) + (K_FULL,), 1.0 / K_FULL,
+                      device=dev)
+    th_b = em.fold_theta(mu_b, cnt_b).contiguous()
+    d_wk, d_k = em.fold_phi(mu_b, cnt_b, wid_b, rows.shape[0])
+    rows, ptot = rows + d_wk, ptot + d_k
+    del d_wk, d_k
+    sargs = (wid_b, cnt_b, mu_b, th_b, rows, ptot)
+    skw = dict(alpha_m1=cfg.alpha_m1, beta_m1=cfg.beta_m1,
+               wb=cfg.W * cfg.beta_m1, device=dev)
+    ops.sweep(*sargs, **skw)                             # warm
+    for checks in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            r = ops.sweep(*sargs, debug_checks=checks, **skw)
+            failed = []
+        except SanitizerError as e:
+            failed = e.failed
+        torch.cuda.synchronize()
+        tag = "checked" if checks else "plain"
+        rec[f"sweep_ms_{tag}"] = (time.perf_counter() - t0) * 1e3
+    rec["sweep_failed"] = failed
+    f64 = torch.float64  # lint: host-f64
+    d_col = r.phi_wk.sum(0, dtype=f64) - rows.sum(0, dtype=f64)
+    d_k = r.phi_k.to(f64) - ptot.to(f64)
+    gap = (d_col - d_k).abs()
+    rec["float32_total_gap"] = {
+        "max_abs": float(gap.max()),
+        "max_ratio_to_bound": float((gap / (san.DEFAULT_TOL * (
+            d_col.abs() + d_k.abs() + 1.0))).max()),
+        "phi_k_mean": float(ptot.mean()), "phi_row_max": float(rows.max())}
+    del rows, ptot, wid_b, cnt_b, mu_b, th_b, sargs, r, d_col, d_k, gap
+    torch.cuda.empty_cache()
+    for checks in (False, True):
+        c = dataclasses.replace(cfg, debug_checks=checks)
+        trainer = FOEMTrainer(c, store, seed=0, prefetch_depth=0,
+                              device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tag = "checked" if checks else "plain"
+        t0 = time.perf_counter()
+        failed = []
+        try:
+            m = trainer.step(mb)
+        except SanitizerError as e:
+            # held to SANITIZER_OPEN at the end of the run; a raise stops
+            # the step at that sweep, before it writes the store
+            failed, m = e.failed, None
+        torch.cuda.synchronize()
+        rec[f"step_s_{tag}"] = time.perf_counter() - t0
+        rec[f"step_peak_gb_{tag}"] = torch.cuda.max_memory_allocated() / 1e9
+        if checks:
+            rec["step_failed"] = failed
+        if m is not None:
+            rec[f"step_sweeps_{tag}"] = m.sweeps
+            check(np.isfinite(m.train_ppl),
+                  f"sanitized phase: a {tag} step's perplexity is not finite")
+        del trainer
+    w, est, ev = report["heldout"]
+    for checks in (False, True):
+        srv = TopicServer(store, dataclasses.replace(cfg, debug_checks=checks),
+                          device="cuda")
+        srv.evaluate(w, est, ev)                         # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ppl = srv.evaluate(w, est, ev)
+        torch.cuda.synchronize()
+        tag = "checked" if checks else "plain"
+        rec[f"batch_ms_{tag}"] = (time.perf_counter() - t0) * 1e3
+        check(np.isfinite(ppl), f"sanitized phase: {tag} batch perplexity")
+    rec["batch_docs"] = int(w.shape[0])
+    # the sweep kernels write μ into new buffers: μ_old is the caller's
+    # input and the sanitizer keeps no copy of μ or φ̂
+    rec["mu_old_bytes"] = 0
+    rec["mu_bytes"] = D_TRAIN * L_TRAIN * K_FULL * 4
+
+    # the planted faults, at a small shape, through the kernels
+    rng = np.random.default_rng(5)
+    D, L, K, W = 8, 10, 64, 40
+    wid = rng.integers(0, W, (D, L)).astype(np.int32)
+    cnt = rng.integers(0, 5, (D, L)).astype(np.float32)
+    mu = rng.dirichlet(np.ones(K), (D, L)).astype(np.float32)
+    theta = np.einsum("dlk,dl->dk", mu, cnt).astype(np.float32)
+    phi = np.zeros((W, K), np.float32)
+    np.add.at(phi, wid.reshape(-1), (cnt[..., None] * mu).reshape(-1, K))
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    wid_t, cnt_t, mu_t, th_t, phi_t = map(t, (wid, cnt, mu, theta, phi))
+    ptot_t = phi_t.sum(0)
+    kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=W * 0.01, device=dev)
+    got = {}
+
+    def fault(name, fn):
+        try:
+            fn()
+        except SanitizerError as e:
+            got[name] = str(e)
+        check(got.get(name) == SANITIZER_FAULTS[name],
+              f"sanitized phase: the {name} fault raised "
+              f"{got.get(name)!r}, not {SANITIZER_FAULTS[name]!r}")
+
+    phin = phi_t / phi_t.sum(0, keepdim=True).clamp_min(1e-30)
+    phin[int(wid[0, 0])] = float("nan")
+    fault("nan_phi_row", lambda: ops.infer(
+        wid_t, cnt_t, th_t, phin, alpha_m1=0.01, ev_counts=cnt_t,
+        max_sweeps=10, check_every=5, debug_checks=True, device=dev))
+    bad = cnt_t.clone()
+    bad[0, 0] = -1.0
+    fault("negative_count", lambda: ops.sweep(
+        wid_t, bad, mu_t, th_t, phi_t, ptot_t, debug_checks=True, **kw))
+    r = ops.sweep(wid_t, cnt_t, mu_t, th_t, phi_t, ptot_t, **kw)
+    fault("perturbed_phi_k", lambda: san.sweep_invariants(
+        r._replace(phi_k=r.phi_k + 1.0), counts=cnt_t, mu_before=mu_t,
+        phi_wk_before=phi_t, phi_k_before=ptot_t))
+    rec["faults"] = got
+    rec["seconds"] = time.perf_counter() - t_phase
+    print("sanitized " + json.dumps(rec))
+    report["sanitized"] = rec
+
+
+def analysis_phase(torch, report):
+    """The launch contracts against the card: every launch the wrappers
+    noted since the start, rebuilt from its contract with the card's
+    registers, must equal a configuration the libraries recorded, and
+    back; every predicted occupancy must equal the runtime's.  Prints the
+    ``analysis`` line: per kernel variant its registers, static and dynamic
+    shared memory, spill bytes (the compiler's report), CTAs an SM
+    (predicted, card) and grids, with the static check of the reference
+    cells."""
+    from repro_torch.analysis import card, launches
+    from repro_torch.analysis.checks import (
+        REFERENCE_CELLS, check_all, summarize,
+    )
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    launches.enable(False)
+    res = card.check_against_card()
+    compiled = card.compiler_report(build.KERNELS)
+    for row in res["kernels"]:
+        row["spill_bytes"] = compiled.get(row["kernel"], {}).get(
+            "spill_bytes")
+    for m in res["mismatches"][:40]:
+        print(f"analysis mismatch: {m}")
+    reference = summarize(check_all(REFERENCE_CELLS))
+    rec = {"card": report["card"], "kernels": res["kernels"],
+           "noted_launch_configs": res["noted"],
+           "recorded_launch_configs": res["recorded"],
+           "mismatches": len(res["mismatches"]),
+           "reference_cells": reference,
+           "compiler_spill_bytes": {k: v["spill_bytes"]
+                                    for k, v in compiled.items()},
+           "seconds": time.perf_counter() - t0}
+    print("analysis " + json.dumps(rec))
+    check(not res["mismatches"], f"{len(res['mismatches'])} launch(es) "
+          "disagree with their contracts or the card's occupancy")
+    check(reference["fail"] == 0, f"reference cells: {reference}")
+    sanitized = report["sanitized"]
+    raised = {k: sanitized[k] for k in ("sweep_failed", "step_failed")}
+    raised["sharded_step_failed"] = report["sharded_training"][
+        "checked_step"]["failed"]
+    for key, failed in raised.items():
+        check(set(failed) <= set(SANITIZER_OPEN),
+              f"the sanitized stream_1k run ({key}) raised {failed}")
+    if any(raised.values()):
+        print("sanitized: open finding (PERF.md §7), the float32 phi_k at "
+              "the store's magnitude misses the phi totals bound by "
+              f"{sanitized['float32_total_gap']['max_ratio_to_bound']:.1f}x;"
+              " no other invariant failed: " + json.dumps(raised))
+    total = report["sanitized"]["seconds"] + rec["seconds"]
+    print(f"analysis phase {total:.1f} s (sanitized runs "
+          f"{report['sanitized']['seconds']:.1f} s, contract check "
+          f"{rec['seconds']:.1f} s)")
+    check(total <= ANALYSIS_BUDGET_S, f"the analysis phase took {total:.1f} "
+          f"s, over its {ANALYSIS_BUDGET_S} s")
+    report["analysis"] = rec
+
+
 def main() -> int:
     import torch
 
@@ -3327,6 +3602,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import launches
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False    # plain version in fp32
@@ -3336,6 +3612,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}")
+    launches.enable()           # every launch from here is checked at the end
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
@@ -3354,7 +3631,7 @@ def main() -> int:
           "instruction: its bf16 path is not on the tensor cores")
 
     dev = torch.device("cuda")
-    report = {}
+    report = {"card": card}
     t_start = time.perf_counter()
     kernel_phase(torch, dev, report)
     store_dir = ROOT / "build" / "chip_smoke_store"
@@ -3373,6 +3650,7 @@ def main() -> int:
         blocked_training_phase(torch, store, report)
         baselines_kernel_phase(torch, dev, store, report)
         baselines_step_phase(torch, report)
+        sanitized_phase(torch, store, report)
         del store
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
@@ -3389,6 +3667,7 @@ def main() -> int:
     lm_serving_phase(torch, dev, report)
     print(f"attention kernel phase {t1 - t0:.1f} s, lm serving phase "
           f"{time.perf_counter() - t1:.1f} s")
+    analysis_phase(torch, report)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
 
     f32 = report["variants"][0]

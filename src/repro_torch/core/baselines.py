@@ -147,7 +147,9 @@ def ovb_step(
     ``mu0`` supplies the initial μ (the cross-package tests pass the JAX
     package's), else it is drawn from ``generator``.  Inputs may be numpy
     arrays or tensors; they move to ``device`` (default ``"cuda"``, which
-    raises without a GPU).  ``cfg.debug_checks`` raises ``ContractError``.
+    raises without a GPU).  ``cfg.debug_checks`` raises ``ContractError``:
+    the baselines never reach ``ops.sweep``, where the sanitizer runs, and
+    the JAX package's flag has no effect here.
     """
     alpha = cfg.alpha_m1 + 1.0
     beta = cfg.beta_m1 + 1.0

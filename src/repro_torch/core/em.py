@@ -403,7 +403,7 @@ def iem_exact_numpy(
     Returns ``(mu, theta, phi)``."""
     D, L = word_ids.shape
     K = cfg.K
-    mu = mu0.copy().astype(np.float64)
+    mu = mu0.copy().astype(np.float64)  # lint: host-f64
     theta = np.einsum("dlk,dl->dk", mu, counts)
     phi = np.zeros((cfg.W, K))
     for d in range(D):

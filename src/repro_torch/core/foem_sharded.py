@@ -213,8 +213,8 @@ def foem_step_sharded(
     ``cfg.topk_shards`` must equal the model axis size, which must divide K
     and ``cfg.active_topics`` (else ``ValueError``).  Only the two-phase
     engine is ported: ``cfg.sharded_impl == "hooks"`` raises
-    ``ContractError``, as does ``cfg.debug_checks`` (the sanitizer is not
-    ported yet).
+    ``ContractError``.  ``cfg.debug_checks`` runs the sanitizer on every
+    sweep and on the held-out fit, its masses summed over the model axis.
 
     ``faults`` (or the process-wide active plan) fires ``PRE_PROBE`` once
     per model shard, on every rank, before the step: a ``kill`` raises
@@ -223,7 +223,6 @@ def foem_step_sharded(
     sweeps).  The inner sweeps then run with no active plan, as the JAX
     package's traced sweeps see none.
     """
-    kops.refuse_debug_checks(cfg.debug_checks, "foem_step_sharded")
     if cfg.sharded_impl != "two_phase":
         raise kops.ContractError(
             f"sharded_impl={cfg.sharded_impl!r}: the per-column psum hooks "

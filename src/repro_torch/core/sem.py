@@ -63,7 +63,8 @@ def sem_step(
     arrays or tensors; they move to ``device`` (default ``"cuda"``, which
     raises without a GPU).  On a local (W_s, K) view ``vocab_size`` carries
     the global W of the smoothing mass.  ``cfg.debug_checks`` raises
-    ``ContractError`` (the sanitizer is not ported yet).
+    ``ContractError``: SEM's sweeps never reach ``ops.sweep``, where the
+    sanitizer runs, and the JAX package's flag has no effect here.
     """
     kops.refuse_debug_checks(cfg.debug_checks, "sem_step")
     dev = resolve_device(device)

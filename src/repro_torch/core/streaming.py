@@ -677,7 +677,7 @@ def store_from_arrays(
     if type(phi_wk).__name__ == "GlobalStats":
         stats = phi_wk
         phi_wk = np.asarray(stats.phi_wk, np.float32)
-        phi_k = np.asarray(stats.phi_k, np.float64)
+        phi_k = np.asarray(stats.phi_k, np.float64)  # lint: host-f64
         step = int(np.asarray(stats.step))
     if isinstance(phi_wk, np.ndarray):
         if vocab_capacity is None:
@@ -698,10 +698,10 @@ def store_from_arrays(
             raise ValueError(
                 f"row blocks exceed vocab_capacity {vocab_capacity}")
         store._arr[lo:hi] = block
-        sums += block.sum(0, dtype=np.float64)
+        sums += block.sum(0, dtype=np.float64)  # lint: host-f64
         lo = hi
     store._mm.flush()
-    store.phi_k[:] = sums if phi_k is None else np.asarray(phi_k, np.float64)
+    store.phi_k[:] = sums if phi_k is None else np.asarray(phi_k, np.float64)  # lint: host-f64
     store.live_vocab = int(live_vocab)
     store.step = int(step)
     store.flush()

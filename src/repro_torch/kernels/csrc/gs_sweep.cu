@@ -446,7 +446,7 @@ int gs_sweep_launch(const void* word_ids, const void* counts,
   if (err != cudaSuccess) return err;
   // a CTA a document group in the E-step phase
   err = active::launch_cooperative(kernel, p, p.groups, kCtasPerSm, kThreads,
-                                   st, smem);
+                                   st, "gs_loop_kernel", path & 3, smem);
   if (err != cudaSuccess) return err;
   ++*launches;
   if (tok_ll != nullptr) {
@@ -478,3 +478,6 @@ const char* gs_sweep_error_string(int err) {
 }
 
 }  // extern "C"
+
+LAUNCH_LOG_QUERY(gs_loop_kernel)
+LAUNCH_LOG_LIBRARY(gs_sweep)

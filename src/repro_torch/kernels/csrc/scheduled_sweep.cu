@@ -113,3 +113,5 @@ const char* scheduled_sweep_error_string(int err) {
 }
 
 }  // extern "C"
+
+LAUNCH_LOG_LIBRARY(scheduled_sweep)

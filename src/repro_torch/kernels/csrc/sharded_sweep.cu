@@ -483,14 +483,24 @@ int sharded_probe_launch(const void* word_ids, const void* counts,
     const long long threads = tokens * path;
     const unsigned grid =
         (unsigned)((threads + kWarpThreads - 1) / kWarpThreads);
+    launch_log::record("probe_sched_kernel", 0,
+                       reinterpret_cast<const void*>(&probe_sched_kernel),
+                       grid, kWarpThreads, 0);
     probe_sched_kernel<<<grid, kWarpThreads, 0, st>>>(
         wid, cnt, static_cast<const uint8_t*>(token_active), m, th, ph, pk,
         static_cast<const int*>(word_topics), A, path, s,
         static_cast<float*>(pm_out), tokens, L, K, alpha_m1, beta_m1, wb);
   } else if (path == 0) {
+    launch_log::record("probe_dense_kernel", 0,
+                       reinterpret_cast<const void*>(&probe_dense_kernel<true>),
+                       warp_grid(tokens), kWarpThreads, 0);
     probe_dense_kernel<true><<<warp_grid(tokens), kWarpThreads, 0, st>>>(
         wid, cnt, m, th, ph, pk, s, tokens, L, K, alpha_m1, beta_m1, wb);
   } else {
+    launch_log::record(
+        "probe_dense_kernel", 1,
+        reinterpret_cast<const void*>(&probe_dense_kernel<false>),
+        warp_grid(tokens), kWarpThreads, 0);
     probe_dense_kernel<false><<<warp_grid(tokens), kWarpThreads, 0, st>>>(
         wid, cnt, m, th, ph, pk, s, tokens, L, K, alpha_m1, beta_m1, wb);
   }
@@ -604,15 +614,19 @@ int sharded_fold_launch(const void* word_ids, const void* counts,
     const bool vec = K % 4 == 0;
     // a CTA a document in the E-step
     err = vec ? active::launch_cooperative(dense_loop_kernel<true>, p, D,
-                                           kDenseCtasPerSm, kDenseThreads, st)
+                                           kDenseCtasPerSm, kDenseThreads, st,
+                                           "dense_loop_kernel", 0)
               : active::launch_cooperative(dense_loop_kernel<false>, p, D,
                                            kDenseCtasPerSm, kDenseThreads,
-                                           st);
+                                           st, "dense_loop_kernel", 1);
     if (err != cudaSuccess) return err;
     ++*launches;
   }
   if (u != nullptr) {
     const long long tokens = (long long)D * L;
+    launch_log::record("loglik_u_kernel", 0,
+                       reinterpret_cast<const void*>(&loglik_u_kernel),
+                       warp_grid(tokens), kWarpThreads, 0);
     loglik_u_kernel<<<warp_grid(tokens), kWarpThreads, 0, st>>>(
         wid, th, ph, pk, static_cast<float*>(u), tokens, L, K, alpha_m1,
         beta_m1, wb);
@@ -628,3 +642,9 @@ const char* sharded_sweep_error_string(int err) {
 }
 
 }  // extern "C"
+
+LAUNCH_LOG_QUERY(probe_dense_kernel)
+LAUNCH_LOG_QUERY(probe_sched_kernel)
+LAUNCH_LOG_QUERY(dense_loop_kernel)
+LAUNCH_LOG_QUERY(loglik_u_kernel)
+LAUNCH_LOG_LIBRARY(sharded_sweep)

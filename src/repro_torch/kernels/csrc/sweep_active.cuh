@@ -182,6 +182,9 @@ inline cudaError_t launch_copy(const float* src, float* dst, size_t n,
   size_t grid = ((vec ? (n + 3) / 4 : n) + kThreads - 1) / kThreads;
   if (grid > cap) grid = cap;
   if (grid == 0) return cudaSuccess;
+  launch_log::record("copy_kernel", 0,
+                     reinterpret_cast<const void*>(&copy_kernel), grid,
+                     kThreads, 0);
   copy_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(src, dst, n, vec);
   return cudaGetLastError();
 }
@@ -198,17 +201,22 @@ inline cudaError_t launch_stream_pass(const float* src, float* dst,
   const size_t cap = (size_t)sm_count() * kPassCtasPerSm;
   size_t grid = ((vec_zero ? (n + 3) / 4 : n) + kThreads - 1) / kThreads;
   if (grid > cap) grid = cap;
+  launch_log::record("zero_kernel", 0,
+                     reinterpret_cast<const void*>(&zero_kernel), grid,
+                     kThreads, 0);
   zero_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(zero, n, vec_zero);
   return cudaGetLastError();
 }
 
 // Launch a persistent kernel cooperatively: `want` CTAs of `threads` with
 // `smem` bytes of dynamic shared memory, capped at what the card holds at
-// once (occupancy × SMs) and at `per_sm` CTAs an SM.
+// once (occupancy × SMs) and at `per_sm` CTAs an SM. `name` and `variant`
+// identify the kernel in the library's launch records.
 template <typename Params>
 cudaError_t launch_cooperative(void (*kernel)(Params), const Params& p,
                                int want, int per_sm, int threads,
-                               cudaStream_t stream, size_t smem = 0) {
+                               cudaStream_t stream, const char* name,
+                               int variant, size_t smem = 0) {
   int fit = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &fit, kernel, threads, smem);
@@ -216,6 +224,8 @@ cudaError_t launch_cooperative(void (*kernel)(Params), const Params& p,
   if (fit < 1) return cudaErrorInvalidConfiguration;
   const int cap = sm_count() * (fit < per_sm ? fit : per_sm);
   const int grid = want < 1 ? 1 : (want > cap ? cap : want);
+  launch_log::record(name, variant, reinterpret_cast<const void*>(kernel),
+                     grid, threads, smem);
   void* args[] = {const_cast<Params*>(&p)};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
                                     threads, args, smem, stream);
@@ -499,10 +509,15 @@ cudaError_t launch_active_sweep(const ActiveLoop& p, cudaStream_t stream,
   const long long work = (long long)p.D * (p.A > 16 ? 2 * p.A : 32);
   const int want = (int)((work + kThreads - 1) / kThreads);
   err = launch_cooperative(active_loop_kernel<kSharded>, p, want,
-                           kLoopCtasPerSm, kThreads, stream);
+                           kLoopCtasPerSm, kThreads, stream,
+                           "active_loop_kernel", kSharded ? 1 : 0);
   if (err != cudaSuccess) return err;
   ++*launches;
   return cudaSuccess;
 }
 
 }  // namespace active
+
+LAUNCH_LOG_QUERY(copy_kernel)
+LAUNCH_LOG_QUERY(zero_kernel)
+LAUNCH_LOG_QUERY(active_loop_kernel)

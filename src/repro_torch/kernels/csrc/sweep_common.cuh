@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace sweep {
 
 constexpr int kLoglikThreads = 512;  // stop rule: a document a CTA
@@ -248,6 +250,9 @@ inline cudaError_t launch_loglik(const int* word_ids, const float* counts,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
+  launch_log::record("sweep_loglik_kernel", (vec ? 0 : 1) | (staged ? 0 : 2),
+                     reinterpret_cast<const void*>(kernel), D,
+                     kLoglikThreads, staged ? smem : 0);
   kernel<<<D, kLoglikThreads, staged ? smem : 0, stream>>>(
       word_ids, counts, theta, phi, phi_k, tok_ll, L, K, alpha_m1, beta_m1,
       wb, k_alpha);
@@ -255,3 +260,5 @@ inline cudaError_t launch_loglik(const int* word_ids, const float* counts,
 }
 
 }  // namespace sweep
+
+LAUNCH_LOG_QUERY(sweep_loglik_kernel)

@@ -86,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_log.cuh"
+
 namespace {
 
 constexpr int kWideThreads = 1024;  // wide path: threads a CTA
@@ -897,15 +899,25 @@ cudaError_t set_smem(K_ kernel, int smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// φ's element type as a variant number: 0 f32, 1 bf16, 2 int8
+template <typename T>
+constexpr int dtype_code() {
+  return sizeof(T) == 4 ? 0 : sizeof(T) == 2 ? 1 : 2;
+}
+
 template <typename T, bool kVec>
 cudaError_t launch_regs(const Launch& a, cudaStream_t st) {
   // rows staged a reduction: one 40 KB f32 row, two bf16, four int8
   constexpr int G = sizeof(T) == 4 ? 1 : sizeof(T) == 2 ? 2 : 4;
+  constexpr int variant = 2 * dtype_code<T>() + (kVec ? 0 : 1);
   if (a.slots < 2 * G || a.slots > kMaxSlots) return cudaErrorInvalidValue;
   if (a.word_topics == nullptr) {
     auto kernel = theta_sweep_dense<T, G, kVec>;
     cudaError_t err = set_smem(kernel, a.smem);
     if (err != cudaSuccess) return err;
+    launch_log::record("theta_sweep_dense", variant,
+                       reinterpret_cast<const void*>(kernel), a.D,
+                       kRegThreads, a.smem);
     kernel<<<a.D, kRegThreads, a.smem, st>>>(
         static_cast<const int*>(a.word_ids), static_cast<const float*>(a.est),
         static_cast<const float*>(a.ev),
@@ -920,6 +932,9 @@ cudaError_t launch_regs(const Launch& a, cudaStream_t st) {
     auto kernel = theta_sweep_sched<T, G, kVec>;
     cudaError_t err = set_smem(kernel, a.smem);
     if (err != cudaSuccess) return err;
+    launch_log::record("theta_sweep_sched", variant,
+                       reinterpret_cast<const void*>(kernel), a.D,
+                       kRegThreads, a.smem);
     kernel<<<a.D, kRegThreads, a.smem, st>>>(
         static_cast<const int*>(a.word_ids), static_cast<const float*>(a.est),
         static_cast<const float*>(a.ev),
@@ -942,6 +957,10 @@ cudaError_t launch_wide(const Launch& a, cudaStream_t st) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return err;
   }
+  launch_log::record("theta_sweep_wide",
+                     2 * dtype_code<T>() + (kScheduled ? 1 : 0),
+                     reinterpret_cast<const void*>(kernel), a.D,
+                     kWideThreads, a.smem);
   kernel<<<a.D, kWideThreads, a.smem, st>>>(
       static_cast<const int*>(a.word_ids), static_cast<const float*>(a.est),
       static_cast<const float*>(a.ev), static_cast<const float*>(a.theta_in),
@@ -1017,3 +1036,8 @@ const char* theta_sweep_error_string(int err) {
 }
 
 }  // extern "C"
+
+LAUNCH_LOG_QUERY(theta_sweep_dense)
+LAUNCH_LOG_QUERY(theta_sweep_sched)
+LAUNCH_LOG_QUERY(theta_sweep_wide)
+LAUNCH_LOG_LIBRARY(theta_sweep)

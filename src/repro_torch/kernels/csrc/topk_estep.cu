@@ -353,6 +353,9 @@ int topk_estep_launch(const void* theta_a, const void* phi_a,
                       void* delta_out, long long T, int A, float alpha_m1,
                       float beta_m1, float wb, void* stream) {
   const unsigned grid = (unsigned)((T + kWarps - 1) / kWarps);
+  launch_log::record("topk_estep_kernel", 0,
+                     reinterpret_cast<const void*>(&topk_estep_kernel), grid,
+                     kWarpThreads, 0);
   topk_estep_kernel<<<grid, kWarpThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta_a), static_cast<const float*>(phi_a),
@@ -432,7 +435,7 @@ int topk_loop_launch(const void* word_ids, const void* counts,
   const int want = (int)((work + active::kThreads - 1) / active::kThreads);
   err = active::launch_cooperative(topk_loop_kernel, p, want,
                                    active::kLoopCtasPerSm, active::kThreads,
-                                   st);
+                                   st, "topk_loop_kernel", 0);
   if (err != cudaSuccess) return err;
   ++*launches;
   return cudaSuccess;
@@ -443,3 +446,7 @@ const char* topk_estep_error_string(int err) {
 }
 
 }  // extern "C"
+
+LAUNCH_LOG_QUERY(topk_estep_kernel)
+LAUNCH_LOG_QUERY(topk_loop_kernel)
+LAUNCH_LOG_LIBRARY(topk_estep)

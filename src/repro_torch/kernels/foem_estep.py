@@ -25,22 +25,31 @@ then no residual is computed (the trainer's callers use μ alone).
   port of the JAX package's ``ref.fused_estep_ref`` with θ̂ expanded by
   ``repeat_interleave``.
 
+Launch budget (``analysis.contracts``: ``fused_estep_regs``,
+``fused_estep_two_pass``): a CTA of 512 (register path) or 256 threads
+(two-pass) a token row, 132 bytes of static shared memory for the block
+sum and no dynamic shared memory; the register path holds K ≤ 10,240 lanes.
+
 ``fused_estep.launches`` counts kernel launches (a plain integer).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis import contracts, launches
+from repro_torch.analysis.budget import Cell
+from repro_torch.analysis.checks import kernel_fits
 from repro_torch.kernels.gs_sweep import check_cuda_args, ptr
 
 EstepOut = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 #: The widest K the register path holds (``csrc/fused_estep.cu``: 512
-#: threads × 5 four-lane groups).
-REG_MAX_K = 512 * 5 * 4
+#: threads × 5 four-lane groups), a capacity of its launch contract.
+REG_MAX_K = contracts.ESTEP_REG_MAX_K
 
 
 class EstepPath(NamedTuple):
@@ -57,13 +66,19 @@ def estep_path(K: int, operands: Sequence[Optional[torch.Tensor]]
     """The path of a ``fused_estep`` launch at width K over these operands
     (inputs and outputs; None entries are absent): the register path up to
     :data:`REG_MAX_K`, with 16-byte lanes only where K % 4 == 0 and every
-    operand's base is 16-byte aligned; the two-pass path above it.  A
-    plain function of K and the addresses."""
-    if K > REG_MAX_K:
+    operand's base is 16-byte aligned; the two-pass path above it.  The
+    register path's launch contract (``analysis.contracts``) says whether
+    it fits.  A plain function of K and the addresses."""
+    if not _registers_fit(K):
         return EstepPath("two-pass", 2)
     vec = K % 4 == 0 and all(t.data_ptr() % 16 == 0
                              for t in operands if t is not None)
     return EstepPath("registers", 0 if vec else 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def _registers_fit(K: int) -> bool:
+    return kernel_fits("fused_estep_regs", Cell(D=1, L=1, K=K, W_s=0))
 
 
 def tokens_per_row(theta_rows: int, tokens: int) -> int:
@@ -173,19 +188,27 @@ def fused_estep(
     mu = torch.empty_like(phi_rows)
     res = None if mu_old is None else torch.empty_like(phi_rows)
     if T and K:
+        path = estep_path(K, (theta_rows, phi_rows, phi_tot, exclude, mu_old,
+                              mu, res))
         lib = _launcher()
         with torch.cuda.device(phi_rows.device):
             rc = lib.fused_estep_launch(
                 ptr(theta_rows), ptr(phi_rows), ptr(phi_tot), ptr(exclude),
                 ptr(mu_old), ptr(counts if mu_old is not None else None),
                 ptr(mu), ptr(res), T, K, G, float(alpha_m1), float(beta_m1),
-                wb, estep_path(K, (theta_rows, phi_rows, phi_tot, exclude,
-                                   mu_old, mu, res)).code,
-                torch.cuda.current_stream().cuda_stream)
+                wb, path.code, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             msg = lib.fused_estep_error_string(rc).decode()
             raise RuntimeError(f"fused_estep kernel launch failed: {msg} "
                                f"({rc})")
+        if launches.enabled():
+            kw = dict(exclude=exclude is not None, residual=mu_old is not None)
+            if path.kind == "registers":
+                kw["vec"] = path.code == 0
+            launches.note("fused_estep", "fused_estep_regs"
+                          if path.kind == "registers"
+                          else "fused_estep_two_pass",
+                          Cell(D=T, L=1, K=K, W_s=0), **kw)
         fused_estep.launches += 1
     return mu, res
 

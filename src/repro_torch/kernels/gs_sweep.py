@@ -25,17 +25,30 @@ with ``emit_loglik``, the post-sweep eq. 3 data log-likelihood.
 call enqueued: 2 (the barrier's zeroing, the column loop), +1 with
 ``emit_loglik``.  :func:`sweep_loglik_partials` runs the stop-rule phase
 alone (``sweep_loglik_partials.launches`` counts it).
+
+Launch budget (``analysis.contracts``: ``gs_loop_kernel``,
+``sweep_loglik_kernel``): the column loop is one cooperative launch of
+512-thread CTAs, two an SM, each with 2·4·⌈K/4⌉ floats of dynamic shared
+memory (μ_old and the group sums; none on the two-pass path) and 132 bytes
+static; the stop rule takes 4·⌈K/4⌉ floats of w(k) in shared memory where
+they fit the 227 KB opt-in (eq. 3).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis import contracts, launches
+from repro_torch.analysis.budget import Cell
+from repro_torch.analysis.checks import kernel_fits
+
 #: The register path's widest K (512 threads × 5 float4 lane groups in
-#: ``csrc/gs_sweep.cu``); wider sweeps take the two-pass path.
-REG_MAX_K = 512 * 5 * 4
+#: ``csrc/gs_sweep.cu``, a capacity of its launch contract); wider sweeps
+#: take the two-pass path.
+REG_MAX_K = contracts.GS_REG_GROUPS * 4
 #: Documents per φ̂(k) partial sum of the column loop: a fixed group of
 #: consecutive documents, so neither the grid nor padding documents at the
 #: end change the sum's order.
@@ -270,14 +283,21 @@ class SweepPath(NamedTuple):
     code: int   # the kernel's path argument: bit 0 scalar lanes, bit 1 wide
 
 
+@functools.lru_cache(maxsize=1024)
+def _registers_fit(K: int) -> bool:
+    return kernel_fits("gs_loop_kernel", Cell(D=1, L=1, K=K, W_s=1),
+                       wide=False)
+
+
 def dense_path(K: int, operands: Sequence[torch.Tensor]) -> SweepPath:
     """The path of a ``gs_sweep`` launch at width K over these caller
     operands (the wrapper's own buffers are 16-byte aligned): the register
-    path up to :data:`REG_MAX_K`, the two-pass path above it; 16-byte lanes
+    path where its launch contract fits (K ≤ :data:`REG_MAX_K`), the
+    two-pass path above it; 16-byte lanes
     only where K % 4 == 0 and every operand's base is 16-byte aligned.  A
     plain function of K and the addresses."""
     vec = K % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in operands)
-    wide = K > REG_MAX_K
+    wide = not _registers_fit(K)
     return SweepPath("two-pass" if wide else "registers",
                      (0 if vec else 1) | (2 if wide else 0))
 
@@ -334,6 +354,18 @@ def _raise_on(lib, rc: int, kernel: str) -> None:
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Every tensor's base address is 16-byte aligned."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def note_loglik(library: str, cell: Cell, theta, phi, phi_k) -> None:
+    """Note the stop-rule kernel's launch (``csrc/sweep_common.cuh``: 16-byte
+    lanes where K % 4 == 0 and the three bases are aligned)."""
+    launches.note(library, "sweep_loglik_kernel", cell,
+                  vec=cell.K % 4 == 0 and aligned16(theta, phi, phi_k))
 
 
 def gs_sweep(
@@ -397,6 +429,12 @@ def gs_sweep(
                 torch.cuda.current_stream().cuda_stream,
             )
         _raise_on(lib, rc, "gs_sweep")
+        if launches.enabled():
+            cell = Cell(D=D, L=L, K=K, W_s=phi_wk.shape[0])
+            launches.note("gs_sweep", "gs_loop_kernel", cell,
+                          vec=not path.code & 1, wide=bool(path.code & 2))
+            if emit_loglik:
+                note_loglik("gs_sweep", cell, theta_o, phi_o, ptot_o)
         gs_sweep.launches += 1
         gs_sweep.launches_per_call = enqueued.value
     loglik = tok_ll.sum() if emit_loglik else None
@@ -449,6 +487,9 @@ def sweep_loglik_partials(
                 float(beta_m1), wb, float(K * alpha_m1),
                 torch.cuda.current_stream().cuda_stream)
         _raise_on(lib, rc, "sweep_loglik_partials")
+        if launches.enabled():
+            note_loglik("gs_sweep", Cell(D=D, L=L, K=K, W_s=phi_wk.shape[0]),
+                        theta, phi_wk, phi_k)
         sweep_loglik_partials.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """Kernel dispatch layer (PyTorch port of ``repro.kernels.ops``).
 
 Two entry points, each with its eager argument contracts (``ContractError``,
-the port of ``repro.analysis.validate``):
+from ``analysis.validate``) and, under ``debug_checks=True``, the
+numerical invariants of ``analysis.sanitizer`` on its result:
 
 * :func:`sweep` — one column-serial Gauss-Seidel training sweep, dense
   (full-K IEM) or scheduled (active-set, §3.1), returning a ``SweepResult``.
@@ -37,8 +38,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.validate import (
+    PHI_DTYPES,
+    ContractError,
+    SanitizerError,
+    refuse_debug_checks,
+    require,
+    validate_infer_args,
+    validate_sweep_args,
+)
 from repro_torch.core.types import InferPlan, InferResult, SweepPlan, SweepResult
-from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import foem_estep as _foem_estep
 from repro_torch.kernels import topk_estep as _topk_estep
 from repro_torch.kernels.gs_sweep import gs_sweep, segment_sum
@@ -48,207 +57,16 @@ from repro_torch.kernels.sharded_sweep import (
     sharded_probe,
     token_lane_masks,
 )
-from repro_torch.kernels.theta_sweep import (
-    PHI_DTYPES,
-    quantize_phi,
-    theta_sweep,
-)
+from repro_torch.kernels.theta_sweep import quantize_phi, theta_sweep
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 
-__all__ = ["ContractError", "Device", "attention", "check_index_ranges",
-           "fused_estep", "infer", "resolve_device", "sweep", "topk_estep",
+__all__ = ["ContractError", "Device", "PHI_DTYPES", "SanitizerError",
+           "attention", "check_index_ranges", "fused_estep", "infer",
+           "refuse_debug_checks", "resolve_device", "sweep", "topk_estep",
            "validate_attention_args", "validate_estep_args",
            "validate_infer_args", "validate_sweep_args",
            "validate_topk_args"]
-
-
-class ContractError(ValueError):
-    """An ``ops`` entry point's argument violates a launch contract."""
-
-
-def _require(ok: bool, msg: str) -> None:
-    if not ok:
-        raise ContractError(msg)
-
-
-def refuse_debug_checks(debug_checks: bool, where: str) -> None:
-    """Raise ContractError for ``debug_checks=True``: the JAX package's
-    numerical-invariant sanitizer (``cfg.debug_checks``) is not ported yet
-    (ROADMAP.md queue 1 item 6), and a request for checks must not pass
-    silently unchecked."""
-    _require(not debug_checks,
-             f"{where}: debug_checks=True asks for the numerical-invariant "
-             "sanitizer, which the port does not have yet (ROADMAP.md "
-             "queue 1 item 6, the sanitizer port); run with "
-             "debug_checks=False")
-
-
-def _is_int(t: torch.Tensor) -> bool:
-    return not (t.dtype.is_floating_point or t.dtype.is_complex
-                or t.dtype == torch.bool)
-
-
-def _check_plan(plan) -> None:
-    """A sharded plan names its model axis by a ``launch.mesh.MeshAxis``."""
-    axis = getattr(plan, "axis_name", None)
-    _require(
-        axis is None or hasattr(axis, "all_reduce"),
-        f"a topic-sharded plan takes the model axis of a launch.mesh.Mesh "
-        f"(mesh.model), which carries its process group, not "
-        f"{type(axis).__name__} {axis!r}",
-    )
-
-
-def _check_word_topics(word_topics, num_rows: int, num_topics: int) -> None:
-    if word_topics is None:
-        return
-    _require(
-        word_topics.ndim == 2,
-        f"word_topics must be (W_s, A) per-word active topic sets, got "
-        f"shape {tuple(word_topics.shape)}",
-    )
-    _require(
-        _is_int(word_topics),
-        f"word_topics must be an integer array, got dtype "
-        f"{word_topics.dtype}",
-    )
-    _require(
-        word_topics.shape[0] == num_rows,
-        f"word_topics rows ({word_topics.shape[0]}) must match the phi "
-        f"working-set rows W_s ({num_rows})",
-    )
-    _require(
-        word_topics.shape[1] <= num_topics,
-        f"word_topics active set A ({word_topics.shape[1]}) cannot exceed "
-        f"K ({num_topics})",
-    )
-
-
-def validate_infer_args(
-    word_ids, est_counts, theta0, phi_norm,
-    *,
-    ev_counts=None,
-    word_topics=None,
-    plan: Optional[InferPlan] = None,
-    phi_dtype: str = "float32",
-) -> None:
-    """Check every ``ops.infer`` argument contract; raise ContractError.
-
-    Shape/dtype-only: no tensor value is read.  ``phi_norm`` arrives as the
-    caller's float32 array; quantization happens after validation.
-    """
-    _require(
-        phi_dtype in PHI_DTYPES,
-        f"phi_dtype must be one of {PHI_DTYPES}, got {phi_dtype!r}",
-    )
-    _check_plan(plan)
-    _require(
-        plan is None or plan.axis_name is None or phi_dtype == "float32",
-        f"a topic-sharded InferPlan takes float32 phi, not {phi_dtype}: its "
-        "fit is plain PyTorch and quantization is a kernel storage format",
-    )
-    _require(
-        word_ids.ndim == 2 and _is_int(word_ids),
-        f"word_ids must be a (D, L) integer array, got shape "
-        f"{tuple(word_ids.shape)} dtype {word_ids.dtype}",
-    )
-    D, L = word_ids.shape
-    _require(
-        tuple(est_counts.shape) == (D, L)
-        and est_counts.dtype.is_floating_point,
-        f"est_counts must be a float (D, L) = ({D}, {L}) array matching "
-        f"word_ids, got shape {tuple(est_counts.shape)} dtype "
-        f"{est_counts.dtype}",
-    )
-    if ev_counts is not None:
-        _require(
-            tuple(ev_counts.shape) == (D, L),
-            f"ev_counts must share word_ids' (D, L) = ({D}, {L}) layout "
-            f"(split_heldout_counts preserves it), got "
-            f"{tuple(ev_counts.shape)}",
-        )
-    _require(
-        theta0.ndim == 2 and theta0.shape[0] == D,
-        f"theta0 must be (D, K) with D = {D}, got {tuple(theta0.shape)}",
-    )
-    K = theta0.shape[-1]
-    _require(
-        phi_norm.ndim == 2 and phi_norm.shape[1] == K,
-        f"phi_norm must be (W_s, K) with K = {K}, got "
-        f"{tuple(phi_norm.shape)}",
-    )
-    _require(
-        theta0.dtype == phi_norm.dtype == torch.float32,
-        f"theta0 ({theta0.dtype}) and phi_norm ({phi_norm.dtype}) must both "
-        "be float32: the fixed point computes in float32",
-    )
-    _check_word_topics(word_topics, phi_norm.shape[0], K)
-
-
-def validate_sweep_args(
-    word_ids, counts, mu, theta, phi_wk, phi_k,
-    *,
-    word_topics=None,
-    token_active=None,
-    plan: Optional[SweepPlan] = None,
-    norm_psum=None,
-    renorm_psum=None,
-) -> None:
-    """Check every ``ops.sweep`` argument contract; raise ContractError.
-
-    Shape/dtype-only: no tensor value is read.
-    """
-    _check_plan(plan)
-    _require(
-        norm_psum is None and renorm_psum is None,
-        "norm_psum/renorm_psum reduction hooks are not ported yet: they "
-        "come with a later slice of the port, with the hooks mode",
-    )
-    _require(
-        word_ids.ndim == 2 and _is_int(word_ids),
-        f"word_ids must be a (D, L) integer array, got shape "
-        f"{tuple(word_ids.shape)} dtype {word_ids.dtype}",
-    )
-    D, L = word_ids.shape
-    _require(
-        tuple(counts.shape) == (D, L) and counts.dtype.is_floating_point,
-        f"counts must be a float (D, L) = ({D}, {L}) array matching "
-        f"word_ids, got shape {tuple(counts.shape)} dtype {counts.dtype}",
-    )
-    _require(
-        mu.ndim == 3 and tuple(mu.shape[:2]) == (D, L),
-        f"mu must be (D, L, K) = ({D}, {L}, K) responsibilities, got "
-        f"shape {tuple(mu.shape)}",
-    )
-    K = mu.shape[-1]
-    _require(
-        tuple(theta.shape) == (D, K),
-        f"theta must be (D, K) = ({D}, {K}), got {tuple(theta.shape)}",
-    )
-    _require(
-        phi_wk.ndim == 2 and phi_wk.shape[1] == K,
-        f"phi_wk must be (W_s, K) with K = {K}, got "
-        f"{tuple(phi_wk.shape)}",
-    )
-    _require(
-        tuple(phi_k.shape) == (K,),
-        f"phi_k must be (K,) = ({K},), got {tuple(phi_k.shape)}",
-    )
-    dtypes = {"mu": mu.dtype, "theta": theta.dtype,
-              "phi_wk": phi_wk.dtype, "phi_k": phi_k.dtype}
-    _require(
-        set(dtypes.values()) == {torch.float32},
-        "mu/theta/phi_wk/phi_k must all be float32 (the sweep computes in "
-        "float32), got " + ", ".join(f"{k}={v}" for k, v in dtypes.items()),
-    )
-    _check_word_topics(word_topics, phi_wk.shape[0], K)
-    if token_active is not None:
-        _require(
-            tuple(token_active.shape) == (D, L),
-            f"token_active must be a (D, L) = ({D}, {L}) mask, got "
-            f"{tuple(token_active.shape)}",
-        )
 
 
 def check_index_ranges(word_ids, word_topics, num_rows: int,
@@ -268,7 +86,7 @@ def check_index_ranges(word_ids, word_topics, num_rows: int,
     bounds = torch.stack([torch.stack(torch.aminmax(t)).long()
                           for _, t, _ in named]).tolist()
     for (name, _, hi), (lo_v, hi_v) in zip(named, bounds):
-        _require(
+        require(
             0 <= lo_v and hi_v < hi,
             f"{name} values must lie in [0, {hi}), got [{lo_v}, {hi_v}]",
         )
@@ -276,7 +94,7 @@ def check_index_ranges(word_ids, word_topics, num_rows: int,
 
 def _check_same_device(named) -> None:
     devices = {t.device for _, t in named if t is not None}
-    _require(
+    require(
         len(devices) == 1,
         "all operands must lie on one device, got "
         + ", ".join(f"{n}={t.device}" for n, t in named if t is not None),
@@ -287,13 +105,13 @@ def validate_estep_args(theta_rows, phi_rows, phi_tot, exclude, mu_old,
                         counts) -> None:
     """Check every ``ops.fused_estep`` argument contract; raise
     ContractError.  Shape/dtype/device only: no tensor value is read."""
-    _require(
+    require(
         phi_rows.ndim == 2,
         f"phi_rows must be (T, K) gathered rows, got shape "
         f"{tuple(phi_rows.shape)}",
     )
     T, K = phi_rows.shape
-    _require(
+    require(
         theta_rows.ndim == 2 and theta_rows.shape[1] == K,
         f"theta_rows must be (T, K) or (T/G, K) with K = {K}, got "
         f"{tuple(theta_rows.shape)}",
@@ -302,17 +120,17 @@ def validate_estep_args(theta_rows, phi_rows, phi_tot, exclude, mu_old,
         _foem_estep.tokens_per_row(theta_rows.shape[0], T)
     except ValueError as e:
         raise ContractError(f"theta_rows: {e}") from None
-    _require(
+    require(
         tuple(phi_tot.shape) == (K,),
         f"phi_tot must be (K,) = ({K},), got {tuple(phi_tot.shape)}",
     )
     for name, t in (("exclude", exclude), ("mu_old", mu_old)):
-        _require(
+        require(
             t is None or tuple(t.shape) == (T, K),
             f"{name} must be (T, K) = ({T}, {K}), got "
             f"{None if t is None else tuple(t.shape)}",
         )
-    _require(
+    require(
         mu_old is None or (counts is not None
                            and tuple(counts.shape) == (T,)),
         f"with mu_old, counts must be (T,) = ({T},), got "
@@ -323,8 +141,8 @@ def validate_estep_args(theta_rows, phi_rows, phi_tot, exclude, mu_old,
              ("counts", counts if mu_old is not None else None)]
     bad = [f"{n}={t.dtype}" for n, t in named
            if t is not None and t.dtype != torch.float32]
-    _require(not bad, "every fused_estep operand must be float32 (the "
-                      "E-step computes in float32), got " + ", ".join(bad))
+    require(not bad, "every fused_estep operand must be float32 (the "
+                     "E-step computes in float32), got " + ", ".join(bad))
     _check_same_device(named)
 
 
@@ -351,7 +169,7 @@ def validate_topk_args(theta_a, phi_a, ptot_a, mu_prev_a, counts,
                        active) -> None:
     """Check every ``ops.topk_estep`` argument contract; raise
     ContractError.  Shape/dtype/device only."""
-    _require(
+    require(
         mu_prev_a.ndim == 2 and mu_prev_a.shape[1] >= 1,
         f"mu_prev_a must be (T, A) with A >= 1, got "
         f"{tuple(mu_prev_a.shape)}",
@@ -359,22 +177,22 @@ def validate_topk_args(theta_a, phi_a, ptot_a, mu_prev_a, counts,
     T, A = mu_prev_a.shape
     for name, t in (("theta_a", theta_a), ("phi_a", phi_a),
                     ("ptot_a", ptot_a)):
-        _require(
+        require(
             tuple(t.shape) == (T, A),
             f"{name} must be (T, A) = ({T}, {A}), got {tuple(t.shape)}",
         )
     for name, t in (("counts", counts), ("active", active)):
-        _require(
+        require(
             tuple(t.shape) == (T,),
             f"{name} must be (T,) = ({T},), got {tuple(t.shape)}",
         )
     named = [("theta_a", theta_a), ("phi_a", phi_a), ("ptot_a", ptot_a),
              ("mu_prev_a", mu_prev_a), ("counts", counts)]
     bad = [f"{n}={t.dtype}" for n, t in named if t.dtype != torch.float32]
-    _require(not bad, "theta_a/phi_a/ptot_a/mu_prev_a/counts must be "
-                      "float32, got " + ", ".join(bad))
-    _require(active.dtype == torch.bool,
-             f"active must be a bool mask, got {active.dtype}")
+    require(not bad, "theta_a/phi_a/ptot_a/mu_prev_a/counts must be "
+                     "float32, got " + ", ".join(bad))
+    require(active.dtype == torch.bool,
+            f"active must be a bool mask, got {active.dtype}")
     _check_same_device(named + [("active", active)])
 
 
@@ -397,13 +215,15 @@ def validate_attention_args(q, k, v, *, window: int, q_offset: int) -> None:
     type of float32 / bfloat16, head dim in [1, 128], one device,
     contiguity), a window >= 0 and an int32-safe q_offset — on every
     device; raise ContractError.  No tensor value is read."""
+    from repro_torch.kernels import flash_attention as _flash  # LM stack
+
     try:
         _flash.check_kernel_args(q, k, v)
     except ValueError as e:
         raise ContractError(str(e)) from None
-    _require(int(window) >= 0, f"window must be >= 0 (0 = none), got {window}")
-    _require(abs(int(q_offset)) < 2 ** 30,
-             f"q_offset must lie in (-2^30, 2^30), got {q_offset}")
+    require(int(window) >= 0, f"window must be >= 0 (0 = none), got {window}")
+    require(abs(int(q_offset)) < 2 ** 30,
+            f"q_offset must lie in (-2^30, 2^30), got {q_offset}")
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -415,6 +235,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     the CPU.  The port of the JAX package's ``ops.attention``.
     Contracts are checked eagerly (``ContractError``)."""
     validate_attention_args(q, k, v, window=window, q_offset=q_offset)
+    from repro_torch.kernels import flash_attention as _flash  # LM stack
+
     return _flash.flash_attention(q, k, v, causal=causal, window=int(window),
                                   q_offset=int(q_offset))
 
@@ -469,7 +291,7 @@ def infer(
     check_every: int = 10,
     rel_tol: float = 0.0,
     plan: Optional[InferPlan] = None,
-    debug_checks: bool = False,  # the sanitizer: not ported, refused
+    debug_checks: bool = False,  # numerical-invariant sanitizer
     device: Device = "cuda",
 ) -> InferResult:
     """Frozen-φ inference for unseen documents — THE serving entry point.
@@ -508,10 +330,12 @@ def infer(
       It takes float32 φ only.
     * ``word_ids`` outside [0, W_s) or ``word_topics`` outside [0, K)
       raise ``ContractError`` on every device, before any launch.
-    * ``debug_checks=True`` (``cfg.debug_checks``) raises ``ContractError``:
-      the sanitizer it asks for is not ported yet.
+    * ``debug_checks=True`` (``cfg.debug_checks``) runs the
+      ``analysis.sanitizer`` invariants on the result (θ̂ finite,
+      non-negative, row mass = estimation tokens; finite, non-positive
+      log-likelihoods), reduced over ``plan.axis_name`` when sharded, at one
+      device sync; a failure raises ``SanitizerError``.
     """
-    refuse_debug_checks(debug_checks, "ops.infer")
     dev = resolve_device(device)
     phi_dtype = plan.phi_dtype if plan is not None else "float32"
     word_ids, est_counts = _tensor(word_ids), _tensor(est_counts)
@@ -580,13 +404,19 @@ def infer(
             if bool(torch.abs(last_ppl - ppl) < rel_tol * ppl):
                 break
             last_ppl = ppl
-    return InferResult(
+    result = InferResult(
         theta=theta,
         sweeps=sweeps,
         est_loglik=est_ll,
         ev_loglik=ev_ll_tok.sum(),
         ev_loglik_doc=ev_ll_tok.sum(-1),
     )
+    if debug_checks:
+        from repro_torch.analysis import sanitizer
+
+        sanitizer.infer_invariants(result, est_counts=est_counts,
+                                   axis_name=axis)
+    return result
 
 
 def _assemble_sharded_loglik(counts, u_glob, th_den):
@@ -659,7 +489,7 @@ def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
     # total: a topic's per-column adds round alike in float32 against its
     # large total, so the running total drifts from the rows, sweep after
     # sweep, by more than a random walk would
-    ptot_o = phi_o.sum(0, dtype=torch.float64).to(phi_o.dtype)
+    ptot_o = phi_o.sum(0, dtype=torch.float64).to(phi_o.dtype)  # lint: host-f64
     return SweepResult(mu_corr, theta_o, phi_o, ptot_o, res, ll)
 
 
@@ -681,7 +511,7 @@ def sweep(
     renorm_psum=None,
     plan: Optional[SweepPlan] = None,
     check_indices: bool = True,
-    debug_checks: bool = False,  # the sanitizer: not ported, refused
+    debug_checks: bool = False,  # numerical-invariant sanitizer
     device: Device = "cuda",
 ) -> SweepResult:
     """One column-serial Gauss-Seidel sweep — THE sweep entry point.
@@ -710,12 +540,16 @@ def sweep(
       The raw ``norm_psum``/``renorm_psum`` hooks of the JAX package's
       per-column hooks mode are not ported yet and raise
       ``ContractError``.
-    * ``debug_checks=True`` (``cfg.debug_checks``) raises ``ContractError``:
-      the sanitizer it asks for is not ported yet.
+    * ``debug_checks=True`` (``cfg.debug_checks``) runs the
+      ``analysis.sanitizer`` invariants on the result (μ simplex or eq. 38
+      active-set mass, θ̂ row mass, φ̂ totals, signs, finiteness, inert
+      padding), reduced over ``plan.axis_name`` when sharded, at one device
+      sync; a failure raises ``SanitizerError``.  The kernels write every
+      output into a new buffer, so the inputs are the "before" state and no
+      copy of μ or φ̂ is kept.
     * The process-wide fault plan's ``PRE_PROBE`` point fires first
       (``runtime.faults.fire_active``).
     """
-    refuse_debug_checks(debug_checks, "ops.sweep")
     fault_lib.fire_active(fault_lib.PRE_PROBE)
     dev = resolve_device(device)
     word_ids, counts, mu = _tensor(word_ids), _tensor(counts), _tensor(mu)
@@ -745,17 +579,27 @@ def sweep(
     if check_indices:
         check_index_ranges(word_ids, word_topics, phi_wk.shape[0],
                            mu.shape[-1])
-    if plan is not None and plan.axis_name is not None:
-        return _sweep_two_phase(
+    axis = plan.axis_name if plan is not None else None
+    if axis is not None:
+        result = _sweep_two_phase(
             word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
             token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
-            axis=plan.axis_name, compute_loglik=compute_loglik)
-    kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
-              emit_loglik=compute_loglik)
-    args = (word_ids, counts, mu, theta, phi_wk, phi_k)
-    if word_topics is not None:
-        out = scheduled_sweep(*args, word_topics, token_active, **kw)
+            axis=axis, compute_loglik=compute_loglik)
     else:
-        out = gs_sweep(*args, **kw)
-    mu_new, res, theta_o, phi_o, ptot_o, ll = out
-    return SweepResult(mu_new, theta_o, phi_o, ptot_o, res, ll)
+        kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
+                  emit_loglik=compute_loglik)
+        args = (word_ids, counts, mu, theta, phi_wk, phi_k)
+        if word_topics is not None:
+            out = scheduled_sweep(*args, word_topics, token_active, **kw)
+        else:
+            out = gs_sweep(*args, **kw)
+        mu_new, res, theta_o, phi_o, ptot_o, ll = out
+        result = SweepResult(mu_new, theta_o, phi_o, ptot_o, res, ll)
+    if debug_checks:
+        from repro_torch.analysis import sanitizer
+
+        sanitizer.sweep_invariants(
+            result, counts=counts, mu_before=mu, phi_wk_before=phi_wk,
+            phi_k_before=phi_k, word_topics=word_topics,
+            token_active=token_active, word_ids=word_ids, axis_name=axis)
+    return result

@@ -22,18 +22,28 @@ is the eq. 36 replacement value |Δ| = counts·|μ_new − μ_old|, full-K.
 ``scheduled_sweep.launches_per_call`` is the number of CUDA operations the
 last call enqueued: 4 (the pass's copy and zeroing launches, enqueued
 first, the barrier's zeroing, the column loop), +1 with ``emit_loglik``.
+
+Launch budget (``analysis.contracts``: ``copy_kernel``, ``zero_kernel``,
+``active_loop_kernel``, ``sweep_loglik_kernel``): the pass and the column
+loop take no shared memory; the loop is one cooperative launch of
+256-thread CTAs, at most two an SM, running the eq. 13 self-excluded
+E-step and the eq. 38 renormalisation on the active lanes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.analysis import launches
+from repro_torch.analysis.budget import Cell
 
 from repro_torch.kernels.gs_sweep import (
     SweepOut,
     check_cuda_args,
     dense_operands,
+    note_loglik,
     ptr,
     sweep_loglik,
 )
@@ -114,6 +124,20 @@ def sorted_runs(key: torch.Tensor,
     order = torch.where(key < sentinel, order, -1)
     return (order.to(torch.int32).contiguous(),
             key.to(torch.int32).contiguous())
+
+
+def note_pass(library: str, cell: Cell, mu_in: torch.Tensor,
+              mu_out: torch.Tensor, res, loop: Optional[str]) -> None:
+    """Note a streaming pass (the copy, and the residual's zeroing where
+    ``res`` is given; 16-byte accesses where the bases are aligned) and,
+    where named, the persistent ``loop`` behind it."""
+    launches.note(library, "copy_kernel", cell,
+                  offset=(mu_in.data_ptr() | mu_out.data_ptr()) % 16)
+    if res is not None:
+        launches.note(library, "zero_kernel", cell,
+                      offset=res.data_ptr() % 16)
+    if loop is not None:
+        launches.note(library, loop, cell)
 
 
 def fold_orders(word_ids: torch.Tensor, live: torch.Tensor, num_rows: int,
@@ -244,6 +268,13 @@ def scheduled_sweep(
                 torch.cuda.current_stream().cuda_stream,
             )
         _raise_on(lib, rc)
+        if launches.enabled():
+            note_pass("scheduled_sweep", Cell(D=D, L=L, K=K, W_s=W_s, A=A),
+                      mu, mu_out, res, loop="active_loop_kernel")
+            if emit_loglik:
+                note_loglik("scheduled_sweep",
+                            Cell(D=D, L=L, K=K, W_s=W_s, A=A), theta_o,
+                            phi_o, ptot_o)
         scheduled_sweep.launches += 1
         scheduled_sweep.launches_per_call = 2 + enqueued.value  # + the pass
     loglik = tok_ll.sum() if emit_loglik else None

@@ -41,6 +41,13 @@ E-step are the per-token normalisers.  ``ops.sweep`` runs one sweep as:
 operations the last fold call enqueued: 4 scheduled (the pass's copy and
 zeroing launches, enqueued first, the barrier's zeroing, the column loop),
 2 dense (no pass), +1 with ``emit_loglik``.
+
+Launch budget (``analysis.contracts``: ``probe_dense_kernel``,
+``probe_sched_kernel``, ``dense_loop_kernel``,
+``active_loop_kernel_sharded``, ``loglik_u_kernel``, ``copy_kernel``,
+``zero_kernel``): the probes and the u partials take no shared memory, the
+dense fold 132 bytes of static shared memory a 512-thread CTA (a
+cooperative launch, two an SM); the folds write the eq. 36 residuals.
 """
 from __future__ import annotations
 
@@ -49,13 +56,16 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis import contracts, launches
+from repro_torch.analysis.budget import Cell
+
 from repro_torch.kernels.gs_sweep import (
     check_cuda_args,
     column_segments,
     dense_operands,
     ptr,
 )
-from repro_torch.kernels.scheduled_sweep import fold_orders
+from repro_torch.kernels.scheduled_sweep import fold_orders, note_pass
 from repro_torch.kernels.theta_sweep import word_lane_masks
 
 #: Documents per φ̂(k) partial sum of the dense fold (kGroupDocs in
@@ -76,7 +86,7 @@ def probe_path(K: int, A: int,
     power of two ≥ A, at most 32 — so that 32 / span tokens share a warp.  A
     plain function of K, A and the addresses."""
     if A:
-        return ProbePath("packed", min(32, 1 << (A - 1).bit_length()))
+        return ProbePath("packed", contracts.probe_span(A))
     vec = K % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in operands)
     return ProbePath("float4" if vec else "scalar", 0 if vec else 1)
 
@@ -323,6 +333,13 @@ def sharded_probe(
                 ptr(pm), D, L, K, path.code, float(alpha_m1),
                 float(beta_m1), wb, torch.cuda.current_stream().cuda_stream)
         _raise_on(lib, rc, "sharded_probe")
+        if launches.enabled():
+            cell = Cell(D=D, L=L, K=K, W_s=W, A=A)
+            if A:
+                launches.note("sharded_sweep", "probe_sched_kernel", cell)
+            else:
+                launches.note("sharded_sweep", "probe_dense_kernel", cell,
+                              vec=path.code == 0)
         sharded_probe.launches += 1
     return s, pm
 
@@ -421,6 +438,15 @@ def sharded_fold(
                 float(alpha_m1), float(beta_m1), wb, ctypes.byref(enqueued),
                 torch.cuda.current_stream().cuda_stream)
         _raise_on(lib, rc, "sharded_fold")
+        if launches.enabled():
+            cell = Cell(D=D, L=L, K=K, W_s=W, A=A)
+            if A:
+                note_pass("sharded_sweep", cell, mu, mu_out, res,
+                          loop="active_loop_kernel_sharded")
+            else:
+                launches.note("sharded_sweep", "dense_loop_kernel", cell)
+            if emit_loglik:
+                launches.note("sharded_sweep", "loglik_u_kernel", cell)
         sharded_fold.launches += 1
         sharded_fold.launches_per_call = passes + enqueued.value
     return mu_out, res, theta_o, phi_o, ptot_o, live_m, u

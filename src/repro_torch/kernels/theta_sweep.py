@@ -35,32 +35,34 @@ per-row float32 scale (:func:`quantize_phi`), and is dequantized on read.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-#: Serving φ storage dtypes ``ops.infer`` accepts (InferPlan.phi_dtype).
-PHI_DTYPES = ("float32", "bfloat16", "int8")
+from repro_torch.analysis import contracts, launches
+from repro_torch.analysis.budget import Cell
+from repro_torch.analysis.checks import kernel_fits
+from repro_torch.analysis.validate import PHI_DTYPES
 
 _PHI_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-#: Dynamic shared memory one CTA may take on Hopper (227 KB opt-in less the
-#: kernel's 132 bytes of static reduction space, with margin).  The kernel
-#: keeps 3·K floats per document there when they fit, else in a global
-#: scratch the wrapper allocates.
-SMEM_BUDGET = 232_448 - 1024
 
 #: The register paths (``csrc/theta_sweep.cu``): 512 threads a document,
 #: 5 four-lane groups a thread, so K ≤ 10,240; two CTAs an SM, each with at
 #: most RING_BUDGET bytes of dynamic shared memory for the φ-row ring (and,
 #: scheduled, θ̂'s 8·K bytes of state and two 8 KB staging buffers) and the
-#: document's 16·L bytes of staged token columns.
-REG_MAX_K = 512 * 4 * 5
-RING_BUDGET = 108 * 1024
-MAX_SLOTS = 8
-SCHED_STAGE = 1024                     # (token, lane) entries a buffer
+#: document's 16·L bytes of staged token columns.  The wide path keeps 3·K
+#: floats a document in shared memory when they fit, else in a global
+#: scratch.  The launch contracts (``analysis.contracts``) hold these sizes;
+#: :func:`sweep_path` asks them which path fits.
+REG_MAX_K = contracts.THETA_REG_MAX_K
+RING_BUDGET = contracts.RING_BUDGET
+MAX_SLOTS = contracts.MAX_SLOTS
+SCHED_STAGE = contracts.SCHED_STAGE
 #: Rows that share one block reduction, by φ element size (f32, bf16, int8).
-GROUP_ROWS = {4: 1, 2: 2, 1: 4}
+GROUP_ROWS = contracts.GROUP_ROWS
+SMEM_BUDGET = contracts.THETA_STATE_BUDGET
+_ITEMSIZE_DTYPE = {v: k for k, v in contracts.PHI_ITEMSIZE.items()}
 
 
 class SweepPath(NamedTuple):
@@ -81,21 +83,28 @@ def sweep_path(K: int, A: int, L: int, itemsize: int,
                phi_ptr: int) -> SweepPath:
     """The path of a launch at width K with A active topics (0: dense) over
     L token columns and φ of ``itemsize``-byte elements at address
-    ``phi_ptr``: the register paths where the lanes, the staging buffers
-    and a ring of two reductions' rows fit; else the wide path.  A plain
-    function of its arguments (the CPU tests hold it)."""
-    row = K * itemsize
-    stride = -(-row // 16) * 16 + 16
-    room = RING_BUDGET - 16 * L
-    slots = min(MAX_SLOTS, max(room, 0) // stride)
-    sched = 8 * K + 16 * SCHED_STAGE if A else 0
-    if (K <= REG_MAX_K and A <= SCHED_STAGE and sched <= room
-            and slots >= 2 * GROUP_ROWS[itemsize]):
-        vec = row % 16 == 0 and phi_ptr % 16 == 0
-        meta_off = -(-max(slots * stride, sched) // 16) * 16
-        return SweepPath("registers", 0 if vec else 1, slots, stride,
-                         meta_off, meta_off + 16 * L)
-    if 3 * K * 4 <= SMEM_BUDGET:
+    ``phi_ptr``: the register paths where their launch contract fits (the
+    lanes, the staging buffers and a ring of two reductions' rows), with
+    16-byte row reads where rows and base are 16-byte aligned; else the
+    wide path, its state in shared memory where that contract fits, else
+    in a global scratch.  A plain function of its arguments (the CPU tests
+    hold it)."""
+    vec = (K * itemsize) % 16 == 0 and phi_ptr % 16 == 0
+    return _sweep_path(K, A, L, itemsize, vec)
+
+
+@functools.lru_cache(maxsize=1024)
+def _sweep_path(K: int, A: int, L: int, itemsize: int,
+                vec: bool) -> SweepPath:
+    dtype = _ITEMSIZE_DTYPE[itemsize]
+    cell = Cell(D=1, L=L, K=K, W_s=1, A=A)
+    if kernel_fits(contracts.theta_contract("sched" if A else "dense",
+                                            dtype), cell, vec=vec):
+        ring = contracts.theta_ring(K, A, L, itemsize)
+        return SweepPath("registers", 0 if vec else 1, ring.slots,
+                         ring.stride, ring.meta_off, ring.smem)
+    if kernel_fits(contracts.theta_contract("wide", dtype), cell,
+                   state="shared"):
         return SweepPath("shared", 2, 0, 0, 0, 3 * K * 4)
     return SweepPath("scratch", 3, 0, 0, 0, 0)
 
@@ -309,6 +318,16 @@ def theta_sweep(
     if rc != 0:
         msg = lib.theta_sweep_error_string(rc).decode()
         raise RuntimeError(f"theta_sweep kernel launch failed: {msg} ({rc})")
+    if launches.enabled():
+        dtype = _ITEMSIZE_DTYPE[phi.element_size()]
+        cell = Cell(D=D, L=L, K=K, W_s=phi.shape[0], A=A)
+        if path.kind == "registers":
+            launches.note("theta_sweep", contracts.theta_contract(
+                "sched" if A else "dense", dtype), cell, vec=path.code == 0,
+                offset=phi.data_ptr() % 16)
+        else:
+            launches.note("theta_sweep", contracts.theta_contract(
+                "wide", dtype), cell, state=path.kind)
     theta_sweep.launches += 1
     return theta_out, est_ll, ev_ll
 

@@ -31,6 +31,11 @@ launches (plain integers; the block loop one a sweep);
 ``blocked_sweep.launches_per_call`` is the number of CUDA operations the
 last call enqueued through the library: 3 (the μ copy, the barrier's
 zeroing, the loop).
+
+Launch budget (``analysis.contracts``: ``topk_estep_kernel``,
+``topk_loop_kernel``, ``copy_kernel``): no shared memory; the block loop
+is one cooperative launch of 256-thread CTAs, at most two an SM, and
+writes each token's eq. 36 residual |Δ|.
 """
 from __future__ import annotations
 
@@ -39,13 +44,16 @@ from typing import Callable, Tuple
 
 import torch
 
+from repro_torch.analysis import launches
+from repro_torch.analysis.budget import Cell
+
 from repro_torch.kernels.gs_sweep import (
     check_cuda_args,
     ptr,
     scatter_add_pairs,
     scatter_add_rows,
 )
-from repro_torch.kernels.scheduled_sweep import sorted_runs
+from repro_torch.kernels.scheduled_sweep import note_pass, sorted_runs
 
 #: :func:`blocked_sweep`'s token flags (kActive, kSolo in
 #: ``csrc/topk_estep.cu``).
@@ -299,6 +307,9 @@ def topk_estep(
                 float(alpha_m1), float(beta_m1), wb,
                 torch.cuda.current_stream().cuda_stream)
         _raise_on(lib, rc, "topk_estep")
+        if launches.enabled():
+            launches.note("topk_estep", "topk_estep_kernel",
+                          Cell(D=T, L=1, K=A, W_s=0, A=A))
         topk_estep.launches += 1
     return mu, delta
 
@@ -394,6 +405,10 @@ def blocked_sweep(
                 float(wb), ctypes.byref(enqueued),
                 torch.cuda.current_stream().cuda_stream)
         _raise_on(lib, rc, "blocked_sweep")
+        if launches.enabled():
+            cell = Cell(D=D, L=L, K=K, W_s=W_s, A=A)
+            note_pass("topk_estep", cell, mu, mu_out, None, loop=None)
+            launches.note("topk_estep", "topk_loop_kernel", cell, nb=nb)
         blocked_sweep.launches += 1
         blocked_sweep.launches_per_call = 1 + enqueued.value  # + the copy
     return theta_o, phi_o, ptot_o, mu_out, abs_delta, token_topics

@@ -702,6 +702,11 @@ class ReplicaPool:
         bitwise-parity contract."""
         with self._state_cond:
             while True:
+                if batch_id is not None and batch_id not in self._inflight:
+                    # a re-issued orphan whose first run finished after the
+                    # death was seen: its futures are resolved, and a
+                    # second run would resolve them again
+                    return
                 why = ("closed" if self._closing
                        else "has no live replicas left"
                        if not self._replicas else None)

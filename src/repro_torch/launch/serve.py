@@ -213,7 +213,6 @@ class TopicServer:
                  phi_dtype: str = "float32",
                  hot_rows: int = 0,
                  device: Device = "cuda"):
-        kops.refuse_debug_checks(cfg.debug_checks, "TopicServer")
         self.device = resolve_device(device)
         self.store = store
         self.cfg = cfg
@@ -687,7 +686,6 @@ def prewarm_server(srv: TopicServer, *, max_batch: int,
     launch count, and resets the cache and store stat windows so warm-up
     traffic does not pollute the serving counters.
     """
-    kops.refuse_debug_checks(srv.cfg.debug_checks, "prewarm_server")
     if lengths is None:
         lengths = range(bucket_multiple, max_len + 1, bucket_multiple)
     rows = min(srv.cfg.W, srv.store.capacity)
@@ -741,7 +739,6 @@ class ServingEngine:
                  max_len: int = 256,
                  queue_depth: int = 4,
                  seed: int = 0):
-        kops.refuse_debug_checks(server.cfg.debug_checks, "ServingEngine")
         self.server = server
         self.router = AdmissionRouter(
             max_batch=max_batch, bucket_multiple=bucket_multiple,

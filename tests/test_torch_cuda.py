@@ -65,6 +65,8 @@ same training without traffic; a latched refresh step launches
 ``gs_sweep`` ``refresh_extra_sweeps`` more times than a plain step; an
 int8-subscribed server's θ is within 0.05 of the f32 server's.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1567,3 +1569,98 @@ def test_lifelong_int8_server_close_to_f32_on_card(cuda, tmp_path):
         assert srv.last_version == 1
     assert np.isfinite(out["int8"]).all()
     assert np.abs(out["float32"] - out["int8"]).max() < 0.05
+
+
+# ---------------------------------------------------------------------------
+# The analysis layer on the card: launch contracts and the sanitizer
+# ---------------------------------------------------------------------------
+
+def _drive_every_contract(dev):
+    """Launch every contracted kernel on each of its paths, small shapes."""
+    for K, A, D in ((1000, 0, 9), (1000, 16, 9), (15_000, 0, 3),
+                    (15_000, 4, 3), (50_000, 0, 2)):
+        wid, est, ev, theta, phi, wt = _inputs(D, 20, K, 50, A, dev)
+        for dtype in ("float32", "bfloat16", "int8"):
+            store, scale = quantize_phi(phi, dtype)
+            theta_sweep(wid, est, ev, theta, store, wt, scale,
+                        alpha_m1=0.01, num_sweeps=2)
+    for K in (256, 255, 10_241):
+        args = _sweep_inputs(5, 6, K, 20, 0, dev)
+        gs_sweep(*args, **SWEEP_KW, emit_loglik=True)
+    sweep_loglik_partials(*(_sweep_inputs(5, 6, 777, 20, 0, dev)[i]
+                            for i in (0, 1, 3, 4, 5)), **SWEEP_KW)
+    args = _sweep_inputs(7, 6, 64, 20, 4, dev)
+    scheduled_sweep(*args, **SWEEP_KW, emit_loglik=True)
+    for K, A in ((64, 0), (63, 0), (64, 3)):
+        args, rem, pm = _sharded_inputs(7, 6, K, 20, A, dev)
+        sharded_probe(*args, **SWEEP_KW)
+        sharded_fold(*_fold_args(args, rem, pm), **SWEEP_KW,
+                     emit_loglik=True)
+    for K in (100, 101, 10_241):
+        th, ph, pt, ex, mu, cnt = _estep_inputs(37, K, 1, dev)
+        for exclude, residual in ((True, True), (False, False)):
+            fused_estep(th, ph, pt, ex if exclude else None,
+                        mu if residual else None, cnt if residual else None,
+                        **SWEEP_KW)
+    topk_estep(*_topk_inputs(100, 16, dev), **SWEEP_KW)
+    wid, cnt, mu, theta, phi, ptot, wt, act = _sweep_inputs(6, 8, 64, 20, 4,
+                                                            dev)
+    blocked_sweep(wid, cnt, wt, act, mu, theta, phi, ptot, num_blocks=2,
+                  **SWEEP_KW)
+    torch.cuda.synchronize()
+
+
+def test_contracts_match_the_cards_launches_and_occupancy(cuda):
+    """Every launch the wrappers make equals its contract's spec (variant,
+    grid, threads, dynamic shared memory) built with the card's registers,
+    and each predicted occupancy equals the runtime's."""
+    from repro_torch.analysis import card, launches
+    from repro_torch.analysis.contracts import CONTRACT_KERNELS
+    from repro_torch.kernels import build
+
+    libs = [k for k in build.KERNELS if k != "flash_attention"]
+    for lib in libs:
+        card.reset(lib)
+    launches.clear()
+    launches.enable()
+    try:
+        _drive_every_contract(cuda)
+    finally:
+        launches.enable(False)
+    report = card.check_against_card(libs)
+    print(json.dumps(report, indent=1))
+    assert not report["mismatches"], "\n".join(report["mismatches"])
+    assert {r["kernel"] for r in report["kernels"]} == set(CONTRACT_KERNELS)
+    assert report["noted"] and report["recorded"]
+
+
+def test_sanitizer_passes_and_fires_on_the_card(cuda):
+    """debug_checks=True through the CUDA kernels: clean sweeps and a clean
+    fit pass; a NaN φ row, a negative count and a perturbed φ̂(k) raise
+    SanitizerError with the JAX package's messages."""
+    from repro_torch.analysis import sanitizer
+
+    args = _sweep_inputs(7, 6, 64, 20, 4, cuda)
+    wid, cnt, mu, theta, phi, ptot, wt, act = args
+    kw = dict(**SWEEP_KW, debug_checks=True, device=cuda)
+    ops.sweep(wid, cnt, mu, theta, phi, ptot, compute_loglik=True, **kw)
+    r = ops.sweep(wid, cnt, mu, theta, phi, ptot, word_topics=wt,
+                  token_active=act, **kw)
+    with pytest.raises(ops.SanitizerError,
+                       match="phi_k deltas inconsistent"):
+        sanitizer.sweep_invariants(
+            r._replace(phi_k=r.phi_k + 1.0), counts=cnt, mu_before=mu,
+            phi_wk_before=phi, phi_k_before=ptot, word_topics=wt,
+            token_active=act, word_ids=wid)
+    bad = cnt.clone()
+    bad[0, 0] = -1.0
+    with pytest.raises(ops.SanitizerError, match="negative values in"):
+        ops.sweep(wid, bad, mu, theta, phi, ptot, **kw)
+    wid, est, ev, theta, phin, _ = _inputs(9, 20, 1000, 50, 0, cuda)
+    ikw = dict(alpha_m1=0.01, ev_counts=ev, max_sweeps=4, check_every=2,
+               debug_checks=True, device=cuda)
+    ops.infer(wid, est, theta, phin, **ikw)
+    phin = phin.clone()
+    phin[int(wid[0, 0])] = float("nan")
+    with pytest.raises(ops.SanitizerError, match="non-finite values in"):
+        ops.infer(wid, est, theta, phin, **ikw)

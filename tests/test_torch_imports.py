@@ -418,3 +418,58 @@ def test_fault_tolerant_entry_points_default_to_the_gpu(tmp_path):
     srv = ReplicaSpec(store_path=str(tmp_path / "s"), cfg=cfg,
                       vocab_capacity=8, device="cpu").build_server()
     assert srv.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.analysis",
+    "repro_torch.analysis.__main__",
+    "repro_torch.analysis.budget",
+    "repro_torch.analysis.card",
+    "repro_torch.analysis.checks",
+    "repro_torch.analysis.contracts",
+    "repro_torch.analysis.launches",
+    "repro_torch.analysis.lint",
+    "repro_torch.analysis.modules",
+    "repro_torch.analysis.sanitizer",
+    "repro_torch.analysis.validate",
+])
+def test_analysis_modules_stand_alone(name):
+    """The analysis layer's modules import without JAX, and every CUDA
+    source they check is among the build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.analysis.contracts import KERNEL_CONTRACTS\n"
+        "from repro_torch.kernels import build\n"
+        "for c in KERNEL_CONTRACTS.values():\n"
+        "    assert set(c.libraries) <= set(build.KERNELS)\n"
+        "    assert (build.CSRC / c.source).exists()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("argv", [["-m", "repro_torch.analysis",
+                                   "--reference"],
+                                  ["-m", "repro_torch.analysis.lint"]])
+def test_analysis_cli_and_lint_run_without_jax_or_a_card(argv):
+    """``python -m repro_torch.analysis --reference`` and ``python -m
+    repro_torch.analysis.lint`` exit 0 on a host with no card, JAX
+    hidden."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"sys.argv = [{argv[1]!r}] + {argv[2:]!r}\n"
+            f"runpy.run_module({argv[1]!r}, run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert ("'fail': 0" in out.stdout) or ("lint: clean" in out.stdout)
+

@@ -31,7 +31,12 @@ from repro_torch.launch.replica import (
     ReplicaSpec,
     snapshot_payload,
 )
-from repro_torch.launch.serve import ServingEngine, TopicServer, TrafficGenerator
+from repro_torch.launch.serve import (
+    ServingEngine,
+    TopicServer,
+    TrafficGenerator,
+    pad_batch,
+)
 from repro_torch.runtime.faults import FaultSpec, REPLICA_KILL
 
 try:
@@ -501,6 +506,26 @@ def test_worker_lost_between_choice_and_send(pool_store, pool_docs,
     assert m["deaths"] == 1 and m["respawns"] == 1
     for i, (a, b) in enumerate(zip(engine_ref, got)):
         np.testing.assert_array_equal(a, b, err_msg=f"doc {i}")
+
+
+def test_reissue_of_a_batch_finished_meanwhile_sends_nothing(pool_store):
+    """An orphan whose first run resolved it after the death was seen (the
+    completion landed between the monitor's orphan scan and the re-issue)
+    is not sent again: a second run would resolve its futures twice."""
+    with ReplicaPool(_spec(pool_store), replicas=2, backend="thread",
+                     **POOL) as pool:
+        pool.wait_ready(60)
+        with pool._state_cond:
+            sent = dict(pool._dispatched)
+            load = {r: pool.balancer.inflight(r)
+                    for r in pool.balancer.replicas()}
+        w, c, seeds = pad_batch(16, [], POOL["max_batch"])
+        pool._dispatch(16, [], w, c, seeds, batch_id=10 ** 6)
+        with pool._state_cond:
+            assert pool._dispatched == sent
+            assert {r: pool.balancer.inflight(r)
+                    for r in pool.balancer.replicas()} == load
+            assert 10 ** 6 not in pool._inflight
 
 
 # ---------------------------------------------------------------------------

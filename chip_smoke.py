@@ -69,7 +69,13 @@ order:
 6. drives the topic-sharded path — ``foem_step_sharded`` on a
    (data = 1, model = 4) mesh of four ranks sharing the card
    (``spawn_mesh``, gloo), two minibatches, then
-   ``heldout_perplexity_sharded`` on 256 held-out documents;
+   ``heldout_perplexity_sharded`` on 256 held-out documents; then one step
+   of the per-column hooks mode (``sharded_impl="hooks"``) on the first
+   minibatch from the first step's stats and μ0 (``sharded hooks step``
+   line: sweeps, model-axis all-reduces, seconds by rank, perplexity
+   beside the two-phase step's, mass; no sweep kernel may launch, the mass
+   must hold to ``MASS_RTOL``, the ranks agree, and the perplexity is
+   within ``HOOKS_PPL_RTOL`` of the two-phase step's);
 7. holds the two E-step kernels of the coarse-block / scan sweeps, BEM and
    SEM (``fused_estep``, ``topk_estep``) against their plain versions at
    the stream_1k width: a block of ``iem_blocks=8`` (T = 16,384 tokens)
@@ -96,7 +102,15 @@ order:
    UCI docword file (``baselines step`` lines: wall ms, ``fused_estep``
    launches — ``max_sweeps`` a step for OVB and SCVB, 0 for OGS —, train
    perplexity, peak device memory, Σφ̂(k) against the merge's mass);
-9. drives the lifelong train-while-serve path at the stream_1k width on a
+9. dry-runs the LDA cells (``launch.dryrun.run_cell``, dense): stream_1k
+   must fit the card, run one step from zero statistics, launch both sweep
+   kernels and peak below the card's memory; stream_4k and bigmodel are
+   sized and run only if they fit (``dryrun`` lines, one record each:
+   argument and working-set bytes, free bytes, fits, peak, step seconds,
+   sweeps, perplexity, launches, roofline terms); then runs
+   ``examples/torch/quickstart.py --quick`` on the card in a process of
+   its own, which must exit 0 (``quickstart`` line);
+10. drives the lifelong train-while-serve path at the stream_1k width on a
    store of its own (the same seeded rows, written twice): a replica run
    trains four minibatches with a ``SnapshotPublisher`` (a publish every
    2 steps, ``retain`` 2: v1, v2, v3) and no serving, and a fresh server
@@ -115,7 +129,7 @@ order:
    and resident, p50/p99 and documents/s beside the engine phase's, live
    step seconds beside the replica's, host ``MemAvailable`` before and
    peak RSS during the phase, its wall time);
-10. holds the flash-attention kernel against its plain version at the LM
+11. holds the flash-attention kernel against its plain version at the LM
    serving path's shapes (bf16): granite-8b prefill (8 prompts × 32 query
    heads over 8 KV heads, S = 2,048, d = 128, causal) and decode (Sq = 1 at
    q_offset 2,048..2,079 in a 4,096-slot cache), danube-3-4b (d = 120,
@@ -126,7 +140,7 @@ order:
    one ``scaled_dot_product_attention`` call on the same inputs (a
    yardstick the port never calls); after the build it counts the
    tensor-core instructions (HGMMA, HMMA) in the attention library's SASS;
-11. drives the dense LM's serving path — ``build(granite-8b)`` at full width
+12. drives the dense LM's serving path — ``build(granite-8b)`` at full width
    (36 layers, bf16, seeded random weights) prefills 8 prompts of 2,048
    tokens and takes 32 greedy ``decode_step``s into a 4,096-slot cache
    (one more under ``torch.profiler``); a float32 copy's decode logits and
@@ -135,7 +149,7 @@ order:
    4,096-slot ring placed from a 6,128-token prefill, against one prefill
    of all 6,144 tokens.
 
-12. the analysis layer: from the build on, every launch the wrappers make
+13. the analysis layer: from the build on, every launch the wrappers make
    is noted (``repro_torch.analysis.launches``) and recorded by its
    library (``csrc/launch_log.cuh``); after the baselines, a
    ``debug_checks=True`` ``FOEMTrainer.step`` at the stream_1k width and a
@@ -171,6 +185,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the H100's data-sheet peaks: one set with the port's roofline terms
+from repro_torch.launch.roofline import (  # noqa: E402
+    H100_BF16_FLOPS as BF16_FLOPS,
+    H100_F32_FLOPS as FP32_FLOPS,
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+)
 
 D_KERNEL = 256              # documents per checked kernel launch
 K_FULL = 10_000             # stream_1k topics
@@ -178,8 +199,6 @@ W_FULL = 141_043            # stream_1k vocabulary (store capacity)
 DOC_LEN = (64, 256)         # tokens per request
 SWEEPS = 10                 # one check_every chunk
 A_SCHED = 16                # active topics of the scheduled variant
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 # Kernel vs plain tolerances (rtol, atol) and why.
 TOL = {"theta": (1e-4, 1e-4), "est_ll": (1e-4, 1e-3), "ev_ll": (1e-4, 1e-3)}
 TOL_REASON = (
@@ -275,6 +294,15 @@ MU_SUM_ATOL = 1e-5          # dense sum_k mu over the 4 ranks against 1:
 # phi_k to their float64 sum rounded once per topic, whose half-ulp
 # roundings (ulp 4e-3 at ~5e4 tokens) over 1e4 topics add up to ~0.3 token
 MASS_RTOL = {"phi_rows_mass_growth": 1e-4, "phi_k_mass_growth": 1e-4}
+# The hooks step (sharded_impl="hooks") against the first two-phase step on
+# the same minibatch from the same stats and μ0: the two are different
+# update rules (per-column exact normalisers against one phase of
+# staleness), so only the JAX package's coarse envelope holds
+# (tests/test_sharded_sweep.py:390-391: |Δppl| / ppl < 0.25)
+HOOKS_PPL_RTOL = 0.25
+# The dry-run phase: the dense cells of every LDA_SHAPES regime, in order;
+# the first must fit and run
+DRYRUN_SHAPES = ("stream_1k", "stream_4k", "bigmodel")
 DRIFT64_ATOL = 1e-3         # tokens: the float64 fold's phi_k drift, a
 # difference of float64 sums of ~1.3e8 tokens (ulp 1.5e-8)
 IEM_BLOCKS = 8              # the coarse-block cells: L = 128 in 8 blocks
@@ -295,7 +323,6 @@ SEM_PHI_K_RTOL = 1e-4       # SEM stores the JAX package's float32 phi_k
 # (its total cast to float32 and the minibatch's float32 sum added)
 
 
-BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 # The LM serving phases: granite-8b at full width, 8 prompts of 2,048
 # tokens and 32 decode steps into a 4,096-slot cache (the decode_32k shape
 # with batch and cache cut to one card); danube-3-4b at full width, 4 layers.
@@ -1754,7 +1781,9 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
     """One rank of the sharded training phase: its φ̂ slice, two
     ``foem_step_sharded`` minibatches (the second under the profiler on
     rank 0), the held-out perplexity, one step with ``debug_checks=True``,
-    then the checks that need the mesh."""
+    one step of the per-column hooks mode (``sharded_impl="hooks"``) on the
+    first minibatch from the first step's stats and μ0 draw, then the
+    checks that need the mesh."""
     import dataclasses
 
     import numpy as np
@@ -1769,7 +1798,10 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
     from repro_torch.core.types import (
         GlobalStats, LocalState, MinibatchData, SweepPlan,
     )
+    from repro_torch.kernels.gs_sweep import gs_sweep
+    from repro_torch.kernels.scheduled_sweep import scheduled_sweep
     from repro_torch.kernels.sharded_sweep import sharded_fold, sharded_probe
+    from repro_torch.launch.mesh import MeshAxis
 
     torch.backends.cuda.matmul.allow_tf32 = False
     m, dev = mesh.model.index, mesh.device
@@ -1790,6 +1822,10 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
             st.phi_wk.double().sum().reshape(1))
         return float(pk[0]), float(rows[0])
 
+    # the hooks step starts from these stats too: kept on the host, where
+    # they take none of the card's memory from the two-phase steps
+    stats0 = GlobalStats(stats.phi_wk.cpu(), stats.phi_k.cpu(), stats.step)
+    mass0 = mass(stats)
     steps = []
     sharded_probe.launches = 0            # counts of the main path only
     sharded_fold.launches = 0
@@ -1873,10 +1909,47 @@ def _sharded_rank(mesh, cap, minibatches, heldout):
         phi_w, phi_w.sum(0), cfg, plan=SweepPlan(axis_name=mesh.model))
     (mu_sum,) = mesh.model.all_reduce(r.mu.sum(-1))
     mu_err = float((mu_sum[cnt > 0] - 1.0).abs().max())
+    del r, phi_w, mu0, mu_sum, stats       # room for the hooks step
+
+    # one step of the per-column hooks mode on the first minibatch, from the
+    # first two-phase step's stats and μ0 draw (a generator seeded alike),
+    # last, on the memory the rank's other work has freed: the plain column
+    # loops on the card, one model-axis all_reduce a column, no sweep kernel
+    @dataclasses.dataclass(frozen=True)
+    class CountingAxis(MeshAxis):
+        calls: list = dataclasses.field(default_factory=list)
+
+        def all_reduce(self, *tensors):
+            self.calls.append(len(tensors))
+            return super().all_reduce(*tensors)
+
+    model = CountingAxis(mesh.model.name, mesh.model.size, mesh.model.index,
+                         mesh.model.group)
+    kernels = (sharded_probe, sharded_fold, gs_sweep, scheduled_sweep)
+    launched = [k.launches for k in kernels]
+    torch.cuda.empty_cache()              # four ranks share the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_h, ppl_h, sweeps_h = foem_step_sharded(
+        torch.Generator().manual_seed(0),
+        MinibatchData(*map(torch.from_numpy, minibatches[0])), stats0,
+        dataclasses.replace(cfg, sharded_impl="hooks"),
+        dataclasses.replace(mesh, model=model))
+    torch.cuda.synchronize()
+    hooks_s = time.perf_counter() - t0
+    after = mass(st_h)
+    hooks = {"sweeps": sweeps_h, "train_ppl": ppl_h, "seconds": hooks_s,
+             "all_reduces": len(model.calls),
+             "tokens": float(minibatches[0][1].sum()),
+             "phi_k_mass_growth": after[0] - mass0[0],
+             "phi_rows_mass_growth": after[1] - mass0[1],
+             "kernel_launches": {k.__name__: k.launches - n
+                                 for k, n in zip(kernels, launched)}}
+    del st_h, stats0
     return {"rank": mesh.rank, "slice_s": slice_s, "steps": steps,
             "launches": launches, "peak_device_gb": peak / 1e9,
             "heldout_ppl": held, "heldout_s": held_s, "mu_sum_err": mu_err,
-            "checked_step": checked,
+            "checked_step": checked, "hooks_step": hooks,
             "max_sweeps": cfg.max_sweeps,
             "warmup_sweeps": max(1, cfg.warmup_sweeps)}
 
@@ -1933,6 +2006,29 @@ def sharded_training_phase(torch, cap, report):
               < W_FULL, f"held-out perplexity {r['heldout_ppl']}")
     check(len({tuple(r["checked_step"]["failed"]) for r in ranks}) == 1,
           "the ranks disagree on the checked step's failed invariants")
+    for r in ranks:
+        h, first = r["hooks_step"], r["steps"][0]
+        check(r["warmup_sweeps"] <= h["sweeps"] <= r["max_sweeps"]
+              and np.isfinite(h["train_ppl"]),
+              f"rank {r['rank']} hooks step: {h['sweeps']} sweeps, "
+              f"perplexity {h['train_ppl']}")
+        check(not any(h["kernel_launches"].values()),
+              f"rank {r['rank']}: the hooks step launched a sweep kernel "
+              f"{h['kernel_launches']}")
+        # every column's normaliser (or eq. 38 mass and sum) is reduced
+        check(h["all_reduces"] >= h["sweeps"] * L_TRAIN,
+              f"rank {r['rank']}: {h['all_reduces']} model-axis all_reduces "
+              f"for {h['sweeps']} sweeps of {L_TRAIN} columns")
+        for key, rtol in MASS_RTOL.items():
+            rel = abs(h[key] - h["tokens"]) / h["tokens"]
+            check(rel <= rtol, f"hooks step: {key} {h[key]} against "
+                               f"{h['tokens']} tokens (relative {rel})")
+        rel = abs(h["train_ppl"] - first["train_ppl"]) / first["train_ppl"]
+        check(rel < HOOKS_PPL_RTOL,
+              f"hooks step perplexity {h['train_ppl']} against the two-phase "
+              f"step's {first['train_ppl']} (relative {rel})")
+    check(len({r["hooks_step"]["train_ppl"] for r in ranks}) == 1,
+          "the ranks disagree on the hooks step's perplexity")
     check(len({r["heldout_ppl"] for r in ranks}) == 1
           and len({tuple(s["train_ppl"] for s in r["steps"])
                    for r in ranks}) == 1,
@@ -1942,6 +2038,16 @@ def sharded_training_phase(torch, cap, report):
         rec["wall_s_by_rank"] = [r["steps"][i]["wall_s"] for r in ranks]
         rec["peak_device_gb_by_rank"] = [r["peak_device_gb"] for r in ranks]
         print("sharded step " + json.dumps(rec))
+    h = ranks[0]["hooks_step"]
+    rec = {k: h[k] for k in ("sweeps", "all_reduces", "train_ppl", "tokens",
+                             "phi_k_mass_growth", "phi_rows_mass_growth",
+                             "kernel_launches")}
+    rec["two_phase_train_ppl"] = ranks[0]["steps"][0]["train_ppl"]
+    rec["seconds_by_rank"] = [r["hooks_step"]["seconds"] for r in ranks]
+    rec["all_reduces_by_rank"] = [r["hooks_step"]["all_reduces"]
+                                  for r in ranks]
+    print("sharded hooks step " + json.dumps(rec))
+    hooks_rec = rec
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     rec = {"ranks": MP, "mesh_s": wall,
@@ -1954,9 +2060,78 @@ def sharded_training_phase(torch, cap, report):
                                    for r in ranks],
                "failed": ranks[0]["checked_step"]["failed"]},
            "launches_by_rank": [r["launches"] for r in ranks],
-           "launches": launches}
+           "launches": launches, "hooks_step": hooks_rec}
     print("sharded training " + json.dumps(rec))
     report["sharded_training"] = rec
+
+
+def dryrun_phase(torch, report):
+    """The LDA cells' dry run (``launch.dryrun.run_cell``) on the card, the
+    dense cell of each ``DRYRUN_SHAPES`` regime: each sized from its
+    stand-ins against the card's free memory, and run from seed 0 when it
+    fits.  stream_1k must fit, run, launch both sweep kernels, peak below
+    the card's memory and give a finite perplexity, its Σφ̂(k) grown by the
+    minibatch's tokens (from zero statistics); the others print their
+    records as they come."""
+    import numpy as np
+
+    from repro_torch.kernels.gs_sweep import gs_sweep
+    from repro_torch.kernels.scheduled_sweep import scheduled_sweep
+    from repro_torch.launch import dryrun
+
+    torch.cuda.empty_cache()
+    gs_sweep.launches = 0                 # counts of this path only
+    scheduled_sweep.launches = 0
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(name, impl="dense", seed=0,
+                            out_dir=str(ROOT / "build" / "dryrun"))
+            for name in DRYRUN_SHAPES]
+    wall = time.perf_counter() - t0
+    launched = {"gs_sweep": gs_sweep.launches,
+                "scheduled_sweep": scheduled_sweep.launches}
+    first = recs[0]
+    check(first["fits"] and first["ran"],
+          f"the {first['shape']} dry-run cell did not fit the card: "
+          f"{first['predicted_bytes_on_card']} of {first['free_bytes']} "
+          "bytes")
+    check(all(first["launches"][k] > 0 for k in launched)
+          and launched == {k: sum(r["launches"][k] for r in recs
+                                  if r["ran"]) for k in launched},
+          f"the dry-run cell's sweep kernels: record {first['launches']}, "
+          f"counts {launched}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(0 < first["peak_allocated_bytes"] < total,
+          f"dry-run peak {first['peak_allocated_bytes']} of {total} bytes")
+    check(np.isfinite(first["train_ppl"])
+          and 1.0 < first["train_ppl"] < first["dims"]["W"],
+          f"dry-run perplexity {first['train_ppl']}")
+    rel = abs(first["phi_k_mass"] - first["tokens"]) / first["tokens"]
+    check(rel <= STEP_MASS_RTOL,
+          f"dry-run phi_k mass {first['phi_k_mass']} against "
+          f"{first['tokens']} tokens (relative {rel})")
+    report["dryrun"] = {"seconds": wall, "launches": launched,
+                        "records": recs}
+    print(f"dryrun phase {wall:.1f} s, launches {json.dumps(launched)}")
+
+
+def quickstart_phase(report):
+    """``examples/torch/quickstart.py --quick`` on the card, in a process of
+    its own (the kernels this run built are loaded, not rebuilt): it must
+    exit 0 and print its four minibatches."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch" / "quickstart.py"),
+         "--quick"], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("minibatch")]
+    check(proc.returncode == 0 and len(lines) == 4,
+          f"examples/torch/quickstart.py --quick exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    report["quickstart"] = {"seconds": wall, "minibatches": lines}
+    print("quickstart " + json.dumps(report["quickstart"]))
 
 
 def _estep_bound(T, K, D, exclude, residual) -> tuple:
@@ -3601,7 +3776,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.analysis import launches
     from repro_torch.kernels import build
 
@@ -3654,6 +3828,9 @@ def main() -> int:
         del store
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    dryrun_phase(torch, report)
+    quickstart_phase(report)
     torch.cuda.empty_cache()
     try:
         lifelong_phase(torch, report)
@@ -3710,7 +3887,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": (report["training"]["launches"][name]
                          + life_launches[name]
-                         + report["elastic"]["launches"][name]),
+                         + report["elastic"]["launches"][name]
+                         + report["dryrun"]["launches"][name]),
             # μ_new, the sweep's per-token output (all outputs are in the
             # "sweep kernel" lines)
             "max_abs_err": max(v["errors"]["mu"]["max_abs"] for v in mine),

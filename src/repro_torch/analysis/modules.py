@@ -40,6 +40,9 @@ ROOTS = (
     "repro_torch.launch.serve",
     "repro_torch.launch.replica",       # replica pool (serve --replicas)
     "repro_torch.launch.lifelong",      # train-while-serve driver
+    "repro_torch.launch.specs",         # the LDA cells
+    "repro_torch.launch.roofline",      # a step's roofline terms
+    "repro_torch.launch.dryrun",        # the cells' dry run on one card
     "repro_torch.data.uci",
 )
 

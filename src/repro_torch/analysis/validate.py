@@ -52,13 +52,46 @@ def _is_int(t: torch.Tensor) -> bool:
 
 
 def _check_plan(plan) -> None:
-    """A sharded plan names its model axis by a ``launch.mesh.MeshAxis``."""
+    """A sharded plan names its model axis by a ``launch.mesh.MeshAxis``;
+    a sweep plan's ``two_phase`` is a bool."""
     axis = getattr(plan, "axis_name", None)
     require(
         axis is None or hasattr(axis, "all_reduce"),
         f"a topic-sharded plan takes the model axis of a launch.mesh.Mesh "
         f"(mesh.model), which carries its process group, not "
         f"{type(axis).__name__} {axis!r}",
+    )
+    two_phase = getattr(plan, "two_phase", True)
+    require(isinstance(two_phase, bool),
+            f"SweepPlan.two_phase must be a bool, got {two_phase!r}")
+
+
+def _check_hooks(plan, word_topics, norm_psum, renorm_psum) -> None:
+    """Raw reduction hooks: not with a sharded plan (the JAX refusal), each
+    a callable, and the one of the sweep's form — ``norm_psum`` the dense
+    E-step normaliser, ``renorm_psum`` the scheduled eq. 38 sums."""
+    if norm_psum is None and renorm_psum is None:
+        return
+    require(
+        getattr(plan, "axis_name", None) is None,
+        "pass EITHER a sharded SweepPlan OR raw norm_psum/renorm_psum "
+        "hooks, not both",
+    )
+    for name, hook in (("norm_psum", norm_psum),
+                       ("renorm_psum", renorm_psum)):
+        require(hook is None or callable(hook),
+                f"{name} must be a callable (D, 1) -> (D, 1), got "
+                f"{type(hook).__name__}")
+    scheduled = word_topics is not None
+    require(
+        norm_psum is None or not scheduled,
+        "norm_psum hooks the dense sweep's E-step normaliser; a scheduled "
+        "sweep (word_topics given) takes renorm_psum",
+    )
+    require(
+        renorm_psum is None or scheduled,
+        "renorm_psum hooks the scheduled sweep's eq. 38 sums; a dense sweep "
+        "(no word_topics) takes norm_psum",
     )
 
 
@@ -162,11 +195,7 @@ def validate_sweep_args(
     Shape/dtype-only: no tensor value is read.
     """
     _check_plan(plan)
-    require(
-        norm_psum is None and renorm_psum is None,
-        "norm_psum/renorm_psum reduction hooks are not ported yet: they "
-        "come with a later slice of the port, with the hooks mode",
-    )
+    _check_hooks(plan, word_topics, norm_psum, renorm_psum)
     require(
         word_ids.ndim == 2 and _is_int(word_ids),
         f"word_ids must be a (D, L) integer array, got shape "

@@ -13,16 +13,23 @@ called by every rank with its own pieces:
   rank's lanes (``foem.scheduled_iem_sweep``);
 * what crosses ranks is ``all_reduce``s only: the (D, L) E-step normalisers
   and eq. 38 masses (two per sweep, inside ``ops.sweep``'s two-phase
-  engine), the pre-log stop-rule partials on check sweeps, and the φ̂
-  delta over ``data`` at ``cfg.dp_fold`` cadence (skipped when the data
-  axis has one rank).
+  engine; one (D, 1) reduction a column in the hooks mode), the pre-log
+  stop-rule partials on check sweeps, and the φ̂ delta over ``data`` at
+  ``cfg.dp_fold`` cadence (skipped when the data axis has one rank).
 
 Every sweep goes through ``kernels.ops.sweep`` under a ``SweepPlan`` naming
-the model axis: the probe and fold Hopper kernels on the card, their plain
-versions on the CPU.  The random initial state of a rank is drawn from a
-generator derived from the caller's and the rank's model index, so ranks
-that share a model index draw the same values (``jax.random.fold_in(key,
-axis_index)``); the tests inject the JAX package's μ₀ instead.
+the model axis, and ``cfg.sharded_impl`` picks the engine:
+
+* ``"two_phase"`` (default): the probe and fold Hopper kernels on the card,
+  their plain versions on the CPU;
+* ``"hooks"``: the per-column hooks mode, kept as the reference semantics
+  (as in the JAX package): the plain column loops, on every device, with
+  L small reductions a sweep.
+
+The random initial state of a rank is drawn from a generator derived from
+the caller's and the rank's model index, so ranks that share a model index
+draw the same values (``jax.random.fold_in(key, axis_index)``); the tests
+inject the JAX package's μ₀ instead.
 """
 from __future__ import annotations
 
@@ -116,7 +123,8 @@ def _foem_local(generator, batch: MinibatchData, phi_in, ptot_in,
     D, L = batch.word_ids.shape
     W_rows = phi_in.shape[0]
     data = mesh.data
-    plan = SweepPlan(axis_name=mesh.model)
+    plan = SweepPlan(axis_name=mesh.model,
+                     two_phase=cfg.sharded_impl == "two_phase")
     if mu0 is None:
         mu0 = _draw_slice(generator, (D, L, phi_in.shape[1]), mesh)
     mu0 = torch.as_tensor(mu0).to(device=mesh.device,
@@ -211,9 +219,12 @@ def foem_step_sharded(
     initial responsibilities (normalised over all K lanes); without it they
     are drawn from ``generator`` folded with the model index.
     ``cfg.topk_shards`` must equal the model axis size, which must divide K
-    and ``cfg.active_topics`` (else ``ValueError``).  Only the two-phase
-    engine is ported: ``cfg.sharded_impl == "hooks"`` raises
-    ``ContractError``.  ``cfg.debug_checks`` runs the sanitizer on every
+    and ``cfg.active_topics`` (else ``ValueError``).  ``cfg.sharded_impl``
+    picks the sweep: ``"two_phase"`` (default) the two-phase engine,
+    ``"hooks"`` the per-column hooks mode — the JAX package's reference
+    semantics, the plain column loops with one ``all_reduce`` a column, on
+    the card too (no sweep kernel: a collective cannot cross a kernel
+    boundary).  ``cfg.debug_checks`` runs the sanitizer on every
     sweep and on the held-out fit, its masses summed over the model axis.
 
     ``faults`` (or the process-wide active plan) fires ``PRE_PROBE`` once
@@ -223,11 +234,6 @@ def foem_step_sharded(
     sweeps).  The inner sweeps then run with no active plan, as the JAX
     package's traced sweeps see none.
     """
-    if cfg.sharded_impl != "two_phase":
-        raise kops.ContractError(
-            f"sharded_impl={cfg.sharded_impl!r}: the per-column psum hooks "
-            "mode is not ported yet (it comes with a later slice of the "
-            "port); the two-phase engine (sharded_impl='two_phase') is")
     mp = mesh.model.size
     if cfg.topk_shards != mp or cfg.K % mp or cfg.active_topics % mp:
         raise ValueError(

@@ -174,15 +174,24 @@ class SweepPlan:
     ``launch.mesh.MeshAxis`` ``mesh.model`` of the rank's mesh, which
     carries the process group that the JAX package names by a string
     (a string is refused with ``ContractError``).  With it set, the sweep
-    runs the two-phase engine on the rank's K/mp topic lanes
-    (``ops.sweep``); the JAX package's per-column psum hooks mode
-    (``two_phase=False``) is not ported yet.  Without it the plan changes
-    nothing.  Either way CUDA tensors run the Hopper kernels and CPU tensors
-    their plain PyTorch versions: the JAX package's ``impl`` choice has no
-    counterpart.
+    runs on the rank's K/mp topic lanes (``ops.sweep``):
+
+    * ``two_phase=True`` (default): the two-phase engine — probe kernel,
+      one ``all_reduce``, fold kernel, one ``all_reduce``, exact renorm;
+      CUDA tensors run the Hopper kernels, CPU tensors their plain
+      versions;
+    * ``two_phase=False``: the JAX package's per-column hooks mode, its
+      reference semantics — the plain column loops with one ``all_reduce``
+      of the E-step normaliser (dense) or of the eq. 38 mass and new sum
+      (scheduled) a column, on every device: a collective cannot cross a
+      kernel boundary, so no sweep kernel runs.
+
+    Without ``axis_name`` the plan changes nothing.  The JAX package's
+    ``impl`` choice has no counterpart: the device picks kernel or plain.
     """
 
     axis_name: Optional[Any] = None   # launch.mesh.MeshAxis
+    two_phase: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,6 +125,7 @@ def gs_sweep_reference(
     beta_m1: float,
     wb: float,
     emit_loglik: bool = False,
+    hook: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None,
 ) -> SweepOut:
     """The plain PyTorch version of :func:`gs_sweep`, any device.
 
@@ -132,6 +133,13 @@ def gs_sweep_reference(
     each gathering its D φ̂ rows, running the fused E-step and folding Δ
     into θ̂, the D rows (``index_put_`` with accumulation: duplicate words
     add in document order on the CPU) and φ̂(k).
+
+    ``hook`` is the per-column hooks mode's reduction (``ops.sweep`` with
+    ``SweepPlan(two_phase=False)`` or a raw ``norm_psum``; the JAX
+    package's ``norm_psum`` argument): each column's (D, 1) E-step
+    normaliser goes through ``hook(s) -> (s,)`` — a topic-sharded sweep's
+    sum over the model axis — before μ divides by it.  ``None`` leaves the
+    loop as it is, bit for bit.
     """
     D, L = word_ids.shape
     mu_out = torch.empty_like(mu)
@@ -148,7 +156,10 @@ def gs_sweep_reference(
         ph = (phi[wid] - ex).clamp_min(0.0)
         pt = ptot[None, :] - ex
         num = (th + alpha_m1) * (ph + beta_m1) / (pt + wb)
-        mu_new = num / num.sum(-1, keepdim=True).clamp_min(1e-30)
+        norm = num.sum(-1, keepdim=True)
+        if hook is not None:
+            (norm,) = hook(norm)
+        mu_new = num / norm.clamp_min(1e-30)
         delta = cnt * mu_new - ex
         theta = theta + delta
         phi.index_put_((wid,), delta, accumulate=True)

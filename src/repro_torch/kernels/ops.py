@@ -14,6 +14,10 @@ numerical invariants of ``analysis.sanitizer`` on its result:
   (:func:`sharded_sweep.sharded_probe`, one ``all_reduce``,
   :func:`sharded_sweep.sharded_fold`, one ``all_reduce``, the exact
   renorm): the Hopper kernels on the card, their plain versions on the CPU.
+  The per-column hooks mode (``SweepPlan(two_phase=False)``, or raw
+  ``norm_psum``/``renorm_psum`` hooks) runs the plain column loops on every
+  device, one reduction a column: a collective cannot cross a kernel
+  boundary.
 * :func:`infer` — the frozen-φ serving fit, in chunks of one
   :func:`theta_sweep.theta_sweep` call each, with its convergence stop; a
   topic-sharded plan runs the fit in plain PyTorch with its reductions over
@@ -50,9 +54,17 @@ from repro_torch.analysis.validate import (
 from repro_torch.core.types import InferPlan, InferResult, SweepPlan, SweepResult
 from repro_torch.kernels import foem_estep as _foem_estep
 from repro_torch.kernels import topk_estep as _topk_estep
-from repro_torch.kernels.gs_sweep import gs_sweep, segment_sum
-from repro_torch.kernels.scheduled_sweep import scheduled_sweep
+from repro_torch.kernels.gs_sweep import (
+    gs_sweep,
+    gs_sweep_reference,
+    segment_sum,
+)
+from repro_torch.kernels.scheduled_sweep import (
+    scheduled_sweep,
+    scheduled_sweep_reference,
+)
 from repro_torch.kernels.sharded_sweep import (
+    loglik_partials,
     sharded_fold,
     sharded_probe,
     token_lane_masks,
@@ -493,6 +505,62 @@ def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
     return SweepResult(mu_corr, theta_o, phi_o, ptot_o, res, ll)
 
 
+def _sweep_hooks(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
+                 token_active, *, alpha_m1, beta_m1, wb, hook, axis,
+                 compute_loglik) -> SweepResult:
+    """The per-column hooks mode (the JAX package's ``two_phase=False``
+    branch of ``ops._sweep_impl``): the plain column loop
+    (:func:`gs_sweep_reference` / :func:`scheduled_sweep_reference`) with
+    ``hook`` reducing each column's E-step normaliser (dense) or eq. 38
+    mass and new sum (scheduled) — ``axis.all_reduce`` under a sharded
+    plan, the caller's raw hook otherwise.  It runs on the device the
+    tensors lie on and launches no sweep kernel.  Under a sharded plan
+    φ̂(k) comes back as the float64 sum of the rank's rows, rounded once,
+    as phase D of the two-phase engine leaves it (the loop's float32
+    running total drifts from the rows; the JAX package keeps it), and
+    ``compute_loglik`` gives the global-over-lanes eq. 3 loglik of the
+    rank's documents: the pre-log partials and Σθ̂ + K(α−1) reduced in one
+    more ``all_reduce``.  With a raw hook the loop's own φ̂(k) and
+    shard-local loglik come back, as the hook-free loop's."""
+    kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb, hook=hook,
+              emit_loglik=compute_loglik and axis is None)
+    args = (word_ids, counts, mu, theta, phi_wk, phi_k)
+    if word_topics is not None:
+        out = scheduled_sweep_reference(*args, word_topics, token_active,
+                                        **kw)
+    else:
+        out = gs_sweep_reference(*args, **kw)
+    mu_new, res, theta_o, phi_o, ptot_o, ll = out
+    if axis is not None:
+        ptot_o = _row_total(phi_o)
+    if compute_loglik and axis is not None:
+        u = loglik_partials(word_ids, theta_o, phi_o, ptot_o,
+                            alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb)
+        u_glob, th_den = axis.all_reduce(
+            u, theta_o.sum(-1) + mu.shape[-1] * alpha_m1)
+        ll = _assemble_sharded_loglik(counts, u_glob, th_den)
+    return SweepResult(mu_new, theta_o, phi_o, ptot_o, res, ll)
+
+
+def _row_total(phi: torch.Tensor, block: int = 1 << 14) -> torch.Tensor:
+    """Σ_w φ̂_w per topic, accumulated in float64 and rounded once to φ̂'s
+    dtype, a block of rows at a time: no float64 copy of the whole φ̂ (2.8
+    GB for a rank's stream_1k slice).  With one block it is the plain
+    float64 sum."""
+    total = torch.zeros(phi.shape[1], dtype=torch.float64,  # lint: host-f64
+                        device=phi.device)
+    for rows in phi.split(block):
+        total += rows.sum(0, dtype=torch.float64)  # lint: host-f64
+    return total.to(phi.dtype)
+
+
+def _one_each(fn):
+    """A raw JAX-style hook (one (D, 1) array in, its sum out) as the
+    column loops' hook, which takes and returns a tuple: one call a
+    tensor, in order."""
+    return lambda *xs: tuple(fn(x) for x in xs)
+
+
 def sweep(
     word_ids,                  # (D, L) int — rows into phi_wk
     counts,                    # (D, L) float
@@ -537,9 +605,19 @@ def sweep(
       (:func:`_sweep_two_phase`): probe kernel, one ``all_reduce``, fold
       kernel, one ``all_reduce``, exact renorm.  ``compute_loglik`` then
       gives the global-over-lanes eq. 3 loglik of the rank's documents.
-      The raw ``norm_psum``/``renorm_psum`` hooks of the JAX package's
-      per-column hooks mode are not ported yet and raise
-      ``ContractError``.
+    * ``plan.two_phase=False`` with ``plan.axis_name``: the per-column
+      hooks mode, the JAX package's reference semantics for the sharded
+      sweep (:func:`_sweep_hooks`) — the plain column loop, on the card
+      too, with one ``all_reduce`` a column (dense: the E-step normaliser;
+      scheduled: the eq. 38 mass and new sum together) and, with
+      ``compute_loglik``, one more for the stop rule.  No sweep kernel
+      runs.
+    * ``norm_psum`` (dense) / ``renorm_psum`` (scheduled), without a
+      sharded plan: the same loop with the caller's raw hook, a callable
+      mapping a shard-local (D, 1) column to its cross-shard sum; the
+      scheduled loop calls it on the mass, then on the new sum.  A hook
+      with a sharded plan, or the other form's hook, raises
+      ``ContractError`` (a ``ValueError``, as the JAX refusal).
     * ``debug_checks=True`` (``cfg.debug_checks``) runs the
       ``analysis.sanitizer`` invariants on the result (μ simplex or eq. 38
       active-set mass, θ̂ row mass, φ̂ totals, signs, finiteness, inert
@@ -580,10 +658,17 @@ def sweep(
         check_index_ranges(word_ids, word_topics, phi_wk.shape[0],
                            mu.shape[-1])
     axis = plan.axis_name if plan is not None else None
-    if axis is not None:
+    raw = norm_psum if norm_psum is not None else renorm_psum
+    if axis is not None and plan.two_phase:
         result = _sweep_two_phase(
             word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
             token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
+            axis=axis, compute_loglik=compute_loglik)
+    elif axis is not None or raw is not None:
+        result = _sweep_hooks(
+            word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
+            token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
+            hook=axis.all_reduce if axis is not None else _one_each(raw),
             axis=axis, compute_loglik=compute_loglik)
     else:
         kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),

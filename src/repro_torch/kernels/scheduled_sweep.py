@@ -32,7 +32,7 @@ E-step and the eq. 38 renormalisation on the active lanes.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -64,6 +64,7 @@ def scheduled_sweep_reference(
     beta_m1: float,
     wb: float,
     emit_loglik: bool = False,
+    hook: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None,
 ) -> SweepOut:
     """The plain PyTorch version of :func:`scheduled_sweep`, any device.
 
@@ -71,6 +72,13 @@ def scheduled_sweep_reference(
     into a (W_s, K) word lane mask; each column gathers its D mask and φ̂
     rows, runs the masked full-K E-step (eq. 13 exclusion on the active
     lanes, eq. 38 renorm, λ_w folded into the mask) and folds Δ.
+
+    ``hook`` is the per-column hooks mode's reduction (the JAX package's
+    ``renorm_psum``): each column's (D, 1) eq. 38 previous mass and new
+    sum go through ONE ``hook(prev_mass, new_sum) -> (prev_mass,
+    new_sum)`` call — a topic-sharded sweep's sums over the model axis,
+    the union active set — before the renorm.  ``None`` leaves the loop as
+    it is, bit for bit.
     """
     D, L = word_ids.shape
     masks = word_lane_masks(phi_wk, word_topics)
@@ -92,6 +100,8 @@ def scheduled_sweep_reference(
         num = (th + alpha_m1) * (ph + beta_m1) / (pt + wb) * mask
         prev_mass = (mu_old * mask).sum(-1, keepdim=True)
         new_sum = num.sum(-1, keepdim=True)
+        if hook is not None:
+            prev_mass, new_sum = hook(prev_mass, new_sum)
         mu_new = mask * (num / new_sum.clamp_min(1e-30) * prev_mass) + (
             1.0 - mask) * mu_old
         delta = cnt * (mu_new - mu_old)          # zero off the active set

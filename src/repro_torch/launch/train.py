@@ -1,9 +1,11 @@
 """Training driver — streaming FOEM (or SEM) with the disk-backed
 ParameterStore (PyTorch port of the LDA half of ``repro.launch.train``).
 
-Trains on a synthetic LDA corpus (``data.synthetic_lda_corpus``), one
-``FOEMTrainer`` step per minibatch, then reports the eq. 21 held-out
-predictive perplexity of the trained store on a 10% test split.  The store
+Trains on a synthetic LDA corpus (``data.synthetic_lda_corpus``, drawn
+from ``--topics-true`` topics, by default ``--topics``), one
+``FOEMTrainer`` step per minibatch (a line every ``--log-every`` steps),
+then reports the eq. 21 held-out predictive perplexity of the trained
+store on a 10% test split.  The store
 in ``--workdir`` flushes every ``--ckpt-every`` steps; ``--resume`` continues
 from its minibatch cursor.  Run on a GPU host with
 
@@ -43,7 +45,7 @@ def train_lda(args) -> float:
         iem_blocks=args.iem_blocks,
     )
     corpus, _ = synthetic_lda_corpus(
-        args.docs, args.vocab, args.topics,
+        args.docs, args.vocab, args.topics_true or args.topics,
         mean_doc_len=args.doc_len, seed=args.seed,
     )
     rng = np.random.default_rng(args.seed)
@@ -67,6 +69,8 @@ def train_lda(args) -> float:
     t0 = time.time()
 
     def report(m: StepMetrics) -> None:
+        if m.step % args.log_every:
+            return
         pf = "+" if m.prefetch_hit else "-"
         print(
             f"step {m.step:5d} sweeps={m.sweeps:2d} "
@@ -95,15 +99,21 @@ def train_lda(args) -> float:
     return ppl
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> float:
+    """The CLI: train, then return the eq. 21 held-out perplexity."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", default="build/repro_torch_train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--log-every", type=int, default=1,
+                    help="print every N-th step's line")
     ap.add_argument("--algorithm", default="foem", choices=["foem", "sem"])
     ap.add_argument("--topics", type=int, default=100)
+    ap.add_argument("--topics-true", type=int, default=0,
+                    help="topics of the synthetic corpus's generating model "
+                         "(0 = --topics)")
     ap.add_argument("--vocab", type=int, default=5000)
     ap.add_argument("--docs", type=int, default=2000)
     ap.add_argument("--doc-len", type=int, default=80)
@@ -119,7 +129,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
-    train_lda(args)
+    return train_lda(args)
 
 
 if __name__ == "__main__":

@@ -527,6 +527,36 @@ def test_sharded_kernels_match_plain(cuda, D, L, K, W, A, loglik):
 
 
 @pytest.mark.parametrize("A", [0, 4])
+def test_hooks_mode_runs_the_plain_loops_on_the_card(cuda, A):
+    """``ops.sweep`` under a one-rank hooks plan (``two_phase=False``) runs
+    the plain column loop on CUDA tensors — no sweep, probe or fold kernel
+    — and gives the CPU's hooks sweep within the sweep tolerances; its
+    loglik within rtol 1e-5."""
+    from repro_torch.core.types import SweepPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import MeshAxis
+
+    plan = SweepPlan(axis_name=MeshAxis("model", 1, 0), two_phase=False)
+    args = _sweep_inputs(24, 7, 777, 9, A, cuda, seed=11)
+    sk = dict(word_topics=args[6], token_active=args[7]) if A else {}
+    kernels = (gs_sweep, scheduled_sweep, sharded_probe, sharded_fold)
+    before = [k.launches for k in kernels]
+    got = ops.sweep(*args[:6], **SWEEP_KW, **sk, plan=plan,
+                    compute_loglik=True, device=cuda)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    want = ops.sweep(*(a.cpu() for a in args[:6]), **SWEEP_KW,
+                     **{k: v.cpu() for k, v in sk.items()}, plan=plan,
+                     compute_loglik=True, device="cpu")
+    _check_sweep(tuple(x.cpu() for x in (got.mu, got.residual, got.theta,
+                                         got.phi_wk, got.phi_k)) + (None,),
+                 (want.mu, want.residual, want.theta, want.phi_wk,
+                  want.phi_k, None))
+    torch.testing.assert_close(got.loglik.cpu(), want.loglik, rtol=1e-5,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("A", [0, 4])
 def test_sharded_kernels_bitwise_repeatable(cuda, A):
     args, rem, pm = _sharded_inputs(64, 12, 777, 8, A, cuda, seed=3)
     for fn, a in ((sharded_probe, args),

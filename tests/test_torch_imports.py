@@ -2,8 +2,8 @@
 
 * Every module of ``repro_torch`` imports in a fresh interpreter in which
   ``import jax`` and ``import repro`` fail.
-* No file of the port, nor ``chip_smoke.py``, has an import statement
-  naming ``jax``/``jaxlib`` or ``repro``.
+* No file of the port, nor ``chip_smoke.py`` or ``examples/torch``, has
+  an import statement naming ``jax``/``jaxlib`` or ``repro``.
 * The entry points — serving (``TopicServer``, ``ops.infer``, the serve
   CLI), training (``FOEMTrainer``, ``ops.sweep``, ``foem_minibatch``,
   the train CLI), the sharded step's meshes (``make_host_mesh``,
@@ -34,7 +34,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples" / "torch").glob("*.py")))
 
 
 def test_port_modules_import_without_jax():
@@ -208,6 +209,29 @@ def test_training_entry_points_default_to_the_gpu(tmp_path):
                               cfg, mu0=mu, device="cpu")
     assert res.diag.sweeps_run == 2
     assert FOEMTrainer(cfg, store, device="cpu").device.type == "cpu"
+
+
+def test_dryrun_and_examples_default_to_the_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib.util
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import build_lda_cell
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--lda", "stream_1k", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_lda_cell("stream_1k").materialize()
+    for name in ("quickstart", "train_foem_stream", "serve_topics",
+                 "lifelong_serve"):
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(["--quick", "--workdir", str(tmp_path / name)]
+                     if name != "quickstart" else ["--quick"])
 
 
 def test_cuda_tensors_never_fall_back():

@@ -79,9 +79,14 @@ MODES = {
 FIT = dict(fit_sweeps=12, check_every=3)
 
 
-def _cfg(mode, mp):
+#: The sharded engines, by ``cfg.sharded_impl``, and the suffix of their
+#: results' keys (the two-phase engine's keys carry none).
+IMPLS = {"two_phase": "", "hooks": "_hooks"}
+
+
+def _cfg(mode, mp, impl="two_phase"):
     return LDAConfig(num_topics=K, vocab_size=W, topk_shards=mp,
-                     ppl_check_every=3, **MODES[mode])
+                     ppl_check_every=3, sharded_impl=impl, **MODES[mode])
 
 
 def _tag(shape, mode=""):
@@ -138,7 +143,7 @@ def _inputs():
 
 
 _JAX_RUN = """
-import json, os, sys
+import itertools, json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, numpy as np, jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -166,10 +171,12 @@ for dp, mp in spec["meshes"]:
     sh = GlobalStats(phi_wk=NamedSharding(mesh, P(None, "model")),
                      phi_k=NamedSharding(mesh, P("model")),
                      step=NamedSharding(mesh, P()))
-    for mode, kw in spec["modes"].items():
-        tag = f"{dp}x{mp}_{mode}"
+    for (mode, kw), impl in itertools.product(spec["modes"].items(),
+                                              spec["impls"]):
+        tag = f"{dp}x{mp}_{mode}" + ("_hooks" if impl == "hooks" else "")
         cfg = LDAConfig(num_topics=spec["K"], vocab_size=spec["W"],
-                        topk_shards=mp, ppl_check_every=3, **kw)
+                        topk_shards=mp, ppl_check_every=3,
+                        sharded_impl=impl, **kw)
         stats = jax.device_put(GlobalStats(
             jnp.asarray(z["phi"]), jnp.asarray(z["phi_k"]), jnp.int32(0)), sh)
         calls.clear()
@@ -183,7 +190,7 @@ for dp, mp in spec["meshes"]:
             out[tag + "_phik"] = np.asarray(st.phi_k)
             out[tag + "_ppl"] = float(ppl)
             out[tag + "_sweeps"] = max(1, kw["warmup_sweeps"]) + len(calls) // 4
-            if mode == "scheduled":
+            if mode == "scheduled" and impl == "two_phase":
                 hp = heldout_perplexity_sharded(
                     jax.random.PRNGKey(1),
                     MinibatchData(batch.word_ids, jnp.asarray(z["est"])),
@@ -212,11 +219,13 @@ def _rank_job(mesh, path):
     mu0 = z[f"{tag}_mu0_{m}"]
     out = {"coords": (d, m)}
     for mode in MODES:
-        cfg = _cfg(mode, mp)
-        st, ppl, sweeps = foem_sharded.foem_step_sharded(
-            None, batch, stats0, cfg, mesh, mu0=mu0)
-        out[mode] = dict(phi=st.phi_wk.numpy(), phik=st.phi_k.numpy(),
-                         ppl=ppl, sweeps=sweeps, step=int(st.step))
+        for impl in IMPLS:
+            cfg = _cfg(mode, mp, impl)
+            st, ppl, sweeps = foem_sharded.foem_step_sharded(
+                None, batch, stats0, cfg, mesh, mu0=mu0)
+            out[mode + IMPLS[impl]] = dict(
+                phi=st.phi_wk.numpy(), phik=st.phi_k.numpy(), ppl=ppl,
+                sweeps=sweeps, step=int(st.step))
     cfg = _cfg("scheduled", mp)
     st, ppl, sweeps = foem_sharded.foem_step_sharded(
         None, batch, stats0, cfg, mesh, mu0=mu0)
@@ -282,7 +291,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
     path = str(tmp / "inputs.npz")
     np.savez(path, **_inputs())
-    spec = dict(meshes=MESHES, modes=MODES, K=K, W=W, fit=FIT)
+    spec = dict(meshes=MESHES, modes=MODES, impls=list(IMPLS), K=K, W=W,
+                fit=FIT)
     jax_proc = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_JAX_RUN), path,
          str(tmp / "jax.npz"), json.dumps(spec)],
@@ -466,31 +476,135 @@ def test_two_phase_single_rank_degenerates_to_fused(A, loglik):
 
 
 # ---------------------------------------------------------------------------
+# (b') the per-column hooks mode on one rank and with raw hooks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("A", [0, 3])
+def test_identity_hooks_are_the_hook_free_sweep_bitwise(A):
+    """Identity ``norm_psum`` (dense) / ``renorm_psum`` (scheduled), and a
+    one-rank hooks plan, reproduce the hook-free plain sweep bitwise (the
+    JAX package's ``test_sched_portable_renorm_hook_identity``); the plan
+    leaves φ̂(k) the float64 sum of the rows, as phase D does."""
+    s = _state(6, 5, 8, 48, seed=2, A=A)
+    sk = dict(word_topics=s["wt"], token_active=s["act"]) if A else {}
+    args = (s["wid"], s["cnt"], s["mu"], s["theta"], s["phi"], s["ptot"])
+    kw = dict(KW, wb=48 * 0.01, device="cpu", **sk)
+    plain = ops.sweep(*args, **kw)
+    seen = []
+
+    def identity(x):
+        seen.append(tuple(x.shape))
+        return x
+
+    hook = {"renorm_psum" if A else "norm_psum": identity}
+    hooked = ops.sweep(*args, **kw, **hook)
+    one_rank = ops.sweep(*args, **kw, plan=SweepPlan(
+        axis_name=MeshAxis("model", 1, 0), two_phase=False))
+    # one (D, 1) call a column; two (mass, then new sum) when scheduled
+    assert seen == [(6, 1)] * 5 * (2 if A else 1)
+    for got in (hooked, one_rank):
+        for name in ("mu", "theta", "phi_wk", "residual"):
+            assert torch.equal(getattr(plain, name), getattr(got, name)), name
+    assert torch.equal(hooked.phi_k, plain.phi_k)
+    assert torch.equal(one_rank.phi_k, _row_sum(plain.phi_wk))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_hooks_step_on_one_model_rank_is_the_unsharded_step(mode):
+    """``foem_step_sharded(sharded_impl="hooks")`` on a mesh of one model
+    rank is ``foem.foem_step`` from the same μ₀: the same column loops, the
+    reductions the identity.  φ̂(k) differs only by the rounding of the
+    loop's float32 running total, which the hooks plan replaces by the
+    rows' float64 sum each sweep, and that rounding alone reaches the
+    later sweeps' arithmetic: φ̂ and φ̂(k) within 1e-6 of the largest
+    entry, equal sweeps, the perplexity (the stop rule's loglik, summed in
+    another order too) within rtol 1e-6."""
+    from repro_torch.core import foem
+
+    z = _inputs()
+    t = torch.from_numpy
+    batch = MinibatchData(t(z["wid"]), t(z["cnt"]))
+    stats = GlobalStats(t(z["phi"]), t(z["phi_k"]), torch.tensor(0))
+    rng = np.random.default_rng(4)
+    mu0 = rng.dirichlet(np.ones(K), (D, L)).astype(np.float32)
+    cfg = _cfg(mode, 1, "hooks")
+    st, ppl, sweeps = foem_sharded.foem_step_sharded(
+        None, batch, stats, cfg, make_host_mesh(device="cpu"), mu0=mu0)
+    want, _, diag = foem.foem_step(None, batch, stats, cfg, mu0=mu0,
+                                   device="cpu")
+    _close(st.phi_wk.numpy(), want.phi_wk.numpy(), "phi_wk", rtol=0,
+           atol=1e-6)
+    _close(st.phi_k.numpy(), want.phi_k.numpy(), "phi_k", rtol=0, atol=1e-6)
+    assert torch.equal(st.phi_k, _row_sum(st.phi_wk))
+    assert sweeps == diag.sweeps_run
+    np.testing.assert_allclose(ppl, float(diag.final_train_ppl), rtol=1e-6)
+
+
+def test_sharded_plan_rejects_raw_hooks():
+    """Contract errors (the JAX package's
+    ``test_sharded_plan_rejects_raw_hooks_and_kernel_hooks``): a sharded
+    plan is exclusive with raw hooks, in either engine, and each raw hook
+    belongs to its sweep's form.  The port has no forced-kernel option, so
+    the JAX refusal of a hook on a kernel path has no counterpart."""
+    s = _state(8, 4, 6, 32, seed=9, A=2)
+    args = (s["wid"], s["cnt"], s["mu"], s["theta"], s["phi"], s["ptot"])
+    kw = dict(KW, wb=32 * 0.01, device="cpu")
+    axis = MeshAxis("model", 1, 0)
+    for two_phase in (True, False):
+        with pytest.raises(ValueError, match="not both"):
+            ops.sweep(*args, **kw, norm_psum=lambda x: x,
+                      plan=SweepPlan(axis_name=axis, two_phase=two_phase))
+    with pytest.raises(ops.ContractError, match="takes renorm_psum"):
+        ops.sweep(*args, **kw, word_topics=s["wt"], norm_psum=lambda x: x)
+    with pytest.raises(ops.ContractError, match="takes norm_psum"):
+        ops.sweep(*args, **kw, renorm_psum=lambda x: x)
+    with pytest.raises(ops.ContractError, match="callable"):
+        ops.sweep(*args, **kw, norm_psum=1.0)
+    with pytest.raises(ops.ContractError, match="two_phase"):
+        ops.sweep(*args, **kw, plan=SweepPlan(axis_name=axis, two_phase=0))
+
+
+# ---------------------------------------------------------------------------
 # (c) the sharded step on 4 gloo ranks vs the JAX package on 4 devices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("shape", MESHES, ids=_tag)
-def test_foem_step_sharded_matches_jax(runs, shape, mode):
+def _check_step_matches_jax(runs, shape, mode, key):
     jx = runs["jax"]
-    tag = _tag(shape, mode)
+    tag = _tag(shape, mode) + IMPLS["hooks" if key.endswith("_hooks")
+                                    else "two_phase"]
     ranks = _model_ranks(runs[shape])
-    phi = np.concatenate([r[mode]["phi"] for r in ranks], 1)
-    phik = np.concatenate([r[mode]["phik"] for r in ranks])
+    phi = np.concatenate([r[key]["phi"] for r in ranks], 1)
+    phik = np.concatenate([r[key]["phik"] for r in ranks])
     _close(phi, jx[tag + "_phi"], "phi_wk", rtol=1e-4, atol=1e-4)
     _close(phik, jx[tag + "_phik"], "phi_k", rtol=1e-4, atol=1e-4)
     if mode == "scheduled":        # the scheduled sweeps did run
         assert int(jx[tag + "_sweeps"]) > MODES[mode]["warmup_sweeps"]
     for r in runs[shape]:
-        assert r[mode]["sweeps"] == int(jx[tag + "_sweeps"])
-        assert r[mode]["step"] == 1
-        np.testing.assert_allclose(r[mode]["ppl"], float(jx[tag + "_ppl"]),
+        assert r[key]["sweeps"] == int(jx[tag + "_sweeps"])
+        assert r[key]["step"] == 1
+        np.testing.assert_allclose(r[key]["ppl"], float(jx[tag + "_ppl"]),
                                    rtol=1e-4)
         # data ranks of one model index hold the same slice, up to the
         # rounding of their own Δφ̂ in the data-axis fold (φ̂ + (Σ − own))
         twin = ranks[r["coords"][1]]
-        _close(r[mode]["phi"], twin[mode]["phi"], "data twins", rtol=1e-6,
+        _close(r[key]["phi"], twin[key]["phi"], "data twins", rtol=1e-6,
                atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", MESHES, ids=_tag)
+def test_foem_step_sharded_matches_jax(runs, shape, mode):
+    _check_step_matches_jax(runs, shape, mode, mode)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", MESHES, ids=_tag)
+def test_foem_step_sharded_hooks_matches_jax(runs, shape, mode):
+    """``sharded_impl="hooks"`` — the per-column reductions on the plain
+    column loops — against the JAX package's hooks step on the same mesh
+    from the same μ₀: φ̂, φ̂(k) and the perplexity within rtol 1e-4, equal
+    sweep counts."""
+    _check_step_matches_jax(runs, shape, mode, mode + "_hooks")
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=_tag)
@@ -649,21 +763,18 @@ def test_mesh_axis_of_one_rank_is_the_identity():
 
 
 def test_sharded_plans_refuse_hooks_strings_and_quantized_phi():
+    """A sharded plan refuses raw hooks (in the hooks mode too), a string
+    axis, and quantized φ for the sharded fit."""
     s = _state(4, 3, 4, 6, seed=0)
     args = (s["wid"], s["cnt"], s["mu"], s["theta"], s["phi"], s["ptot"])
     kw = dict(KW, wb=0.06, device="cpu")
     axis = MeshAxis("model", 1, 0)
-    stats = GlobalStats(torch.from_numpy(s["phi"]),
-                        torch.from_numpy(s["ptot"]), torch.tensor(0))
-    batch = MinibatchData(torch.from_numpy(s["wid"]),
-                          torch.from_numpy(s["cnt"]))
-    cfg = LDAConfig(num_topics=4, vocab_size=6, sharded_impl="hooks")
-    with pytest.raises(ops.ContractError, match="hooks mode"):
-        foem_sharded.foem_step_sharded(None, batch, stats, cfg,
-                                       make_host_mesh(device="cpu"))
+    with pytest.raises(ops.ContractError, match="hooks, not both"):
+        ops.sweep(*args, **kw, norm_psum=lambda x: x,
+                  plan=SweepPlan(axis_name=axis, two_phase=False))
     with pytest.raises(ops.ContractError, match="mesh.model"):
         ops.sweep(*args, **kw, plan=SweepPlan(axis_name="model"))
-    with pytest.raises(ops.ContractError, match="hooks"):
+    with pytest.raises(ops.ContractError, match="hooks, not both"):
         ops.sweep(*args, **kw, plan=SweepPlan(axis_name=axis),
                   renorm_psum=lambda x: x)
     phi_n = s["phi"] / s["ptot"]

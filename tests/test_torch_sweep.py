@@ -56,6 +56,7 @@ from repro_torch.kernels.scheduled_sweep import (
     scheduled_sweep,
     scheduled_sweep_reference,
 )
+from repro_torch.launch.mesh import MeshAxis
 from repro_torch.runtime import FaultPlan, FaultSpec, InjectedFault, PRE_PROBE
 from repro_torch.runtime.faults import active_plan
 
@@ -392,7 +393,8 @@ def test_sweep_refuses_sharded_plans_hooks_and_bad_shapes():
         ops.sweep(*_args(s), **_kw(6), plan=SweepPlan(axis_name="model"),
                   device="cpu")
     with pytest.raises(ops.ContractError, match="hooks"):
-        ops.sweep(*_args(s), **_kw(6), norm_psum=lambda x: x, device="cpu")
+        ops.sweep(*_args(s), **_kw(6), norm_psum=lambda x: x, device="cpu",
+                  plan=SweepPlan(axis_name=MeshAxis("model", 1, 0)))
     with pytest.raises(ops.ContractError, match="theta"):
         ops.sweep(s["wid"], s["cnt"], s["mu"], s["theta"][:, :3], s["phi"],
                   s["ptot"], **_kw(6), device="cpu")

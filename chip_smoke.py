@@ -147,9 +147,37 @@ order:
    greedy tokens must continue one prefill over the same 2,080 tokens; then
    danube-3-4b (full width, 4 layers, float32) decodes 16 steps from a
    4,096-slot ring placed from a 6,128-token prefill, against one prefill
-   of all 6,144 tokens.
+   of all 6,144 tokens;
+13. holds the attention backward kernels (``csrc/flash_attention_bwd.cu``:
+   D, dk/dv, dq; no TPU counterpart) against ``torch.autograd`` of the plain
+   attention at the training shapes — danube-3-4b (B = 1, 32 heads over 8,
+   S = 4,096, d = 120, window 4,096, bf16), granite (32 over 8, S = 2,048,
+   d = 128, causal, bf16 and float32), a 512-key window — each with its
+   ms, launches, bound, the plain version's ms, the backward of one
+   ``scaled_dot_product_attention`` (a yardstick the port never calls) and
+   two launches' bits compared; bf16 by 64-row tile against the float32
+   truth, with two planted faults that must fail that check (``attention
+   backward kernel`` lines);
+14. drives the dense LM's training path — h2o-danube-3-4b at full width and
+   depth (24 layers, bf16, seeded random weights), 4 steps of
+   ``launch.train.lm_train_step`` on one 4,096-token sequence a step from
+   ``synthetic_token_stream``, the last under ``torch.profiler``: finite
+   losses, step 1 (lr 0) leaving every parameter's bits and setting the
+   moments, steps 2–4 changing every weight matrix, 24 forward and 24
+   backward attention launches a step, step 1's loss against the plain
+   attention's forward, the peak below 75 GB; then every leaf's gradient of
+   2-layer full-width float32 and bf16 copies through the kernels against
+   the plain attention's autograd, and the 4 steps' losses at full width
+   and depth (S = 1,024) through the kernels against the plain attention's
+   (``lm training`` line: losses, step seconds, tokens/s, peak GB, the
+   profiled step's busy share and top ops, the witness curves);
+15. runs the LM CLIs in processes of their own: ``launch.serve --arch
+   granite-8b --gen-tokens 8``, ``launch.train --arch granite-8b --steps
+   12 --ckpt-every 5`` (the loss must fall) and its ``--resume --steps 14``
+   (from step 10), and ``examples/torch/train_lm.py --quick`` (``lm cli``
+   line).
 
-13. the analysis layer: from the build on, every launch the wrappers make
+16. the analysis layer: from the build on, every launch the wrappers make
    is noted (``repro_torch.analysis.launches``) and recorded by its
    library (``csrc/launch_log.cuh``); after the baselines, a
    ``debug_checks=True`` ``FOEMTrainer.step`` at the stream_1k width and a
@@ -340,6 +368,76 @@ ATTN_TOL_REASON = (
     "package's own kernel test); in bfloat16 both round the output to 8 "
     "bits (one ulp is 7.8e-3 at 1) and round p at another running max: two "
     "ulps at 1")
+# The attention backward kernel against torch.autograd of its plain version
+# (rtol, atol) by type, and why.
+BWD_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -4), "float32": (1e-4, 1e-4)}
+BWD_TOL_REASON = (
+    "dq, dk, dv sum up to 4 x 4,096 (query, key) terms of N(0,1)-scale "
+    "values; in float32 the kernel and cuBLAS take the score, dp and "
+    "gradient sums in other orders (~1e-6 relative a sum, carried through "
+    "exp and the products: rtol / atol 1e-4); in bfloat16 the elementwise "
+    "(rtol, atol) is only a coarse screen (2^-4 is the size of a typical "
+    "entry far from the diagonal), and BWD_TILE_TOL holds the gradients")
+# bfloat16: against the float32 truth (the plain version on float32 copies
+# of the same bf16 values), each (head, 64-row tile) block of dq (queries)
+# and of dk, dv (keys) within 2^-7 of its norm: ||got_t - true_t|| <= 2^-7
+# (||true_t|| + 2^-4 rms_t ||true_t||).  The kernel rounds the gradients to
+# 8 bits once (half an ulp, ~2^-9 of a block's norm) from float32 sums, and
+# takes D = rowsum(dO o) from the bf16 o, as SDPA's backward does; that D
+# moves a row whose attention sits on one key (query 1: dq_1 is a small
+# difference of large terms) by up to ~0.2 of its own norm, a row error the
+# library shares, so the check is by tile (the kernel's unit of work), where
+# such a row weighs little.  The bf16 plain version's own error (p rounded
+# to bf16 before p.v) is reported beside; the floor, 1/16 of a typical
+# tile's norm, holds tiles that are ~0 (the last keys') to an absolute error.
+BWD_TILE, BWD_TILE_TOL, BWD_TILE_FLOOR = 64, 2.0 ** -7, 2.0 ** -4
+# The faults the tile check must see (it fails on each; the elementwise
+# screen's verdict is reported beside): one 64-key tile of dk zeroed, in the
+# middle of the sequence of KV head 0, and the lse of query head 0's 64 rows
+# there shifted by 2^-5 (p scaled by 0.97 on them)
+BWD_FAULT_LSE_SHIFT = 2.0 ** -5
+# The LM training phase: h2o-danube-3-4b at full width and depth (24
+# layers, bf16, seeded random weights), one sequence of 4,096 tokens (the
+# JAX train_4k length; its global batch of 256 cut to 1 for one card),
+# TRAIN_STEPS steps of train_lm's step; the last one profiled.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = ("h2o-danube-3-4b", 1,
+                                                   4096, 4)
+TRAIN_PEAK_GB = 75.0        # above it the cell drops to S = 2,048
+TRAIN_LOSS_RTOL = 1e-4      # step 1's bf16 loss against the same forward
+# through the plain attention under no_grad: the two attentions' outputs
+# differ by an ulp or two of bf16 an element, carried through 24 layers and
+# averaged over 4,096 tokens' cross-entropies of ~11 (1.4e-5 apart on an
+# H100 80GB HBM3 at 700 W); a loss this close to ln V says little about the
+# attention, so the gradient checks below hold it
+TRAIN_GRAD_LAYERS = 2       # the gradient checks: full width, 2 layers
+TRAIN_GRAD_TOL = 1e-3       # float32: max |g_kernel - g_plain| / max
+# |g_plain| a leaf: float32 sums in other orders (~1e-6 relative an op, see
+# BWD_TOL) through 2 layers, the 32,000-way softmax of the CE and rmsnorm;
+# the CPU tests hold the reduced configs' leaves to JAX's within 1e-4
+TRAIN_GRAD_TOL_BF16 = 2.0 ** -5     # bfloat16: ||g_kernel - g_plain|| /
+# ||g_plain|| a leaf: the two attentions' outputs differ by one or two bf16
+# ulps (2^-8 relative) an element, and every product of the backward rounds
+# to bf16 (2^-9) on both sides, through 2 layers and the CE's softmax
+# The witness of the bf16 loss curve: the same TRAIN_STEPS steps of
+# train_lm's step at full width and depth, once through the kernels and once
+# through the plain attention (the same seeds and batches), at S = 1,024 so
+# that the plain attention's saved (32, S, S) float32 scores fit beside the
+# weights and moments; each step's loss within TRAIN_WITNESS_RTOL: the two
+# paths' gradients differ by bf16 roundings, which move some weights'
+# update by one ulp, so the curves part slowly (at most 4.3e-4 apart over
+# the 4 steps on an H100 80GB HBM3 at 700 W, while the loss rose from 11.0
+# to 16.6: a few times that gap)
+TRAIN_WITNESS_SEQ, TRAIN_WITNESS_RTOL = 1024, 2e-3
+LM_CLI_ARCH = "granite-8b"  # the CLIs' reduced config
+# The attention backward checks: (name, (BH, BHkv, S, d, window), type);
+# the first, danube's training call, is the kernel's main line
+BWD_CASES = (
+    ("danube training window=4096", (32, 8, TRAIN_SEQ, 120, 4096),
+     "bfloat16"),
+    ("granite causal", (32, 8, 2048, 128, 0), "bfloat16"),
+    ("granite causal f32", (32, 8, 2048, 128, 0), "float32"),
+    ("granite window=512", (32, 8, 2048, 128, 512), "bfloat16"),
+)
 # Decode logits against one prefill over the same tokens, float32 copy.
 #: The analysis phase: the JAX package's sanitizer messages that the
 #: planted faults must raise (tests/test_torch_sanitizer.py holds the two
@@ -3558,6 +3656,491 @@ def lm_serving_phase(torch, dev, report):
     torch.cuda.empty_cache()
 
 
+def _bwd_bound(q, k, pairs) -> tuple:
+    """Least time of one attention backward call: q, o, dO and lse read and
+    dq written once a query head, k and v read and dk, dv written once a
+    KV head, against 5 products of 2·d operations per visible (query head,
+    query, key) pair — ``pairs`` per query head — at the inputs' type's
+    peak (bf16 tensor cores or float32)."""
+    import torch
+
+    BH, Sq, d = q.shape
+    esz = q.element_size()
+    nbytes = 4 * q.numel() * esz + 4 * k.numel() * esz + 4 * BH * Sq
+    flops = 10 * d * BH * pairs
+    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / rate * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def bwd_tile_error(got, want) -> float:
+    """Largest error of a gradient's (head, BWD_TILE-row tile) blocks
+    against ``want``'s, each over its own norm: max_t ||got_t - want_t|| /
+    (||want_t|| + BWD_TILE_FLOOR · rms_t ||want_t||)."""
+    import torch
+
+    err, norm = [], []
+    for a, b in zip(got.float().split(BWD_TILE, 1),
+                    want.float().split(BWD_TILE, 1)):
+        err.append((a - b).flatten(1).norm(dim=1))
+        norm.append(b.flatten(1).norm(dim=1))
+    err, norm = torch.stack(err, 1), torch.stack(norm, 1)
+    floor = BWD_TILE_FLOOR * norm.pow(2).mean().sqrt()
+    return float((err / (norm + floor)).max())
+
+
+def attention_backward_phase(torch, dev, report):
+    """The attention backward kernels (``flash_attention_backward``: the
+    delta, dkdv and dq launches of ``csrc/flash_attention_bwd.cu``) against
+    ``torch.autograd`` of the plain attention on the same inputs, at the LM
+    training shapes: danube-3-4b (B = 1, 32 heads over 8, S = 4,096, d =
+    120, window 4,096, bf16), granite (32 over 8, S = 2,048, d = 128,
+    causal, bf16 and float32) and a window shorter than S (512).  Float32
+    is held elementwise (BWD_TOL), bfloat16 tile by tile against the
+    float32 truth (BWD_TILE_TOL), and each bfloat16 case plants two faults
+    that the tile check must see.  Each line has the kernel's ms (CUDA events over 3 calls),
+    its launches, its bound, the plain version's ms and the backward of one
+    ``scaled_dot_product_attention`` (timed only, never called by the
+    port), and two launches' bits compared."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+        flash_attention_backward_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    print(f"attention backward tolerance (rtol, atol): {json.dumps(BWD_TOL)}"
+          f": {BWD_TOL_REASON}; bfloat16 {BWD_TILE}-row tiles within "
+          f"{BWD_TILE_TOL} of (norm + {BWD_TILE_FLOOR} of the rms norm) of "
+          f"the float32 truth")
+    lines = []
+
+    def verdicts(got, want, truth, dtype):
+        """Each gradient's errors: elementwise against the plain version
+        (BWD_TOL: float32's check, bfloat16's screen) and, in bfloat16, by
+        tile against the float32 truth (the check), beside the plain
+        version's own tile error."""
+        rtol, atol = BWD_TOL[dtype]
+        out = {}
+        for n, a, b, t in zip(("dq", "dk", "dv"), got, want, truth):
+            a, b = a.float(), b.float()
+            screen = bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+            out[n] = {**errors(a, b), "screen": screen, "ok": screen}
+            if dtype == "bfloat16":
+                tile = bwd_tile_error(a, t)
+                out[n].update(tile_err=tile,
+                              plain_tile_err=bwd_tile_error(b, t),
+                              ok=screen and tile <= BWD_TILE_TOL)
+        return out
+
+    def faults(name, q, k, v, o, dout, lse, got, want, truth, kw):
+        """The planted faults: each must fail the tile check."""
+        S = q.shape[1]
+        mid = slice(S // 2, S // 2 + BWD_TILE)
+        dk = got[1].clone()
+        dk[0, mid] = 0
+        shifted = lse.clone()
+        shifted[0, mid] += BWD_FAULT_LSE_SHIFT
+        bad = flash_attention_backward(q, k, v, o, dout, shifted, **kw)
+        out = {}
+        for fault, grads in (("dk_tile_zeroed", (got[0], dk, got[2])),
+                             ("lse_shifted", bad)):
+            res = verdicts(grads, want, truth, "bfloat16").values()
+            out[fault] = {"tile_err": max(e["tile_err"] for e in res),
+                          "screen_passes": all(e["screen"] for e in res)}
+            check(out[fault]["tile_err"] > BWD_TILE_TOL, f"{name}: the "
+                  f"planted fault {fault} passes the tile check")
+        return out
+
+    def run(name, BH, BHkv, S, d, window, dtype):
+        q, k, v, dout = [torch.randn((n, S, d), generator=g, device=dev)
+                         .to(dtype) for n in (BH, BHkv, BHkv, BH)]
+        kw = dict(causal=True, window=window)
+        o, lse = flash_attention(q, k, v, **kw, return_lse=True)
+        before = flash_attention_backward.launches
+        got = flash_attention_backward(q, k, v, o, dout, lse, **kw)
+        torch.cuda.synchronize()
+        launches = flash_attention_backward.launches - before
+        want = flash_attention_backward_reference(q, k, v, dout, **kw)
+        ty = str(dtype)[6:]
+        truth = (flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), dout.float(), **kw)
+            if ty == "bfloat16" else want)
+        errs = verdicts(got, want, truth, ty)
+        bad = {n: e for n, e in errs.items() if not e["ok"]}
+        check(not bad, f"{name}: the kernel disagrees with the plain "
+              f"version: {bad}")
+        planted = (faults(name, q, k, v, o, dout, lse, got, want, truth, kw)
+                   if ty == "bfloat16" else None)
+        del want, truth
+        again = flash_attention_backward(q, k, v, o, dout, lse, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: two launches on the same inputs differ")
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"{name}: a non-finite gradient")
+        del again, got
+        ms = cuda_time_ms(lambda: flash_attention_backward(
+            q, k, v, o, dout, lse, **kw), 3)
+        plain_ms = cuda_time_ms(lambda: flash_attention_backward_reference(
+            q, k, v, dout, **kw), 1)
+        q4 = q.view(1, BH, S, d).detach().requires_grad_()
+        k4 = k.view(1, BHkv, S, d).detach().requires_grad_()
+        v4 = v.view(1, BHkv, S, d).detach().requires_grad_()
+        if 0 < window < S:
+            ip = torch.arange(S, device=dev)
+            band = (ip[None, :] <= ip[:, None]) & (
+                ip[None, :] > ip[:, None] - window)
+            o4 = F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=band[None, None], enable_gqa=True)
+        else:                           # causal (the window holds all of S)
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                enable_gqa=True)
+        g4 = dout.view(1, BH, S, d)
+        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), g4, retain_graph=True), 3)
+        bound = _bwd_bound(q, k, _visible_pairs(S, S, 0, window))
+        rec = {"case": name, "dtype": ty, "q": list(q.shape),
+               "kv": list(k.shape), **kw, "ms": ms, "launches": launches,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound[0], "bound_by": bound[1],
+               **_shares(bound[0], ms, lib_ms), "errors": errs,
+               "planted_faults": planted, "bitwise_repeat": True}
+        print("attention backward kernel " + json.dumps(rec))
+        lines.append(rec)
+        del q, k, v, dout, o, lse, q4, k4, v4, o4, g4
+        torch.cuda.empty_cache()
+        return rec
+
+    recs = [run(name, *shape, getattr(torch, dtype))
+            for name, shape, dtype in BWD_CASES]
+    report["attention_backward_lines"] = lines
+    report["attention_backward_main"] = recs[0]
+
+
+def plain_attention():
+    """A context in which ``ops.attention`` — the LM's attention core —
+    runs the plain version (``flash_attention_reference``, differentiated
+    by autograd) on the card instead of the kernels."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_reference
+
+    @contextlib.contextmanager
+    def swapped():
+        kernel = ops.attention
+        ops.attention = (
+            lambda q, k, v, *, causal=True, window=0, q_offset=0:
+            flash_attention_reference(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset))
+        try:
+            yield
+        finally:
+            ops.attention = kernel
+    return swapped()
+
+
+def lm_training_phase(torch, dev, report):
+    """The dense LM's training path on the card at full width and depth:
+    h2o-danube-3-4b (24 layers, bf16, seeded random weights) trains
+    TRAIN_STEPS steps of ``launch.train.lm_train_step`` on one
+    ``synthetic_token_stream`` sequence of TRAIN_SEQ tokens each, the last
+    step under ``torch.profiler``.  Checks: finite losses; step 1 (lr 0)
+    leaves every parameter bitwise unchanged and sets the moments; steps
+    2–4 change every weight matrix; 24 forward and 24 backward attention
+    launches a step; step 1's loss within TRAIN_LOSS_RTOL of the same
+    forward through the plain attention under no_grad; the peak below
+    TRAIN_PEAK_GB.  Then, on 2-layer full-width copies in float32 and in
+    bfloat16, every leaf's gradient through the kernels against the plain
+    attention's autograd (TRAIN_GRAD_TOL, TRAIN_GRAD_TOL_BF16); and the
+    witness of the bf16 loss curve: TRAIN_STEPS steps at full width and
+    depth at S = TRAIN_WITNESS_SEQ through the kernels and through the
+    plain attention, each step's loss within TRAIN_WITNESS_RTOL."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import tree_flatten
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.synthetic import synthetic_token_stream
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+    )
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+
+    cfg = ARCHS[TRAIN_ARCH]
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, cfg.num_layers
+    print(f"lm training: {cfg.name} {n} layers d_model {cfg.d_model} heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.hd} d_ff {cfg.d_ff} "
+          f"vocab {cfg.vocab_size} {cfg.dtype} window {cfg.sliding_window}; "
+          f"{B} x {S} tokens a step (train_4k's global batch of 256 cut to "
+          f"1 for one card), {TRAIN_STEPS} steps of train_lm's step")
+    print(f"lm training tolerances: loss rtol {TRAIN_LOSS_RTOL}; 2-layer "
+          f"gradients, float32 {TRAIN_GRAD_TOL} of each leaf's largest, "
+          f"bfloat16 {TRAIN_GRAD_TOL_BF16} of its norm; the loss curves "
+          f"through the kernels and the plain attention at S = "
+          f"{TRAIN_WITNESS_SEQ} within {TRAIN_WITNESS_RTOL}")
+    t_phase = time.perf_counter()
+    stream = synthetic_token_stream(B, S, cfg.vocab_size, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                next(stream).items()} for _ in range(TRAIN_STEPS)]
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_flatten(params)[0]
+    names = [".".join(map(str, path)) for path in _tree_paths(params)]
+    with torch.no_grad(), plain_attention():
+        plain_loss = model.loss_fn(params, batches[0]).item()
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    for p in leaves:
+        p.requires_grad_()
+    t0 = time.perf_counter()
+    snap = [p.detach().to("cpu", copy=True) for p in leaves]
+    snap_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_backward.launches = 0
+    losses, step_s, launches = [], [], []
+    profiled = None
+    for i, b in enumerate(batches):
+        fwd0 = flash_attention.launches
+        bwd0 = flash_attention_backward.launches
+
+        def step():
+            out = lm_train_step(model, params, opt, b,
+                                total_steps=TRAIN_STEPS)
+            torch.cuda.synchronize()        # the wall clock sees it all
+            return out
+
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS - 1:
+            out, wall_ms, by_op, busy_ms = device_profile(torch, step)
+            profiled = {"step": i + 1, "wall_ms": wall_ms,
+                        "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+                        "top_ops_ms": top_ops(by_op, 8)}
+        else:
+            out = step()
+        loss, params, opt = out
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        launches.append([flash_attention.launches - fwd0,
+                         flash_attention_backward.launches - bwd0])
+        if i == 0:
+            same = [torch.equal(p.detach().cpu(), s)
+                    for p, s in zip(leaves, snap)]
+            check(all(same), "lm training step 1 (lr 0) changed "
+                  + ", ".join(nm for nm, ok in zip(names, same) if not ok))
+            unset = [nm for nm, m in zip(names, tree_flatten(opt.mu)[0])
+                     if not bool(m.abs().sum() > 0)]
+            check(not unset, f"lm training step 1 left moments at 0: "
+                  f"{unset}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    changed = {nm: not torch.equal(p.detach().cpu(), s)
+               for nm, p, s in zip(names, leaves, snap)}
+    # the weight matrices: a layer's parameter of rank 2 (a stacked leaf
+    # holds one a layer); the norm scales sit at 1.0, where bf16's spacing
+    # (2^-8) is wider than lr·step here
+    matrices = [nm for nm, p in zip(names, leaves)
+                if p.ndim - (1 if nm.startswith("blocks.") else 0) >= 2]
+    check(all(np.isfinite(losses)), f"lm training losses {losses}")
+    check(all(changed[nm] for nm in matrices), "lm training steps 2-4 left "
+          + ", ".join(nm for nm in matrices if not changed[nm])
+          + " unchanged")
+    check(all(f == n and bw == n for f, bw in launches),
+          f"lm training attention launches a step {launches}, not {n} "
+          f"forward and {n} backward")
+    loss_err = abs(losses[0] - plain_loss) / abs(plain_loss)
+    check(loss_err <= TRAIN_LOSS_RTOL, f"lm training step 1 loss "
+          f"{losses[0]} against the plain attention's {plain_loss}")
+    check(peak_gb <= TRAIN_PEAK_GB, f"lm training peaked at {peak_gb:.1f} "
+          f"GB, above {TRAIN_PEAK_GB}")
+    steady = sorted(step_s[1:-1])
+    step_med = steady[len(steady) // 2]
+    del params, opt, snap, leaves, model, out, loss
+    torch.cuda.empty_cache()
+
+    # every leaf's gradient: kernels against the plain attention, 2 layers,
+    # in float32 (max error over the leaf's largest) and in the model's
+    # bfloat16 (error norm over the leaf's norm)
+    grad_check = {}
+    for dtype, tol in (("float32", TRAIN_GRAD_TOL),
+                       (cfg.dtype, TRAIN_GRAD_TOL_BF16)):
+        model = build(dataclasses.replace(cfg, num_layers=TRAIN_GRAD_LAYERS,
+                                          dtype=dtype))
+        params = model.init_params(torch.Generator(device=dev).manual_seed(1))
+        leaves = tree_flatten(params)[0]
+        for p in leaves:
+            p.requires_grad_()
+        before = flash_attention_backward.launches
+        model.loss_fn(params, batches[0]).backward()
+        grad_launches = flash_attention_backward.launches - before
+        got = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        with plain_attention():
+            model.loss_fn(params, batches[0]).backward()
+        grad_err = {}
+        for nm, a, p in zip(names, got, leaves):
+            a, b = a.float(), p.grad.float()
+            if dtype == "float32":
+                e = (a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+            else:
+                e = (a - b).norm() / b.norm().clamp_min(1e-30)
+            grad_err[nm] = e.item()
+        check(grad_launches == TRAIN_GRAD_LAYERS, f"the 2-layer {dtype} "
+              f"backward launched the backward kernels {grad_launches} "
+              f"times")
+        bad = {nm: e for nm, e in grad_err.items() if not e <= tol}
+        check(not bad, f"2-layer {dtype} gradients through the kernels "
+              f"differ from the plain attention's: {bad}")
+        grad_check[dtype] = {"layers": TRAIN_GRAD_LAYERS, "tol": tol,
+                             "max_rel_err": max(grad_err.values()),
+                             "worst_leaf": max(grad_err, key=grad_err.get)}
+        del params, leaves, got, model, a, b, p
+        torch.cuda.empty_cache()
+
+    # the witness of the bf16 loss curve: the same steps at full width and
+    # depth through the kernels and through the plain attention
+    stream = synthetic_token_stream(B, TRAIN_WITNESS_SEQ, cfg.vocab_size,
+                                    seed=0)
+    wbatches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                 next(stream).items()} for _ in range(TRAIN_STEPS)]
+    model = build(cfg)
+    curves, wlaunches, held_gb = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for path in ("kernels", "plain"):
+        # what the earlier runs left allocated (the model's own state is
+        # freed once its names are: no reference cycle holds it)
+        held_gb[path] = torch.cuda.memory_allocated() / 1e9
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        opt = adamw_init(params)
+        for p in tree_flatten(params)[0]:
+            p.requires_grad_()
+        before = flash_attention_backward.launches
+        with (plain_attention() if path == "plain"
+              else contextlib.nullcontext()):
+            curve = []
+            for b in wbatches:
+                loss, params, opt = lm_train_step(model, params, opt, b,
+                                                  total_steps=TRAIN_STEPS)
+                curve.append(loss.item())
+        curves[path] = curve
+        wlaunches[path] = flash_attention_backward.launches - before
+        del params, opt, loss, p
+        torch.cuda.empty_cache()
+    witness_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    wrel = [abs(a - b) / abs(b) for a, b in zip(curves["kernels"],
+                                                 curves["plain"])]
+    check(wlaunches == {"kernels": n * TRAIN_STEPS, "plain": 0},
+          f"the witness's backward launches {wlaunches}")
+    check(all(np.isfinite(curves["kernels"] + curves["plain"]))
+          and all(r <= TRAIN_WITNESS_RTOL for r in wrel),
+          f"the bf16 loss curves through the kernels {curves['kernels']} "
+          f"and the plain attention {curves['plain']} part by {wrel}")
+
+    rec = {"arch": cfg.name, "layers": n, "dtype": cfg.dtype, "batch": B,
+           "seq": S, "steps": TRAIN_STEPS, "losses": losses,
+           "plain_attention_loss_step1": plain_loss,
+           "loss_rel_err_step1": loss_err, "step_s": step_s,
+           "step_s_median_steady": step_med,
+           "tokens_per_s": B * S / step_med, "peak_gb": peak_gb,
+           "attention_launches_per_step": launches,
+           "forward_launches": sum(f for f, _ in launches),
+           "backward_launches": sum(bw for _, bw in launches),
+           "init_params_s": init_s, "host_snapshot_s": snap_s,
+           "matrices_changed": sum(changed[nm] for nm in matrices),
+           "matrices": len(matrices),
+           "norm_leaves_changed": sorted(nm for nm in changed
+                                         if changed[nm]
+                                         and nm not in matrices),
+           "grad_check": grad_check,
+           "witness": {"seq": TRAIN_WITNESS_SEQ, **curves,
+                       "rel_err": wrel, "peak_gb": witness_peak_gb,
+                       "held_gb_before": held_gb},
+           "profiled_step": profiled,
+           "phase_s": time.perf_counter() - t_phase}
+    print("lm training " + json.dumps(rec))
+    report["lm_training"] = rec
+
+
+def _tree_paths(tree, prefix=()):
+    """Key paths of a nested dict's leaves, in ``tree_flatten``'s order
+    (keys sorted)."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _tree_paths(tree[k], prefix + (k,))
+        return out
+    return [prefix]
+
+
+def lm_cli_phase(report):
+    """The LM CLIs on the card, each in a process of its own (the kernels
+    this run built are loaded, not rebuilt): ``launch.serve --arch
+    granite-8b --gen-tokens 8``; ``launch.train --arch granite-8b --steps
+    12 --ckpt-every 5``, whose loss must fall, then ``--resume --steps 14``
+    from its workdir, which must resume from step 10; and
+    ``examples/torch/train_lm.py --quick``.  Each must exit 0."""
+    import os
+    import re
+
+    import numpy as np
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    wd = ROOT / "build" / "chip_smoke_lm_cli"
+    shutil.rmtree(wd, ignore_errors=True)
+    runs = {}
+
+    def run(name, args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=str(ROOT),
+                              capture_output=True, text=True, timeout=600,
+                              env=env)
+        check(proc.returncode == 0, f"lm cli {name} exited "
+              f"{proc.returncode}: {proc.stdout[-2000:]}"
+              f"{proc.stderr[-2000:]}")
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "last_line": proc.stdout.strip().splitlines()[-1]}
+        return proc.stdout
+
+    def losses(out):
+        return [float(x) for x in re.findall(r"loss=\s*(\S+)", out)]
+
+    train = ["-m", "repro_torch.launch.train", "--arch", LM_CLI_ARCH,
+             "--ckpt-every", "5", "--workdir", str(wd / "train")]
+    try:
+        out = run("serve", ["-m", "repro_torch.launch.serve", "--arch",
+                            LM_CLI_ARCH, "--gen-tokens", "8"])
+        check("generated 8×64 tokens" in out and "tok/s" in out,
+              f"lm cli serve printed {out[-500:]}")
+        first = losses(run("train", train + ["--steps", "12"]))
+        check(len(first) == 12 and all(np.isfinite(first))
+              and first[-1] < first[0],
+              f"lm cli train: 12 losses that fall, got {first}")
+        out = run("resume", train + ["--steps", "14", "--resume"])
+        check("[resume] from step 10" in out and len(losses(out)) == 4,
+              f"lm cli resume printed {out[-500:]}")
+        ex = losses(run("example", [
+            str(ROOT / "examples" / "torch" / "train_lm.py"), "--quick",
+            "--workdir", str(wd / "example")]))
+        check(len(ex) == 6 and all(np.isfinite(ex)),
+              f"lm cli example losses {ex}")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    rec = {"arch": LM_CLI_ARCH, "train_losses": first, "runs": runs}
+    print("lm cli " + json.dumps(rec))
+    report["lm_cli"] = rec
+
+
 def sanitized_phase(torch, store, report):
     """``debug_checks=True`` on the card, through the CUDA kernels: one
     dense sweep of the training corpus's first minibatch on the stream_1k
@@ -3844,6 +4427,14 @@ def main() -> int:
     lm_serving_phase(torch, dev, report)
     print(f"attention kernel phase {t1 - t0:.1f} s, lm serving phase "
           f"{time.perf_counter() - t1:.1f} s")
+    t0 = time.perf_counter()
+    attention_backward_phase(torch, dev, report)
+    t1 = time.perf_counter()
+    lm_training_phase(torch, dev, report)
+    t2 = time.perf_counter()
+    lm_cli_phase(report)
+    print(f"attention backward phase {t1 - t0:.1f} s, lm training phase "
+          f"{t2 - t1:.1f} s, lm cli phase {time.perf_counter() - t2:.1f} s")
     analysis_phase(torch, report)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
 
@@ -3962,16 +4553,38 @@ def main() -> int:
         "library_ms": None,
     })
     # the granite prefill call (all calls are in the "attention kernel"
-    # lines); the error is the largest of every checked call
+    # lines); the error is the largest of every checked call; the serving
+    # and the training paths' launches
     main = report["attention_main"]
     entries.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
-        "launches": report["lm_serving"]["attention_launches"],
+        "launches": (report["lm_serving"]["attention_launches"]
+                     + report["lm_training"]["forward_launches"]),
         "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
                            for v in report["attention_lines"]),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+    })
+    # the attention backward at danube's training shape (every call is in
+    # the "attention backward kernel" lines); no TPU kernel: the JAX
+    # package's training step lets XLA differentiate its chunked attention
+    # under jax.checkpoint; the library call is SDPA's backward
+    main = report["attention_backward_main"]
+    entries.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: no TPU kernel (XLA differentiates "
+                    "src/repro/models/layers.py:198)",
+        "launches": report["lm_training"]["backward_launches"],
+        "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
+                           for v in report["attention_backward_lines"]),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],

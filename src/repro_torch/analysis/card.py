@@ -44,7 +44,10 @@ QUERY_FIELDS = ("regs", "static_smem", "local_bytes", "max_threads",
 
 #: Kernels of the libraries without a contract (quarantined LM code),
 #: reported with their resources only.
-UNCONTRACTED = ("flash_attention_kernel", "flash_attention_bf16_kernel")
+UNCONTRACTED = ("flash_attention_kernel", "flash_attention_bf16_kernel",
+                "flash_attention_bwd_delta_kernel",
+                "flash_attention_bwd_dkdv_kernel",
+                "flash_attention_bwd_dq_kernel")
 
 
 def _library(name: str) -> ctypes.CDLL:

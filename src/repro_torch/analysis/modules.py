@@ -62,11 +62,16 @@ QUARANTINED_MODULES = frozenset({
     # the attention kernel of the LM stack — not an LDA kernel
     # (ops.attention loads it at its first call; no launch contract)
     "repro_torch.kernels.flash_attention",
-    # the dense decoder LM's serving path
+    # the dense decoder LM (serving and training)
     "repro_torch.models",
     "repro_torch.models.convert",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    # the LM trainer's AdamW and schedules, loaded inside
+    # launch.train.train_lm (the LDA trainers' step sizes are their own)
+    "repro_torch.optim",
+    "repro_torch.optim.adamw",
+    "repro_torch.optim.schedules",
 })
 
 

@@ -89,38 +89,43 @@ def tree_flatten(tree) -> Tuple[list, str]:
     describes the tree for the manifest (it need not equal the JAX
     package's string: restores take their structure from ``like``)."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node) -> str:
-        if node is None:
-            return "None"
-        got = _children(node)
-        if got is None:
-            leaves.append(node)
-            return "*"
-        label, children, _ = got
-        return f"{label}({', '.join(walk(c) for c in children)})"
 
-    return leaves, walk(tree)
+# The walks below are module functions, not closures: a closure that calls
+# itself is a reference cycle, which would keep every leaf it saw (a
+# model's parameters, gradients or moments) alive until the cyclic
+# collector runs.
+
+def _flatten(node, leaves: list) -> str:
+    if node is None:
+        return "None"
+    got = _children(node)
+    if got is None:
+        leaves.append(node)
+        return "*"
+    label, children, _ = got
+    return f"{label}({', '.join(_flatten(c, leaves) for c in children)})"
 
 
 def tree_unflatten(like, leaves):
     """``like``'s structure with its leaves replaced, in order, by
     ``leaves`` (the inverse of :func:`tree_flatten`)."""
     it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        got = _children(node)
-        if got is None:
-            return next(it)
-        _, children, rebuild = got
-        return rebuild([build(c) for c in children])
-
-    out = build(like)
+    out = _unflatten(like, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def _unflatten(node, it):
+    if node is None:
+        return None
+    got = _children(node)
+    if got is None:
+        return next(it)
+    _, children, rebuild = got
+    return rebuild([_unflatten(c, it) for c in children])
 
 
 def tree_map(fn, tree, *rest):
@@ -136,23 +141,23 @@ def tree_map(fn, tree, *rest):
 def _leaves_like(tree, other) -> list:
     """The nodes of ``other`` at the positions of ``tree``'s leaves."""
     out: list = []
-
-    def walk(node, o):
-        if node is None:
-            return
-        got = _children(node)
-        if got is None:
-            out.append(o)
-            return
-        _, children, _ = got
-        ogot = _children(o)
-        if ogot is None or len(ogot[1]) != len(children):
-            raise ValueError(f"tree structures differ at {o!r}")
-        for c, oc in zip(children, ogot[1]):
-            walk(c, oc)
-
-    walk(tree, other)
+    _like(tree, other, out)
     return out
+
+
+def _like(node, o, out: list) -> None:
+    if node is None:
+        return
+    got = _children(node)
+    if got is None:
+        out.append(o)
+        return
+    _, children, _ = got
+    ogot = _children(o)
+    if ogot is None or len(ogot[1]) != len(children):
+        raise ValueError(f"tree structures differ at {o!r}")
+    for c, oc in zip(children, ogot[1]):
+        _like(c, oc, out)
 
 
 def _to_host(leaf) -> np.ndarray:

@@ -3,7 +3,8 @@
 The port's copy of ``repro.configs.registry``: a lazy allowlist of
 (arch name → config module) pairs, importing a config module only when its
 config is requested.  It lists the dense decoder archs that the port's
-``models.LM`` serves (prefill and KV-cache decode); the MoE, SSM, hybrid,
+``models.LM`` serves (prefill and KV-cache decode) and trains
+(``loss_fn``); the MoE, SSM, hybrid,
 VLM and audio archs of the JAX package wait for their modules (ROADMAP.md,
 queue 1 item 10).
 """

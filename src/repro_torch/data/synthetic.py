@@ -10,6 +10,10 @@
   scaled by a Zipf envelope over the word ids, the shape a trained FOEM
   model's rows take.  Built block by block, so a full-width serving store
   never exists in host memory as one array.
+* ``synthetic_token_stream`` — packed next-token-prediction batches for the
+  LM trainer (``launch.train --arch <lm>``): a numpy-only copy of
+  ``repro.data.synthetic.synthetic_token_stream``, the same batches for the
+  same seed.
 """
 from __future__ import annotations
 
@@ -100,3 +104,23 @@ def trained_like_phi_blocks(
         np.add.at(block, (np.arange(n)[:, None], topics),
                   mass.astype(np.float32))
         yield block
+
+
+def synthetic_token_stream(
+    batch: int,
+    seq_len: int,
+    vocab_size: int,
+    *,
+    seed: int = 0,
+) -> Iterator[dict]:
+    """Endless stream of ``{"tokens", "labels"}`` int32 (batch, seq_len)
+    numpy batches (Zipf draws, labels the tokens shifted by one)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    p = 1.0 / ranks**1.1
+    p /= p.sum()
+    while True:
+        toks = rng.choice(vocab_size, size=(batch, seq_len + 1), p=p).astype(
+            np.int32
+        )
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -27,7 +27,10 @@
 * ``flash_attention`` — blockwise online-softmax grouped-query attention,
                         the attention core of the LM's prefill and decode;
                         ``csrc/flash_attention.cu`` replacing
-                        ``repro.kernels.flash_attention.flash_attention``
+                        ``repro.kernels.flash_attention.flash_attention``;
+                        its gradient for training, ``csrc/
+                        flash_attention_bwd.cu`` (no TPU counterpart: the
+                        JAX package lets XLA differentiate its attention)
 
 Each kernel's wrapper launches it on CUDA tensors and runs its plain
 PyTorch version on CPU tensors; ``build.py`` compiles the CUDA sources with

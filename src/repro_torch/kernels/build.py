@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 )
 #: Every CUDA source of the port, by kernel name.
 KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep", "sharded_sweep",
-           "fused_estep", "topk_estep", "flash_attention")
+           "fused_estep", "topk_estep", "flash_attention",
+           "flash_attention_bwd")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -14,7 +14,9 @@
 // tile's p = exp(s − m_new) enters l unrounded and p·v rounded to v's
 // type; o = acc / max(l, 1e-30) rounded to q's type, so a row whose keys are
 // all masked gives 0, not NaN. The ragged key edge is masked here, with no
-// padding copies.
+// padding copies. When the caller asks (training), each row's log-sum-exp
+// m + log(max(l, 1e-30)) goes to a float32 (BH, Sq) output that the
+// backward kernels (csrc/flash_attention_bwd.cu) read; serving passes none.
 //
 // Layout: q, o (BH, Sq, d); k, v (BHkv, Sk, d); all contiguous, one type
 // (float32 or bfloat16), 1 <= d <= 128.
@@ -211,9 +213,9 @@ template <typename T, int BQ, int DP, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
-                           int group, int sq, int sk, int d, int causal,
-                           int window, int q_offset, float scale,
-                           int ntiles) {
+                           float* __restrict__ lse, int group, int sq,
+                           int sk, int d, int causal, int window,
+                           int q_offset, float scale, int ntiles) {
   constexpr int RQ = BQ / kWarps;     // rows a warp
   constexpr int CD = DP / 32;         // output columns a lane
   extern __shared__ float4 smem4[];
@@ -383,13 +385,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int col = CD * lane + c;
       if (col < d) store(orow + col, __fdiv_rn(acc[j][c], den));
     }
+    // the row's log-sum-exp for the backward kernel (m and l are the
+    // warp's: every lane holds them)
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)hk * group + g) * sq + i] = __fadd_rn(m[j], logf(den));
   }
 }
 
 template <typename T, int BQ, int DP, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bhkv, int group, int sq, int sk, int d, int causal,
-                   int window, int q_offset, float scale,
+                   float* lse, int bhkv, int group, int sq, int sk, int d,
+                   int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, BQ, DP, VEC>;
   constexpr size_t smem = smem_bytes<BQ, DP>();
@@ -421,52 +427,53 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                      smem);
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), group, sq, sk, d, causal,
-      window, q_offset, scale, ntiles);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, group, sq, sk, d,
+      causal, window, q_offset, scale, ntiles);
   return cudaGetLastError();
 }
 
 template <typename T, int BQ, int DP>
 cudaError_t launch_vec(const void* q, const void* k, const void* v, void* o,
-                       int bhkv, int group, int sq, int sk, int d, int causal,
-                       int window, int q_offset, float scale,
-                       cudaStream_t st) {
+                       float* lse, int bhkv, int group, int sq, int sk,
+                       int d, int causal, int window, int q_offset,
+                       float scale, cudaStream_t st) {
   // 16-byte loads when every row is a whole number of aligned 16 bytes
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v);
   if ((d * sizeof(T)) % 16 == 0 && bases % 16 == 0)
-    return launch<T, BQ, DP, true>(q, k, v, o, bhkv, group, sq, sk, d, causal,
-                                   window, q_offset, scale, st);
-  return launch<T, BQ, DP, false>(q, k, v, o, bhkv, group, sq, sk, d, causal,
-                                  window, q_offset, scale, st);
+    return launch<T, BQ, DP, true>(q, k, v, o, lse, bhkv, group, sq, sk, d,
+                                   causal, window, q_offset, scale, st);
+  return launch<T, BQ, DP, false>(q, k, v, o, lse, bhkv, group, sq, sk, d,
+                                  causal, window, q_offset, scale, st);
 }
 
 template <typename T, int BQ>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o,
-                      int bhkv, int group, int sq, int sk, int d, int causal,
-                      int window, int q_offset, float scale,
+                      float* lse, int bhkv, int group, int sq, int sk, int d,
+                      int causal, int window, int q_offset, float scale,
                       cudaStream_t st) {
   if (d <= 32)
-    return launch_vec<T, BQ, 32>(q, k, v, o, bhkv, group, sq, sk, d,
+    return launch_vec<T, BQ, 32>(q, k, v, o, lse, bhkv, group, sq, sk, d,
                                  causal, window, q_offset, scale, st);
   if (d <= 64)
-    return launch_vec<T, BQ, 64>(q, k, v, o, bhkv, group, sq, sk, d,
+    return launch_vec<T, BQ, 64>(q, k, v, o, lse, bhkv, group, sq, sk, d,
                                  causal, window, q_offset, scale, st);
-  return launch_vec<T, BQ, 128>(q, k, v, o, bhkv, group, sq, sk, d, causal,
-                                window, q_offset, scale, st);
+  return launch_vec<T, BQ, 128>(q, k, v, o, lse, bhkv, group, sq, sk, d,
+                                causal, window, q_offset, scale, st);
 }
 
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* o,
-                     int bhkv, int group, int sq, int sk, int d, int causal,
-                     int window, int q_offset, float scale, cudaStream_t st) {
+                     float* lse, int bhkv, int group, int sq, int sk, int d,
+                     int causal, int window, int q_offset, float scale,
+                     cudaStream_t st) {
   // a decode step's few rows (Sq·G <= 16) take the 16-row tile
   if ((long long)sq * group <= 16)
-    return launch_dp<T, 16>(q, k, v, o, bhkv, group, sq, sk, d, causal,
+    return launch_dp<T, 16>(q, k, v, o, lse, bhkv, group, sq, sk, d, causal,
                             window, q_offset, scale, st);
-  return launch_dp<T, 64>(q, k, v, o, bhkv, group, sq, sk, d, causal, window,
-                          q_offset, scale, st);
+  return launch_dp<T, 64>(q, k, v, o, lse, bhkv, group, sq, sk, d, causal,
+                          window, q_offset, scale, st);
 }
 
 
@@ -818,7 +825,8 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 1)
                                 const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
-                                __nv_bfloat16* __restrict__ o, int group,
+                                __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse, int group,
                                 int sq, int sk, int d, int causal, int window,
                                 int q_offset, float scale, int ntiles, int tma,
                                 int qvec) {
@@ -1048,6 +1056,10 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 1)
     const int i = r / group, g = r % group;
     __nv_bfloat16* orow = o + (((size_t)hk * group + g) * sq + i) * d;
     const float den = fmaxf(l[h], 1e-30f);
+    // the row's log-sum-exp for the backward kernel (the quad's four lanes
+    // hold the same m and l)
+    if (lse != nullptr && quad == 0)
+      lse[((size_t)hk * group + g) * sq + i] = __fadd_rn(m[h], logf(den));
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
@@ -1097,9 +1109,9 @@ cudaError_t kv_map(CUtensorMap* map, const void* base, int bhkv, int sk,
 
 template <int NWG, int STAGES, int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int bhkv, int group, int sq, int sk, int d, int causal,
-                        int window, int q_offset, float scale,
-                        cudaStream_t stream) {
+                        float* lse, int bhkv, int group, int sq, int sk,
+                        int d, int causal, int window, int q_offset,
+                        float scale, cudaStream_t stream) {
   auto kernel = flash_attention_bf16_kernel<NWG, STAGES, DP>;
   constexpr size_t smem = bf16_smem_bytes<NWG, STAGES, DP>();
   // the attribute is per function and device, set at its first launch
@@ -1144,26 +1156,31 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      group, sq, sk, d, causal, window, q_offset, scale, ntiles, tma, qvec);
+      lse, group, sq, sk, d, causal, window, q_offset, scale, ntiles, tma,
+      qvec);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16_form(const void* q, const void* k, const void* v,
-                             void* o, int bhkv, int group, int sq, int sk,
-                             int d, int causal, int window, int q_offset,
-                             float scale, cudaStream_t st) {
+                             void* o, float* lse, int bhkv, int group,
+                             int sq, int sk, int d, int causal, int window,
+                             int q_offset, float scale, cudaStream_t st) {
   // a decode step's few rows (Sq·G <= 16): one 64-row warpgroup, a deeper
   // ring; prefill: two warpgroups (128 rows), two stages
   const bool decode = (long long)sq * group <= 16;
   if (d <= 64)
-    return decode ? launch_bf16<1, 3, 64>(q, k, v, o, bhkv, group, sq, sk, d,
-                                          causal, window, q_offset, scale, st)
-                  : launch_bf16<2, 3, 64>(q, k, v, o, bhkv, group, sq, sk, d,
-                                          causal, window, q_offset, scale, st);
-  return decode ? launch_bf16<1, 3, 128>(q, k, v, o, bhkv, group, sq, sk, d,
-                                         causal, window, q_offset, scale, st)
-                : launch_bf16<2, 3, 128>(q, k, v, o, bhkv, group, sq, sk, d,
-                                         causal, window, q_offset, scale, st);
+    return decode ? launch_bf16<1, 3, 64>(q, k, v, o, lse, bhkv, group, sq,
+                                          sk, d, causal, window, q_offset,
+                                          scale, st)
+                  : launch_bf16<2, 3, 64>(q, k, v, o, lse, bhkv, group, sq,
+                                          sk, d, causal, window, q_offset,
+                                          scale, st);
+  return decode ? launch_bf16<1, 3, 128>(q, k, v, o, lse, bhkv, group, sq,
+                                         sk, d, causal, window, q_offset,
+                                         scale, st)
+                : launch_bf16<2, 3, 128>(q, k, v, o, lse, bhkv, group, sq,
+                                         sk, d, causal, window, q_offset,
+                                         scale, st);
 }
 
 }  // namespace
@@ -1173,20 +1190,25 @@ extern "C" {
 // One launch on `stream` (not synchronised): o = attention(q, k, v) for
 // q, o (bhkv·group, sq, d) and k, v (bhkv, sk, d), contiguous, float32
 // (bf16 = 0) or bfloat16 (bf16 = 1), 1 <= d <= 128, sq >= 1, sk >= 0.
-// causal is 0/1; window <= 0 means no window. Returns a cudaError_t
-// (0 = the launch was accepted).
+// causal is 0/1; window <= 0 means no window. A non-null `lse` (float32,
+// (bhkv·group, sq)) receives each row's log-sum-exp m + log(max(l, 1e-30))
+// of its scaled scores, for the backward kernel; null writes nothing, and
+// o's bits are the same either way. Returns a cudaError_t (0 = the launch
+// was accepted).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int bhkv, int group, int sq, int sk,
-                           int d, int causal, int window, int q_offset,
-                           float scale, int bf16, void* stream) {
+                           void* o, void* lse, int bhkv, int group, int sq,
+                           int sk, int d, int causal, int window,
+                           int q_offset, float scale, int bf16,
+                           void* stream) {
+  float* lse_f = static_cast<float*>(lse);
   if (d < 1 || d > 128 || sq < 1 || sk < 0 || bhkv < 1 || group < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_bf16_form(q, k, v, o, bhkv, group, sq, sk, d, causal,
-                            window, q_offset, scale, st);
-  return launch_t<float>(q, k, v, o, bhkv, group, sq, sk, d, causal, window,
-                         q_offset, scale, st);
+    return launch_bf16_form(q, k, v, o, lse_f, bhkv, group, sq, sk, d,
+                            causal, window, q_offset, scale, st);
+  return launch_t<float>(q, k, v, o, lse_f, bhkv, group, sq, sk, d, causal,
+                         window, q_offset, scale, st);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -32,8 +32,9 @@ numerical invariants of ``analysis.sanitizer`` on its result:
   on.
 * :func:`attention` — grouped-query attention over the flattened
   (BH, S, d) head layout, the core of the LM's ``attention_apply`` in
-  prefill and decode: one :func:`flash_attention.flash_attention` call, on
-  the device the tensors lie on.
+  prefill, decode and training: one :func:`flash_attention.flash_attention`
+  call, on the device the tensors lie on; under autograd its backward is
+  one :func:`flash_attention.flash_attention_backward` call.
 """
 from __future__ import annotations
 
@@ -245,10 +246,20 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     BHkv)), causal and / or within a sliding ``window``, query row i at
     position ``i + q_offset``: the kernel on the card, its plain version on
     the CPU.  The port of the JAX package's ``ops.attention``.
-    Contracts are checked eagerly (``ContractError``)."""
+    Contracts are checked eagerly (``ContractError``).
+
+    On the card, when gradients are recorded and q, k or v requires one,
+    the call goes through ``flash_attention.FlashAttentionFunction``: the
+    same forward, which also keeps each row's log-sum-exp, and the
+    hand-written backward kernel.  On the CPU autograd differentiates the
+    plain version directly."""
     validate_attention_args(q, k, v, window=window, q_offset=q_offset)
     from repro_torch.kernels import flash_attention as _flash  # LM stack
 
+    if q.is_cuda and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return _flash.FlashAttentionFunction.apply(
+            q, k, v, bool(causal), int(window), int(q_offset))
     return _flash.flash_attention(q, k, v, causal=causal, window=int(window),
                                   q_offset=int(q_offset))
 

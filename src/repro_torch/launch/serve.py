@@ -36,6 +36,13 @@ the same admission router.
 Run the CLI on a GPU host with
 ``PYTHONPATH=src python -m repro_torch.launch.serve --workdir DIR --topics K
 --vocab W [--make-store] [--traffic --qps Q [--pace] [--replicas N]]``.
+
+``--arch <lm-arch>`` (one of ``configs.registry.ARCHS``, the dense LMs)
+serves the arch's ``.reduced()`` config instead (``serve_lm``, the JAX
+package's): random weights, ``--batch`` all-ones prompts of 16 tokens, one
+prefill and ``--gen-tokens`` greedy KV-cache decode steps through
+``models.LM`` (``generate``), then one line with the tokens/s.  Add
+``--device cpu`` to run either on the host's CPU.
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from repro_torch.core.streaming import (
     SnapshotPublisher,
     store_from_arrays,
 )
+from repro_torch.configs.foem_lda import NAME as LDA_ARCH
 from repro_torch.core.types import (
     InferPlan,
     LDAConfig,
@@ -1084,11 +1092,66 @@ def serve_lda(args) -> None:
           f"device={server.device})")
 
 
+def generate(model, params, batch: int, prompt_len: int,
+             gen: int) -> Tuple[np.ndarray, float]:
+    """Greedy generation, the body of the JAX package's ``serve_lm`` with
+    injected parameters: ``batch`` all-ones prompts of ``prompt_len``
+    tokens, one ``prefill``, its caches placed into ``init_cache(batch,
+    prompt_len + gen)`` at slot 0, then ``gen`` decode steps, each feeding
+    the last step's argmax.  Returns the (batch, gen + 1) int32 tokens
+    (the prefill's and every step's) and the decode loop's seconds."""
+    with torch.no_grad():
+        tokens = torch.ones((batch, prompt_len), dtype=torch.int32,
+                            device=model.device)
+        logits, pre = model.prefill(params, {"tokens": tokens})
+        cache = model.init_cache(batch, prompt_len + gen)
+        for j in cache:
+            for n in ("k", "v"):
+                cache[j][n][:, :, :, :pre[j][n].shape[3]] = pre[j][n]
+        del pre
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out = [tok.cpu().numpy()]
+        t0 = time.time()
+        for i in range(gen):
+            lg, cache = model.decode_step(params, cache, {"tokens": tok},
+                                          prompt_len + i)
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out.append(tok.cpu().numpy())
+        dt = time.time() - t0
+    return np.concatenate(out, 1), dt
+
+
+def serve_lm(args) -> np.ndarray:
+    """The ``--arch <lm-arch>`` CLI: ``generate`` on the reduced config's
+    random weights; returns the generated tokens."""
+    from repro_torch.configs.registry import ARCHS   # the LM stack
+    from repro_torch.models import build
+
+    if args.arch not in ARCHS:
+        raise SystemExit(f"unknown arch {args.arch!r}: {LDA_ARCH} or one of "
+                         f"{sorted(ARCHS)}")
+    cfg = ARCHS[args.arch].reduced()
+    model = build(cfg, device=args.device)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    B, prompt_len, gen = args.batch, 16, args.gen_tokens
+    out, dt = generate(model, params, B, prompt_len, gen)
+    print(f"{args.arch}: generated {gen}×{B} tokens in {dt:.2f}s "
+          f"({B * gen / dt:.1f} tok/s); sample: {out[0][:16]}")
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(
-        description="Serve LDA topic mixtures from a parameter store.")
-    ap.add_argument("--workdir", required=True,
-                    help="parameter store directory")
+        description="Serve LDA topic mixtures from a parameter store, or "
+                    "generate with a reduced LM (--arch).")
+    ap.add_argument("--arch", default=LDA_ARCH,
+                    help=f"{LDA_ARCH} (default) or a dense LM arch "
+                         "(granite-8b, granite-20b, internlm2-20b, "
+                         "h2o-danube-3-4b), served at its reduced config")
+    ap.add_argument("--workdir", default="build/repro_torch_train",
+                    help="parameter store directory (the train CLI's "
+                         "default)")
     ap.add_argument("--topics", type=int, default=100)
     ap.add_argument("--vocab", type=int, default=5000)
     ap.add_argument("--buffer-rows", type=int, default=2048)
@@ -1097,7 +1160,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "topics by trained φ mass (0 = dense fit)")
     ap.add_argument("--requests", type=int, default=512)
     ap.add_argument("--batch", type=int, default=64,
-                    help="documents a launch (the engine's max_batch)")
+                    help="documents a launch (the engine's max_batch), or "
+                         "the LM's prompts")
+    ap.add_argument("--gen-tokens", type=int, default=32,
+                    help="greedy decode steps of --arch <lm-arch>")
     ap.add_argument("--traffic", action="store_true",
                     help="drive the continuous-batching engine with "
                          "synthetic Zipf/Poisson traffic and report "
@@ -1135,7 +1201,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="write a trained-like random φ̂ store of "
                          "--vocab × --topics into --workdir unless one "
                          "is there")
-    serve_lda(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.arch == LDA_ARCH:
+        serve_lda(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

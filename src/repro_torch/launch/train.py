@@ -1,29 +1,40 @@
-"""Training driver — streaming FOEM (or SEM) with the disk-backed
-ParameterStore (PyTorch port of the LDA half of ``repro.launch.train``).
+"""Training entry point (PyTorch port of ``repro.launch.train``).  Two modes:
 
-Trains on a synthetic LDA corpus (``data.synthetic_lda_corpus``, drawn
-from ``--topics-true`` topics, by default ``--topics``), one
-``FOEMTrainer`` step per minibatch (a line every ``--log-every`` steps),
-then reports the eq. 21 held-out predictive perplexity of the trained
-store on a 10% test split.  The store
-in ``--workdir`` flushes every ``--ckpt-every`` steps; ``--resume`` continues
+* ``--arch foem-lda`` (the default) — the paper's system: streaming FOEM
+  (or SEM) with the disk-backed ParameterStore.
+* ``--arch <lm-arch>`` (a dense LM of ``configs.registry.ARCHS``) — the
+  arch's ``.reduced()`` config trained on synthetic token streams
+  (``train_lm``): AdamW, a cosine schedule with warmup, checkpoints every
+  ``--ckpt-every`` steps and ``--resume`` from the latest one.
+
+In LDA mode it trains on a synthetic LDA corpus
+(``data.synthetic_lda_corpus``, drawn from ``--topics-true`` topics, by
+default ``--topics``), one ``FOEMTrainer`` step per minibatch (a line every
+``--log-every`` steps), then reports the eq. 21 held-out predictive
+perplexity of the trained store on a 10% test split.  The store in
+``--workdir`` flushes every ``--ckpt-every`` steps; ``--resume`` continues
 from its minibatch cursor.  Run on a GPU host with
 
     PYTHONPATH=src python -m repro_torch.launch.train --workdir DIR \\
         --steps 4 --topics 64 --vocab 3000 [--iem-blocks 4] [--algorithm sem]
 
 or on the host's CPU with ``--device cpu``.  Without ``--device cpu`` on a
-host with no GPU it exits with "no CUDA device".
+host with no GPU it exits with "no CUDA device".  LM mode:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
+        --workdir DIR --steps 12 --ckpt-every 5 [--resume] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.configs.foem_lda import NAME as LDA_ARCH
 from repro_torch.core.perplexity import predictive_perplexity, split_heldout_counts
 from repro_torch.core.streaming import ParameterStore
 from repro_torch.core.trainer import FOEMTrainer, StepMetrics
@@ -99,9 +110,86 @@ def train_lda(args) -> float:
     return ppl
 
 
-def main(argv: Optional[Sequence[str]] = None) -> float:
-    """The CLI: train, then return the eq. 21 held-out perplexity."""
+def lm_train_step(model, params, opt, batch, *, total_steps: int):
+    """One step of ``train_lm`` on injected parameters and optimizer state:
+    ``loss.backward()`` through ``model.loss_fn``, the learning rate
+    ``cosine_warmup(opt.count, peak_lr=1e-3, warmup=20, total=total_steps)``
+    from the count BEFORE its increment (so step 1 runs at lr 0), then
+    ``adamw_update`` in place.  The parameters are leaf tensors that require
+    grad; their ``.grad`` is cleared after the update.  Returns ``(loss,
+    params, opt)``, the loss a detached 0-d float32 tensor."""
+    from repro_torch.checkpoint.ckpt import tree_flatten, tree_unflatten
+    from repro_torch.optim import adamw_update, cosine_warmup
+
+    loss = model.loss_fn(params, batch)
+    loss.backward()
+    leaves = tree_flatten(params)[0]
+    grads = tree_unflatten(params, [p.grad for p in leaves])
+    lr = cosine_warmup(opt.count, peak_lr=1e-3, warmup=20, total=total_steps)
+    params, opt = adamw_update(grads, opt, params, lr=lr)
+    for p in leaves:
+        p.grad = None
+    return loss.detach(), params, opt
+
+
+def train_lm(args) -> List[float]:
+    """The ``--arch <lm-arch>`` CLI: train the reduced config from random
+    weights (a ``torch.Generator`` seeded with ``--seed`` on the device),
+    or resume from the workdir's latest checkpoint of (params, opt state);
+    returns the logged losses."""
+    from repro_torch.checkpoint import (
+        latest_step, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.checkpoint.ckpt import tree_map
+    from repro_torch.configs.registry import ARCHS   # the LM stack
+    from repro_torch.data.synthetic import synthetic_token_stream
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+
+    if args.arch not in ARCHS:
+        raise SystemExit(f"unknown arch {args.arch!r}: {LDA_ARCH} or one of "
+                         f"{sorted(ARCHS)}")
+    cfg = ARCHS[args.arch].reduced()
+    model = build(cfg, device=args.device)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(args.seed))
+    opt = adamw_init(params)
+    step0 = 0
+    os.makedirs(args.workdir, exist_ok=True)
+    if args.resume and latest_step(args.workdir) is not None:
+        step0, host = restore_checkpoint(args.workdir, (params, opt))
+        params, opt = tree_map(
+            lambda a, like: torch.from_numpy(np.asarray(a)).to(like.device),
+            host, (params, opt))
+        print(f"[resume] from step {step0}")
+    tree_map(lambda p: p.requires_grad_(), params)
+
+    stream = synthetic_token_stream(args.minibatch, args.seq_len,
+                                    cfg.vocab_size, seed=args.seed + step0)
+    t0 = time.time()
+    losses = []
+    for step in range(step0 + 1, args.steps + 1):
+        batch = {k: torch.from_numpy(v) for k, v in next(stream).items()}
+        loss, params, opt = lm_train_step(model, params, opt, batch,
+                                          total_steps=args.steps)
+        if step % args.log_every == 0:
+            losses.append(float(loss))
+            print(f"step {step:5d} loss={losses[-1]:8.4f} "
+                  f"({(time.time() - t0) / step:.2f}s/step)", flush=True)
+        if args.ckpt_every and step % args.ckpt_every == 0:
+            save_checkpoint(args.workdir, step, (params, opt))
+    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+    return losses
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """The CLI: LDA mode returns the eq. 21 held-out perplexity, LM mode
+    the logged losses."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=LDA_ARCH,
+                    help=f"{LDA_ARCH} (default) or a dense LM arch "
+                         "(granite-8b, granite-20b, internlm2-20b, "
+                         "h2o-danube-3-4b), trained at its reduced config")
     ap.add_argument("--workdir", default="build/repro_torch_train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
@@ -128,8 +216,12 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                          "(0 = synchronous host I/O)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="tokens a sequence (LM mode)")
     args = ap.parse_args(argv)
-    return train_lda(args)
+    if args.arch == LDA_ARCH:
+        return train_lda(args)
+    return train_lm(args)
 
 
 if __name__ == "__main__":

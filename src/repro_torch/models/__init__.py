@@ -1,7 +1,8 @@
-"""The dense decoder LM's serving path (PyTorch port of ``repro.models``).
+"""The dense decoder LM (PyTorch port of ``repro.models``).
 
-``lm.LM`` (``prefill``, ``decode_step``), ``layers`` (RMSNorm, RoPE, GQA
-attention through the hand-written flash-attention kernel, SwiGLU MLP) and
+``lm.LM`` (``loss_fn``, ``prefill``, ``decode_step``), ``layers`` (RMSNorm,
+RoPE, GQA attention through the hand-written flash-attention kernels —
+forward, and backward under autograd —, SwiGLU MLP) and
 ``convert.params_from_jax``, which carries the JAX package's weights across.
 """
 from repro_torch.models.convert import params_from_jax

@@ -100,7 +100,9 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reads KV row b·KV + kv, the kernel's h // G map.  Query i sits at
     position q_base + i.  On the card one launch takes all S rows; on the
     CPU the plain version runs in q_chunk-row chunks, as the JAX package's
-    blockwise path does."""
+    blockwise path does.  Under autograd each call's gradient is the
+    backward kernel on the card, the plain version's autograd on the CPU
+    (``ops.attention``)."""
     B, KV, G, S, hd = q.shape
     qf = q.reshape(B * KV * G, S, hd)
     kf = k.reshape(B * KV, k.shape[2], hd)

@@ -1,4 +1,4 @@
-"""The dense decoder LM's serving path (PyTorch port of ``repro.models.lm``).
+"""The dense decoder LM (PyTorch port of ``repro.models.lm``).
 
 One model class driven by ``ArchConfig``, like the JAX package's ``LM``,
 for the dense family: GQA / MQA / sliding-window attention (granite,
@@ -8,18 +8,21 @@ on a leading ``nblocks`` axis under ``blocks/l{j}/…`` as in the JAX
 package's pytree, and a Python loop over the super-blocks takes the place
 of ``lax.scan``.
 
-Two entry points, the serving half of the JAX package's three:
+The JAX package's three entry points:
 
+* ``loss_fn``      — next-token cross-entropy for training, differentiable
+                     by ``torch.autograd`` (``backward()``)
 * ``prefill``      — full forward over a prompt returning logits + caches
 * ``decode_step``  — one token against the KV caches
 
-Every attention layer of both goes through ``layers.attention_apply`` →
-``ops.attention`` → the hand-written flash-attention kernel on the card.
-Training (``loss_fn``, ``mode="train"``) belongs to a later slice, and so do
-the MoE, SSM, hybrid, VLM and audio families (ROADMAP.md, queue 1 item 10):
-their configs raise ``NotImplementedError``.  The JAX package's pjit levers
-(mesh, ``moe_impl``, ``remat``, ``scan_barrier``, ``seq_parallel``) mean
-nothing here: ``ArchConfig`` keeps them and ``LM`` ignores them.
+Every attention layer goes through ``layers.attention_apply`` →
+``ops.attention`` → the hand-written flash-attention kernel on the card;
+under autograd its gradient is the hand-written backward kernel.  The MoE,
+SSM, hybrid, VLM and audio families belong to later slices (ROADMAP.md,
+queue 1 item 10): their configs raise ``NotImplementedError``.  The JAX
+package's pjit levers (mesh, ``moe_impl``, ``remat``, ``scan_barrier``,
+``seq_parallel``) mean nothing here: ``ArchConfig`` keeps them and ``LM``
+ignores them.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -72,7 +76,7 @@ def _check_dense(cfg: ArchConfig) -> None:
 
 
 class LM(nn.Module):
-    """The dense decoder LM, serving half.
+    """The dense decoder LM.
 
     An ``nn.Module`` for its place in PyTorch code (``device``, ``dtype``),
     but, like the JAX package's ``LM``, it holds no weights: every method
@@ -174,23 +178,34 @@ class LM(nn.Module):
                 kv_cache=kvc, cache_pos=pos if decode else None,
             )
             x = x + o
-            newc[f"l{j}"] = {"k": newkv[0], "v": newkv[1]}
+            if mode != "train":
+                newc[f"l{j}"] = {"k": newkv[0], "v": newkv[1]}
             h = L.rmsnorm(x, lp["norm2"])
             x = x + L.mlp_apply(lp["mlp"], h)
         return x, newc
 
     def backbone(self, params: Tree, x: torch.Tensor, *,
                  positions: torch.Tensor, caches: Optional[Tree] = None,
-                 mode: str = "prefill", pos: Optional[int] = None):
+                 mode: str = "train", pos: Optional[int] = None):
         """Runs the block stack.  Returns (hidden, caches).
 
+        ``mode="train"`` keeps no caches and returns ``(hidden, None)``;
         ``mode="prefill"`` makes new stacked caches of the prompt's keys and
         values; ``mode="decode"`` writes the step's keys and values into
         ``caches`` in place and returns them."""
-        if mode not in ("prefill", "decode"):
-            raise NotImplementedError(
-                f"mode {mode!r}: the port serves (prefill, decode); training "
-                f"is a later slice (ROADMAP.md, queue 1 item 10)")
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode must be train, prefill or decode, not "
+                             f"{mode!r}")
+        if mode == "train":
+            # one unbind a stacked leaf (one stack of its gradient in
+            # backward), not a t[b] select a block, whose backward would
+            # build a zero gradient of the whole leaf for every block
+            blocks = tree_map(lambda t: t.unbind(0), params["blocks"])
+            for b in range(self.nblocks):
+                x, _ = self._block_apply(
+                    tree_map(lambda t: t[b], blocks), x, positions=positions,
+                    bcache=None, mode=mode, pos=None)
+            return x, None
         out: Optional[Tree] = caches if mode == "decode" else None
         for b in range(self.nblocks):
             bp = tree_map(lambda t: t[b], params["blocks"])
@@ -215,6 +230,54 @@ class LM(nn.Module):
     def logits(self, params: Tree, hidden: torch.Tensor) -> torch.Tensor:
         h = L.rmsnorm(hidden, params["final_norm"])
         return h @ params["lm_head"]
+
+    # ------------------------------------------------------------- losses
+
+    def loss_fn(self, params: Tree,
+                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy (labels already shifted), a 0-d
+        float32 tensor; ``loss.backward()`` fills the parameters' grads.
+
+        The CE is *sequence-chunked*: chunks of ``cS = min(512, S)``
+        positions, each chunk's float32 (B, cS, V) logits recomputed in
+        backward (``torch.utils.checkpoint``, the counterpart of the JAX
+        package's ``jax.checkpoint``), so no (B, S, V) float32 tensor is
+        ever held; the chunks' sums are added in order and divided by B·S.
+        """
+        B, S = batch["tokens"].shape[:2]
+        cS = min(512, S)
+        nchunks = S // cS
+        if nchunks > 1 and S % cS:
+            raise ValueError(f"sequence length {S} is not a multiple of the "
+                             f"CE chunk {cS}")
+        x = self.embed_inputs(params, batch)
+        hidden, _ = self.backbone(
+            params, x, positions=torch.arange(S, device=self.device),
+            mode="train")
+        hidden = L.rmsnorm(hidden, params["final_norm"])
+        labels = batch["labels"].to(self.device).long()
+        if nchunks <= 1:
+            return self._ce(params, hidden, labels)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for c in range(nchunks):
+            sl = slice(c * cS, (c + 1) * cS)
+            total = total + checkpoint(self._ce_sum, params["lm_head"],
+                                       hidden[:, sl], labels[:, sl],
+                                       use_reentrant=False)
+        return total / (S * B)
+
+    def _ce(self, params: Tree, hidden: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+        return self._ce_sum(params["lm_head"], hidden, labels) / (
+            labels.shape[0] * labels.shape[1])
+
+    @staticmethod
+    def _ce_sum(lm_head: torch.Tensor, hidden: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        logits = (hidden @ lm_head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        return (logz - gold).sum()
 
     # ------------------------------------------------------------- serving
 

@@ -50,7 +50,16 @@ slot cache, and a single KV head), ragged Sq and Sk, Sq·G at 16 and 17
 non-causal and unaligned bases (the bf16 path's plain-load staging), in
 float32 and bfloat16; two launches give the same bits and a query row's
 bits do not depend on Sq; the reduced granite and danube LMs' prefill and
-decode on the card agree with the CPU's, in float32 and bfloat16.
+decode on the card agree with the CPU's, in float32 and bfloat16.  The
+forward's output bits do not depend on whether it also writes each row's
+log-sum-exp, which agrees with the plain version's.  The attention backward
+kernels (``flash_attention_backward``) are held against ``torch.autograd``
+of the plain attention in float32 and bfloat16, with GQA, MQA, a window,
+non-causal rows, ragged tiles and d ∈ {17, 32, 64, 120, 128}, two launches
+giving the same bits; ``ops.attention`` under autograd on the card gives
+wq, wk, wv and wo gradients (the CPU's within the float32 tolerance), and
+the reduced LMs' ``loss_fn`` and every gradient leaf on the card agree
+with the CPU's.
 
 The baselines' two ``fused_estep`` input forms (OVB: exp Ψ inputs with
 a = b = c = 0; SCVB: a = α, b = β, c = Wβ) are held against the plain
@@ -82,6 +91,8 @@ from repro_torch.core.types import (
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
     flash_attention_reference,
 )
 from repro_torch.kernels.foem_estep import (
@@ -1330,6 +1341,191 @@ def test_reduced_lm_prefill_and_decode_match_the_cpu(cuda, name, dtype):
     rtol, atol = LM_TOL[dtype]
     torch.testing.assert_close(lg_g, lg_c, rtol=rtol, atol=atol)
     torch.testing.assert_close(dec_g, dec_c, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("BH,BHkv,Sq,Sk,d,qoff", [
+    (8, 2, 70, 70, 120, 0),                  # prefill, d = 120
+    (16, 4, 4, 100, 128, 50),                # Sq·G = 16: the decode form
+    (64, 8, 1, 4096, 128, 4095),             # a decode step
+])
+def test_flash_attention_output_bits_same_with_lse(cuda, dtype, BH, BHkv,
+                                                   Sq, Sk, d, qoff):
+    """Writing the log-sum-exp changes no bit of the output, and the lse is
+    the plain version's (float32 sums in another order: atol 1e-5)."""
+    q, k, v = _attn_inputs(BH, BHkv, Sq, Sk, d, dtype, cuda, 5)
+    kw = dict(causal=True, window=48, q_offset=qoff)
+    o = flash_attention(q, k, v, **kw)
+    o2, lse = flash_attention(q, k, v, **kw, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    assert lse.shape == (BH, Sq) and lse.dtype == torch.float32
+    _, want = flash_attention_reference(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+# The attention backward kernels against torch.autograd of the plain
+# version.  float32, elementwise (rtol, atol): sums of up to Sk·G terms in
+# another order (~1e-6 relative) carried through exp and three products.
+# bfloat16: screened elementwise against the bf16 plain version at one ulp
+# relative and one ulp at [8, 16) absolute, and held by (head, 64-row tile)
+# block against the float32 truth (the plain version on float32 copies of
+# the same values): ||got_t - true_t|| within 2^-7 of ||true_t|| + 2^-4 of
+# the rms tile norm — the kernel rounds the gradients to 8 bits once (~2^-9
+# of a block) and takes D from the bf16 o, as SDPA does, which moves a row
+# that attends to one key by up to ~0.2 of its small norm but a tile little
+# (chip_smoke.py's BWD_TILE_TOL, BWD_TILE_FLOOR)
+BWD_TOL = {torch.float32: (1e-4, 1e-4),
+           torch.bfloat16: (2.0 ** -7, 2.0 ** -4)}
+BWD_TILE, BWD_TILE_TOL, BWD_TILE_FLOOR = 64, 2.0 ** -7, 2.0 ** -4
+
+
+def _bwd_tile_error(got, want):
+    err, norm = [], []
+    for a, b in zip(got.float().split(BWD_TILE, 1),
+                    want.float().split(BWD_TILE, 1)):
+        err.append((a - b).flatten(1).norm(dim=1))
+        norm.append(b.flatten(1).norm(dim=1))
+    err, norm = torch.stack(err, 1), torch.stack(norm, 1)
+    floor = BWD_TILE_FLOOR * norm.pow(2).mean().sqrt()
+    return float((err / (norm + floor)).max())
+
+
+def _float32_truth(q, k, v, dout, **kw):
+    return flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), dout.float(), **kw)
+
+
+def _assert_backward_close(got, want, truth, dtype):
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, want, truth):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        rtol, atol = BWD_TOL[dtype]
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+        if dtype == torch.bfloat16:
+            assert _bwd_tile_error(a, t) <= BWD_TILE_TOL, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("BH,BHkv,S,d,causal,window", [
+    (4, 2, 64, 32, True, 0),
+    (8, 2, 70, 120, True, 24),               # GQA, a window, d = 120
+    (8, 8, 130, 128, True, 0),               # MHA, ragged 64-row tiles
+    (4, 1, 100, 64, False, 0),               # MQA, non-causal
+    (6, 2, 257, 120, True, 100),             # ragged tiles, window < S
+    (4, 4, 33, 17, True, 0),                 # an odd head dim
+    (32, 8, 300, 128, True, 4096),           # granite's grouping, window
+])                                           # wider than S
+def test_flash_attention_backward_matches_plain(cuda, dtype, BH, BHkv, S, d,
+                                                causal, window):
+    q, k, v = _attn_inputs(BH, BHkv, S, S, d, dtype, cuda, S + d)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    dout = torch.randn((BH, S, d), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention(q, k, v, **kw, return_lse=True)
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, o, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    want = flash_attention_backward_reference(q, k, v, dout, **kw)
+    _assert_backward_close(got, want, _float32_truth(q, k, v, dout, **kw),
+                           dtype)
+    again = flash_attention_backward(q, k, v, o, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("BH,BHkv,S,d,window", [
+    (8, 2, 256, 120, 0),
+    (8, 2, 300, 128, 100),
+])
+def test_flash_attention_backward_check_sees_planted_faults(cuda, BH, BHkv,
+                                                            S, d, window):
+    """The bfloat16 tile check fails on a 64-key tile of dk zeroed in the
+    middle of the sequence and on the lse of 64 query rows there shifted
+    by 2^-5 (their p scaled by 0.97), and passes the kernel's own
+    gradients."""
+    dtype = torch.bfloat16
+    q, k, v = _attn_inputs(BH, BHkv, S, S, d, dtype, cuda, 3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dout = torch.randn((BH, S, d), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=True, window=window)
+    o, lse = flash_attention(q, k, v, **kw, return_lse=True)
+    got = flash_attention_backward(q, k, v, o, dout, lse, **kw)
+    want = flash_attention_backward_reference(q, k, v, dout, **kw)
+    truth = _float32_truth(q, k, v, dout, **kw)
+    _assert_backward_close(got, want, truth, dtype)
+    mid = slice(S // 2, S // 2 + BWD_TILE)
+    dk = got[1].clone()
+    dk[0, mid] = 0
+    assert _bwd_tile_error(dk, truth[1]) > BWD_TILE_TOL
+    shifted = lse.clone()
+    shifted[0, mid] += 2.0 ** -5
+    bad = flash_attention_backward(q, k, v, o, dout, shifted, **kw)
+    assert _bwd_tile_error(bad[0], truth[0]) > BWD_TILE_TOL
+
+
+def test_attention_under_grad_gives_weight_gradients(cuda):
+    """attention_apply under autograd on the card: ops.attention goes
+    through FlashAttentionFunction (one forward and one backward kernel
+    call), and x, wq, wk, wv, wo get the CPU's gradients."""
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(0)
+    B, S, D, H, KV, hd = 2, 150, 64, 8, 2, 16
+    p_cpu = layers.attention_init(g, D, H, KV, hd, torch.float32)
+    x = torch.randn((B, S, D), generator=g)
+    w = torch.randn((B, S, D), generator=g)
+    kw = dict(num_heads=H, num_kv=KV, hd=hd, causal=True, window=40,
+              rope_theta=1e4)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {n: t.to(dev).requires_grad_() for n, t in p_cpu.items()}
+        xd = x.to(dev).requires_grad_()
+        fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+        o, _ = layers.attention_apply(p, xd, None,
+                                      positions=torch.arange(S, device=dev),
+                                      **kw)
+        (o * w.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            assert flash_attention.launches == fwd + 1
+            assert flash_attention_backward.launches == bwd + 1
+        assert all(p[n].grad is not None for n in ("wq", "wk", "wv", "wo"))
+        grads.append([t.grad.cpu() for t in (xd, *p.values())])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b"])
+def test_reduced_lm_loss_and_gradients_match_the_cpu(cuda, name):
+    """The reduced LM's training loss and every gradient leaf on the card
+    (the kernels, forward and backward) against the same weights on the
+    CPU (the plain attention's autograd), float32, S = 1,024: two CE
+    chunks; tolerance as the CPU tests hold them to the JAX package."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models.lm import tree_map
+
+    cfg = ARCHS[name].reduced()
+    m_cpu, m_gpu = build(cfg, device="cpu"), build(cfg, device=cuda)
+    p_cpu = m_cpu.init_params(torch.Generator().manual_seed(0))
+    p_gpu = tree_map(lambda t: t.to(cuda).requires_grad_(), p_cpu)
+    tree_map(lambda t: t.requires_grad_(), p_cpu)
+    tok = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                            (2, 1025)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:])}
+    before = flash_attention_backward.launches
+    loss_gpu = m_gpu.loss_fn(p_gpu, batch)
+    loss_gpu.backward()
+    assert flash_attention_backward.launches == before + cfg.num_layers
+    loss_cpu = m_cpu.loss_fn(p_cpu, batch)
+    loss_cpu.backward()
+    torch.testing.assert_close(loss_gpu.detach().cpu(), loss_cpu.detach(),
+                               rtol=1e-4, atol=1e-6)
+    tree_map(lambda a, b: torch.testing.assert_close(
+        a.grad.cpu(), b.grad, rtol=1e-4, atol=1e-6), p_gpu, p_cpu)
 
 
 # ---------------------------------------------------------------------------

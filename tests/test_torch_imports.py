@@ -497,3 +497,59 @@ def test_analysis_cli_and_lint_run_without_jax_or_a_card(argv):
     assert out.returncode == 0, out.stdout + out.stderr
     assert ("'fail': 0" in out.stdout) or ("lint: clean" in out.stdout)
 
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.optim",
+    "repro_torch.optim.adamw",
+    "repro_torch.optim.schedules",
+    "repro_torch.launch.train",
+])
+def test_lm_training_slice_modules_stand_alone(name):
+    """The LM training slice's modules import without JAX, and the
+    attention backward kernel's CUDA source is one of the build's."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from repro_torch.kernels import build\n"
+        "assert 'flash_attention_bwd' in build.KERNELS\n"
+        "assert (build.CSRC / 'flash_attention_bwd.cu').exists()\n"
+        "from repro_torch.kernels.flash_attention import (\n"
+        "    FlashAttentionFunction, flash_attention_backward)\n"
+        "from repro_torch.data.synthetic import synthetic_token_stream\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_lm_clis_and_example_default_to_the_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib.util
+
+    from repro_torch.launch import serve, train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "granite-8b", "--workdir", str(tmp_path / "t"),
+                    "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "granite-8b", "--gen-tokens", "1"])
+    spec = importlib.util.spec_from_file_location(
+        "torch_example_train_lm", ROOT / "examples" / "torch" / "train_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--quick", "--workdir", str(tmp_path / "ex")])
+
+
+def test_attention_backward_never_falls_back():
+    """The backward wrapper refuses a device it has no kernel for."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    t = torch.zeros((2, 3, 4), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention_backward(t, t, t, t, t, t[..., 0])

@@ -1,5 +1,5 @@
-"""The port's dense decoder LM (serving path) vs the JAX package's, on the
-CPU.
+"""The port's dense decoder LM (serving path, and the training backbone) vs
+the JAX package's, on the CPU.
 
 For ``granite-8b`` and ``h2o-danube-3-4b`` ``.reduced()`` (float32, 4
 layers, d_model 128, 4 heads over 2 KV heads, head dim 32, vocab 512;
@@ -91,10 +91,22 @@ def test_non_dense_families_raise(name):
 
 
 def test_training_mode_is_not_in_this_slice():
-    _, _, mt, pt = _pair("granite-8b", 0)
-    x = torch.zeros((1, 4, mt.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mt.backbone(pt, x, positions=torch.arange(4), mode="train")
+    """(The name predates the training slice, which now exists.)
+    ``backbone(mode="train")`` keeps no caches and returns ``(hidden,
+    None)``, the JAX package's train-mode hidden states within ATOL/RTOL;
+    an unknown mode raises."""
+    mj, pj, mt, pt = _pair("granite-8b", 0)
+    x = np.random.default_rng(1).normal(
+        size=(2, 12, mt.cfg.d_model)).astype(np.float32)
+    hj, cj = mj.backbone(pj, jnp.asarray(x), positions=jnp.arange(12),
+                         mode="train")
+    ht, ct = mt.backbone(pt, torch.from_numpy(x), positions=torch.arange(12),
+                         mode="train")
+    assert cj is None and ct is None
+    np.testing.assert_allclose(ht.numpy(), _np(hj), atol=ATOL, rtol=RTOL)
+    with pytest.raises(ValueError, match="train, prefill or decode"):
+        mt.backbone(pt, torch.from_numpy(x), positions=torch.arange(12),
+                    mode="score")
 
 
 def test_init_params_tree_and_distributions():

@@ -139,7 +139,8 @@ order:
    checked); each with its bound, its share of the bound and the time of
    one ``scaled_dot_product_attention`` call on the same inputs (a
    yardstick the port never calls); after the build it counts the
-   tensor-core instructions (HGMMA, HMMA) in the attention library's SASS;
+   tensor-core instructions (HGMMA, HMMA) in the SASS of the attention
+   library and of its backward's;
 12. drives the dense LM's serving path — ``build(granite-8b)`` at full width
    (36 layers, bf16, seeded random weights) prefills 8 prompts of 2,048
    tokens and takes 32 greedy ``decode_step``s into a 4,096-slot cache
@@ -149,11 +150,13 @@ order:
    4,096-slot ring placed from a 6,128-token prefill, against one prefill
    of all 6,144 tokens;
 13. holds the attention backward kernels (``csrc/flash_attention_bwd.cu``:
-   D, dk/dv, dq; no TPU counterpart) against ``torch.autograd`` of the plain
-   attention at the training shapes — danube-3-4b (B = 1, 32 heads over 8,
+   D, dk/dv, dq — bf16 on the tensor cores, float32 on the CUDA cores; no
+   TPU counterpart) against ``torch.autograd`` of the plain attention at
+   the training shapes — danube-3-4b (B = 1, 32 heads over 8,
    S = 4,096, d = 120, window 4,096, bf16), granite (32 over 8, S = 2,048,
    d = 128, causal, bf16 and float32), a 512-key window — each with its
-   ms, launches, bound, the plain version's ms, the backward of one
+   ms beside the replaced CUDA-core design's (``BWD_PRIOR_MS``), its path,
+   launches, bound, the plain version's ms, the backward of one
    ``scaled_dot_product_attention`` (a yardstick the port never calls) and
    two launches' bits compared; bf16 by 64-row tile against the float32
    truth, with two planted faults that must fail that check (``attention
@@ -170,7 +173,8 @@ order:
    the plain attention's autograd, and the 4 steps' losses at full width
    and depth (S = 1,024) through the kernels against the plain attention's
    (``lm training`` line: losses, step seconds, tokens/s, peak GB, the
-   profiled step's busy share and top ops, the witness curves);
+   profiled step's busy share, top ops and attention kernels' ms, the
+   witness curves);
 15. runs the LM CLIs in processes of their own: ``launch.serve --arch
    granite-8b --gen-tokens 8``, ``launch.train --arch granite-8b --steps
    12 --ckpt-every 5`` (the loss must fall) and its ``--resume --steps 14``
@@ -438,6 +442,13 @@ BWD_CASES = (
     ("granite causal f32", (32, 8, 2048, 128, 0), "float32"),
     ("granite window=512", (32, 8, 2048, 128, 512), "bfloat16"),
 )
+# The CUDA-core design that the tensor-core bf16 path replaced (float32
+# fmaf for both types; the float32 path keeps it): its ms for each
+# BWD_CASES call, from the run that last timed it (PERF.md §6, row 9's
+# "before" column; NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's ms
+BWD_PRIOR_MS = {"danube training window=4096": 23.39, "granite causal": 7.30,
+                "granite causal f32": 7.32, "granite window=512": 2.91}
 # Decode logits against one prefill over the same tokens, float32 copy.
 #: The analysis phase: the JAX package's sanitizer messages that the
 #: planted faults must raise (tests/test_torch_sanitizer.py holds the two
@@ -550,6 +561,19 @@ def top_ops(by_op: dict, n: int) -> dict:
     for name, ms in by_op.items():
         out[name[:80]] = out.get(name[:80], 0.0) + ms
     return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
+
+
+def kernel_ms(by_op: dict, prefix: str) -> dict:
+    """The device ms of the kernels whose names start with ``prefix``
+    (the identifier in the profiler's name), summed by that identifier."""
+    import re
+
+    out = {}
+    for name, ms in by_op.items():
+        m = re.search(rf"\b{prefix}\w*", name)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + ms
+    return out
 
 
 def errors(got, want) -> dict:
@@ -3301,8 +3325,8 @@ def _shares(bound_ms, ms, library_ms) -> dict:
             "vs_library": None if library_ms is None else ms / library_ms}
 
 
-def attention_sass_counts() -> dict:
-    """Tensor-core instructions in the built attention library's SASS
+def attention_sass_counts(library: str) -> dict:
+    """Tensor-core instructions in a built attention library's SASS
     (``cuobjdump --dump-sass``): HGMMA (wgmma), HMMA (mma.sync)."""
     from repro_torch.kernels import build
 
@@ -3310,7 +3334,7 @@ def attention_sass_counts() -> dict:
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
-        [tool, "--dump-sass", str(build.library_path("flash_attention"))],
+        [tool, "--dump-sass", str(build.library_path(library))],
         capture_output=True, text=True, check=True).stdout
     return {name: len(re.findall(rf"\b{name}\b", sass))
             for name in ("HGMMA", "HMMA")}
@@ -3801,8 +3825,14 @@ def attention_backward_phase(torch, dev, report):
         lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), g4, retain_graph=True), 3)
         bound = _bwd_bound(q, k, _visible_pairs(S, S, 0, window))
+        prior = BWD_PRIOR_MS.get(name)
         rec = {"case": name, "dtype": ty, "q": list(q.shape),
-               "kv": list(k.shape), **kw, "ms": ms, "launches": launches,
+               "kv": list(k.shape), **kw,
+               "path": ("tensor cores (wgmma, TMA)" if ty == "bfloat16"
+                        else "CUDA cores (float32 fmaf)"),
+               "ms": ms, "prior_design_ms": prior,
+               "vs_prior_design": None if prior is None else ms / prior,
+               "launches": launches,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound[0], "bound_by": bound[1],
                **_shares(bound[0], ms, lib_ms), "errors": errs,
@@ -3924,7 +3954,9 @@ def lm_training_phase(torch, dev, report):
             out, wall_ms, by_op, busy_ms = device_profile(torch, step)
             profiled = {"step": i + 1, "wall_ms": wall_ms,
                         "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-                        "top_ops_ms": top_ops(by_op, 8)}
+                        "top_ops_ms": top_ops(by_op, 8),
+                        "attention_kernels_ms": kernel_ms(
+                            by_op, "flash_attention")}
         else:
             out = step()
         loss, params, opt = out
@@ -4381,11 +4413,12 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    sass = attention_sass_counts()
-    print("attention kernel sass (tensor-core instructions): "
-          + json.dumps(sass))
-    check(sass["HGMMA"] > 0, "the attention library has no HGMMA (wgmma) "
-          "instruction: its bf16 path is not on the tensor cores")
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        sass = attention_sass_counts(lib)
+        print(f"attention kernel sass ({lib}; tensor-core instructions): "
+              + json.dumps(sass))
+        check(sass["HGMMA"] > 0, f"the {lib} library has no HGMMA (wgmma) "
+              "instruction: its bf16 path is not on the tensor cores")
 
     dev = torch.device("cuda")
     report = {"card": card}
@@ -4577,7 +4610,9 @@ def main() -> int:
     # under jax.checkpoint; the library call is SDPA's backward
     main = report["attention_backward_main"]
     entries.append({
-        "name": "flash_attention_bwd",
+        "name": "flash_attention_bwd (flash_attention_bwd_delta_kernel, "
+                "flash_attention_bwd_dkdv_bf16_kernel, "
+                "flash_attention_bwd_dq_bf16_kernel)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "none: no TPU kernel (XLA differentiates "

@@ -47,7 +47,9 @@ QUERY_FIELDS = ("regs", "static_smem", "local_bytes", "max_threads",
 UNCONTRACTED = ("flash_attention_kernel", "flash_attention_bf16_kernel",
                 "flash_attention_bwd_delta_kernel",
                 "flash_attention_bwd_dkdv_kernel",
-                "flash_attention_bwd_dq_kernel")
+                "flash_attention_bwd_dq_kernel",
+                "flash_attention_bwd_dkdv_bf16_kernel",
+                "flash_attention_bwd_dq_bf16_kernel")
 
 
 def _library(name: str) -> ctypes.CDLL:

@@ -53,7 +53,8 @@
 // is used. Scores and p·v are fmaf chains: the tensor cores' TF32 would
 // round the inputs to 10 bits.
 //
-// bfloat16 (tensor cores: wgmma, TMA, warp specialisation).
+// bfloat16 (tensor cores: wgmma, TMA, warp specialisation; the building
+// blocks are csrc/hopper_mma.cuh, shared with the backward).
 // * Threads: NWG consumer warpgroups of 64 rows each, then a producer
 //   warpgroup whose first warp fills the K/V ring. Prefill (Sq·G > 16)
 //   takes NWG = 2 (128 rows; setmaxnreg moves the producer's registers to
@@ -93,6 +94,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper_mma.cuh"
 #include "launch_log.cuh"
 
 namespace {
@@ -481,237 +483,6 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* o,
 // bfloat16: tensor cores (wgmma), TMA, warp specialisation
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// arrive and expect `bytes` of TMA traffic before the phase completes
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// one TMA box (c0, c1, c2) of a 3-D map into shared memory, counted on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-// generic-proxy stores to shared memory, visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving register uses across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (encoded in 16-byte units)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// d (m64 x n128, float32) = A · B (accumulate = 0) or d + A · B, A and B
-// bf16 in shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (m64 x n64, float32) += A · B, A bf16 in registers (a fragment), B
-// bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             uint32_t a0, uint32_t a1,
-                                             uint32_t a2, uint32_t a3,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// d (m64 x n128, float32) += A · B, A bf16 in registers (a fragment), B
-// bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             uint32_t a0, uint32_t a1,
-                                             uint32_t a2, uint32_t a3,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Byte offset of 16-byte chunk `ch` (columns 8·ch..8·ch+7) of row r in a
-// swizzled tile of R rows: 64-column blocks of R rows × 128 bytes, chunk c
-// of row r at c ^ (r mod 8) — what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
-// into a 1024-byte-aligned block, and what a 128-byte-swizzle descriptor
-// reads.
-__device__ __forceinline__ uint32_t swz(int R, int r, int ch) {
-  return (uint32_t)((ch >> 3) * R * 128 + r * 128 +
-                    (((ch & 7) ^ (r & 7)) << 4));
-}
-
-// Columns 8·ch..8·ch+7 of a row, element by element, zeros past column d.
-__device__ __forceinline__ uint4 load_chunk(const __nv_bfloat16* row, int ch,
-                                            int d) {
-  uint32_t w[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int c = 8 * ch + 2 * e;
-    const uint32_t lo = c < d ? __bfloat16_as_ushort(row[c]) : 0u;
-    const uint32_t hi = c + 1 < d ? __bfloat16_as_ushort(row[c + 1]) : 0u;
-    w[e] = lo | (hi << 16);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// Rows [0, R) × DP columns of a swizzled tile, by threads t, t + nt, ...:
-// row r < n from row_ptr(r), zeros past column d and for r >= n. With
-// `async` (d a multiple of 8, 16-byte-aligned rows) each 16-byte chunk is a
-// cp.async, all of them in flight before the wait; otherwise element loads.
-template <int DP, typename RowPtr>
-__device__ __forceinline__ void stage_rows(uint8_t* tile, int R, int n, int d,
-                                           bool async, RowPtr row_ptr, int t,
-                                           int nt) {
-  constexpr int CPR = DP / 8;                 // chunks a row
-  for (int idx = t; idx < R * CPR; idx += nt) {
-    const int r = idx / CPR, ch = idx % CPR;
-    uint8_t* dst = tile + swz(R, r, ch);
-    if (async && r < n && 8 * ch < d)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       smem_u32(dst)),
-                   "l"(row_ptr(r) + 8 * ch)
-                   : "memory");
-    else
-      *reinterpret_cast<uint4*>(dst) =
-          r < n ? load_chunk(row_ptr(r), ch, d) : make_uint4(0u, 0u, 0u, 0u);
-  }
-  if (async) asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {        // 2^x, 0 below 2^-126
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One key tile's scores of a thread's two rows h = 0, 1 (fragment element
 // 4j + 2h + e is key column 8j + 2·quad + e of the tile). With MASK, column
 // 8j + e + 2·quad is visible iff a[h] <= 8j + e < b[h] (a, b shifted by
@@ -1071,41 +842,6 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// The 3-D TMA map of a (bhkv, sk, d) bf16 tensor: boxes of 64 columns × BK
-// keys of one head, 128-byte swizzle, zeros out of bounds.
-cudaError_t kv_map(CUtensorMap* map, const void* base, int bhkv, int sk,
-                   int d) {
-  static EncodeTiledFn encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)sk,
-                              (cuuint64_t)bhkv};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)sk * d * 2};
-  const cuuint32_t box[3] = {64, kBKT, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 template <int NWG, int STAGES, int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
@@ -1142,8 +878,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                        reinterpret_cast<uintptr_t>(v);
   const int tma = d % 8 == 0 && kv % 16 == 0 && sk > 0;
   if (tma) {
-    err = kv_map(&kmap, k, bhkv, sk, d);
-    if (err == cudaSuccess) err = kv_map(&vmap, v, bhkv, sk, d);
+    err = tma_map_3d(&kmap, k, bhkv, sk, d, kBKT);
+    if (err == cudaSuccess) err = tma_map_3d(&vmap, v, bhkv, sk, d, kBKT);
     if (err != cudaSuccess) return err;
   }
   const int qvec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;

@@ -29,8 +29,10 @@ forward is :func:`flash_attention` with each row's log-sum-exp
 (``return_lse=True``), its backward :func:`flash_attention_backward` — on
 CUDA tensors the hand-written kernels of ``csrc/flash_attention_bwd.cu``
 (which replace no TPU kernel: the JAX package's training step lets XLA
-differentiate its chunked attention), on CPU tensors their plain version,
-``torch.autograd`` of :func:`flash_attention_reference`.
+differentiate its chunked attention; bfloat16 on the tensor cores — wgmma,
+TMA — with p and ds rounded to bf16 as product operands, float32 on the
+CUDA cores), on CPU tensors their plain version, ``torch.autograd`` of
+:func:`flash_attention_reference`.
 ``flash_attention_backward.launches`` counts its calls on the card (each
 call launches the three kernels of the backward once).
 """
@@ -291,8 +293,9 @@ def flash_attention_backward(
 
     CUDA tensors run the kernels of ``csrc/flash_attention_bwd.cu`` (three
     launches on the current stream, not synchronised, from ``o`` and the
-    forward's ``lse``; float32 sums, no atomics: two calls give the same
-    bits); CPU tensors run :func:`flash_attention_backward_reference`.
+    forward's ``lse``; float32 sums — bf16 inputs on the tensor cores, p
+    and ds rounded to bf16 as operands — and no atomics: two calls give the
+    same bits); CPU tensors run :func:`flash_attention_backward_reference`.
     Never falls back: a refused launch or a failed build raises."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(

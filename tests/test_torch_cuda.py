@@ -55,8 +55,10 @@ forward's output bits do not depend on whether it also writes each row's
 log-sum-exp, which agrees with the plain version's.  The attention backward
 kernels (``flash_attention_backward``) are held against ``torch.autograd``
 of the plain attention in float32 and bfloat16, with GQA, MQA, a window,
-non-causal rows, ragged tiles and d ∈ {17, 32, 64, 120, 128}, two launches
-giving the same bits; ``ops.attention`` under autograd on the card gives
+a window shorter than one 128-key tile, non-causal rows, ragged tiles, Sq <
+Sk with q_offset = Sk − Sq, danube's grouping at S = 1,024 and d ∈ {17, 32,
+64, 100, 120, 128} (17 and 100: rows that are not 16-byte aligned, the bf16
+path's plain-load staging), two launches giving the same bits; ``ops.attention`` under autograd on the card gives
 wq, wk, wv and wo gradients (the CPU's within the float32 tolerance), and
 the reduced LMs' ``loss_fn`` and every gradient leaf on the card agree
 with the CPU's.
@@ -335,9 +337,16 @@ def test_wide_paths_match_plain(cuda, K, kind):
 # Training sweeps
 # ---------------------------------------------------------------------------
 
-def _sweep_inputs(D, L, K, W, A, dev, seed=0):
+def _sweep_inputs(D, L, K, W, A, dev, seed=0, consistent=False):
     """A minibatch with duplicate words in every column (W small), zero
-    counts, a trailing padded column, and residual-ranked active sets."""
+    counts, a trailing padded column, and residual-ranked active sets.
+
+    φ̂ is a gamma draw independent of the counts, so a sweep's exclusion
+    step (φ̂_w − cnt·μ) can go below 0 — the kernels' arithmetic does not
+    care, the sanitizer does.  ``consistent=True`` makes φ̂ hold the
+    minibatch's own mass (the draw plus cnt·μ scattered by word, φ̂(k) its
+    column sums), as every φ̂ a trainer hands a sweep does; the other
+    draws are the same."""
     rng = np.random.default_rng(seed)
     wid = rng.integers(0, W, (D, L)).astype(np.int32)
     cnt = rng.integers(0, 5, (D, L)).astype(np.float32)
@@ -345,6 +354,8 @@ def _sweep_inputs(D, L, K, W, A, dev, seed=0):
     mu = rng.dirichlet(np.ones(K), (D, L)).astype(np.float32)
     theta = np.einsum("dlk,dl->dk", mu, cnt).astype(np.float32)
     phi = (rng.gamma(1.0, 1.0, (W, K)) * 3).astype(np.float32)
+    if consistent:
+        np.add.at(phi, wid.ravel(), (mu * cnt[..., None]).reshape(-1, K))
     ptot = phi.sum(0)
     t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     out = [t(wid), t(cnt), t(mu), t(theta), t(phi), t(ptot)]
@@ -1417,13 +1428,22 @@ def _assert_backward_close(got, want, truth, dtype):
     (6, 2, 257, 120, True, 100),             # ragged tiles, window < S
     (4, 4, 33, 17, True, 0),                 # an odd head dim
     (32, 8, 300, 128, True, 4096),           # granite's grouping, window
-])                                           # wider than S
+                                             # wider than S
+    (8, 2, (130, 300), 120, True, 0),        # Sq < Sk, q_offset = Sk - Sq
+    (8, 2, 1024, 120, True, 4096),           # danube's grouping, 2 KV heads
+    (8, 2, 200, 100, True, 0),               # 200-byte rows: no TMA
+    (6, 2, 400, 64, True, 40),               # a window < one 128-key tile
+])
 def test_flash_attention_backward_matches_plain(cuda, dtype, BH, BHkv, S, d,
                                                 causal, window):
-    q, k, v = _attn_inputs(BH, BHkv, S, S, d, dtype, cuda, S + d)
-    g = torch.Generator(device=cuda).manual_seed(S)
-    dout = torch.randn((BH, S, d), generator=g, device=cuda).to(dtype)
-    kw = dict(causal=causal, window=window)
+    """S is Sq = Sk or (Sq, Sk), the queries then the last Sq positions
+    (q_offset = Sk - Sq)."""
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
+    q, _, _ = _attn_inputs(BH, BHkv, Sq, Sk, d, dtype, cuda, Sq + d)
+    _, k, v = _attn_inputs(BH, BHkv, Sk, Sk, d, dtype, cuda, Sk + d)
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    dout = torch.randn((BH, Sq, d), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
     o, lse = flash_attention(q, k, v, **kw, return_lse=True)
     before = flash_attention_backward.launches
     got = flash_attention_backward(q, k, v, o, dout, lse, **kw)
@@ -1863,10 +1883,14 @@ def test_contracts_match_the_cards_launches_and_occupancy(cuda):
 def test_sanitizer_passes_and_fires_on_the_card(cuda):
     """debug_checks=True through the CUDA kernels: clean sweeps and a clean
     fit pass; a NaN φ row, a negative count and a perturbed φ̂(k) raise
-    SanitizerError with the JAX package's messages."""
+    SanitizerError with the JAX package's messages.  φ̂ holds the
+    minibatch's own mass (``consistent=True``): the independent draw does
+    not, and its clean sweep rightly raises "negative values in phi_wk"
+    (``tests/test_torch_sanitizer.py::test_sweep_inputs_need_their_own_mass``
+    holds that on the CPU)."""
     from repro_torch.analysis import sanitizer
 
-    args = _sweep_inputs(7, 6, 64, 20, 4, cuda)
+    args = _sweep_inputs(7, 6, 64, 20, 4, cuda, consistent=True)
     wid, cnt, mu, theta, phi, ptot, wt, act = args
     kw = dict(**SWEEP_KW, debug_checks=True, device=cuda)
     ops.sweep(wid, cnt, mu, theta, phi, ptot, compute_loglik=True, **kw)

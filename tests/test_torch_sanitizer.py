@@ -555,3 +555,46 @@ def _set_t(t, idx, v):
     t = t.clone()
     t[idx] = v
     return t
+
+
+@pytest.mark.parametrize("case", ["independent_draw_raises", "dense_passes",
+                                  "scheduled_passes", "faults_still_raise"])
+def test_sweep_inputs_need_their_own_mass(case):
+    """The card test's inputs (``test_torch_cuda._sweep_inputs(7, 6, 64,
+    20, 4)``) through the plain sweeps on the CPU: with φ̂ drawn apart from
+    the counts, the exclusion step takes out mass φ̂ never held and the
+    clean dense sweep raises "negative values in phi_wk" — a fault of the
+    inputs, not of a kernel or the sanitizer; with φ̂ holding the
+    minibatch's own mass (``consistent=True``) the checked dense and
+    scheduled sweeps pass, and the card test's planted faults still
+    raise."""
+    import test_torch_cuda as tc
+
+    cpu = torch.device("cpu")
+    kw = dict(**tc.SWEEP_KW, debug_checks=True, device=cpu)
+    if case == "independent_draw_raises":
+        wid, cnt, mu, theta, phi, ptot, _, _ = tc._sweep_inputs(
+            7, 6, 64, 20, 4, cpu)
+        _expect("sanitizer: negative values in phi_wk", lambda: ops.sweep(
+            wid, cnt, mu, theta, phi, ptot, compute_loglik=True, **kw))
+        return
+    wid, cnt, mu, theta, phi, ptot, wt, act = tc._sweep_inputs(
+        7, 6, 64, 20, 4, cpu, consistent=True)
+    assert float(phi.min()) >= 0.0
+    if case == "dense_passes":
+        r = ops.sweep(wid, cnt, mu, theta, phi, ptot, compute_loglik=True,
+                      **kw)
+        assert r.loglik is not None
+        return
+    r = ops.sweep(wid, cnt, mu, theta, phi, ptot, word_topics=wt,
+                  token_active=act, **kw)
+    if case == "scheduled_passes":
+        return
+    _expect("phi_k deltas inconsistent", lambda: san.sweep_invariants(
+        r._replace(phi_k=r.phi_k + 1.0), counts=cnt, mu_before=mu,
+        phi_wk_before=phi, phi_k_before=ptot, word_topics=wt,
+        token_active=act, word_ids=wid))
+    bad = cnt.clone()
+    bad[0, 0] = -1.0
+    _expect("negative values in", lambda: ops.sweep(
+        wid, bad, mu, theta, phi, ptot, **kw))

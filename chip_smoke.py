@@ -179,9 +179,33 @@ order:
    granite-8b --gen-tokens 8``, ``launch.train --arch granite-8b --steps
    12 --ckpt-every 5`` (the loss must fall) and its ``--resume --steps 14``
    (from step 10), and ``examples/torch/train_lm.py --quick`` (``lm cli``
-   line).
-
-16. the analysis layer: from the build on, every launch the wrappers make
+   line);
+16. drives the MoE and Mamba2 paths (no kernel of their own: the JAX
+   package has none there; their attention layers go through the two
+   attention kernels): qwen2-moe-a2.7b at full width and depth (24 layers,
+   60 experts padded to 64, top-4, 4 shared; bf16, ~30 GB) prefills 8
+   prompts of 2,048 tokens and takes 32 greedy decode steps (``moe
+   serving`` line: prefill ms and tokens/s, decode ms on the host clock
+   and the profiled step's device busy ms and device operations, peak GB,
+   each layer's largest and smallest expert group, the MoE layers' share
+   of a prefill by CUDA events, a profiled prefill, the attention
+   launches); a float32 copy on 4 layers continues one prefill over the
+   2,080 tokens (``moe continuity``: routing flips between decode and
+   prefill counted, each a near-tie); qwen3-moe-235b-a22b at full width
+   on 4 of its 94 layers, 2 x 2,048 tokens and 8 steps (``moe serving
+   (qwen3)``); the expert-parallel form of one qwen2-moe layer on a
+   (1, 4) mesh of ranks sharing the card over gloo against the TP form,
+   dropless and at the config's capacity factor 2.0 (``moe ep``: dropped
+   share, ms a layer, all-to-all bytes); mamba2-370m at full width and
+   depth, 8 x 2,048 tokens with 32 steps and one 32,768-token prompt with
+   64 steps (``ssm serving``: the state bytes a sequence equal at both
+   lengths), its float32 decode against one prefill (``ssm continuity``);
+   and 4 AdamW steps on one 4,096-token sequence of mamba2 at full depth
+   and of qwen2-moe on 4 layers (``moe/ssm training``: losses, step s,
+   tokens/s, peak GB, every matrix moved, any expert slice that did not
+   reported, the padded experts still zero, 4 + 4 attention launches a
+   qwen2 step);
+17. the analysis layer: from the build on, every launch the wrappers make
    is noted (``repro_torch.analysis.launches``) and recorded by its
    library (``csrc/launch_log.cuh``); after the baselines, a
    ``debug_checks=True`` ``FOEMTrainer.step`` at the stream_1k width and a
@@ -441,6 +465,8 @@ BWD_CASES = (
     ("granite causal", (32, 8, 2048, 128, 0), "bfloat16"),
     ("granite causal f32", (32, 8, 2048, 128, 0), "float32"),
     ("granite window=512", (32, 8, 2048, 128, 512), "bfloat16"),
+    # qwen2-moe's training call: 16 heads over 16 (G = 1), causal
+    ("qwen2-moe training", (16, 16, TRAIN_SEQ, 128, 0), "bfloat16"),
 )
 # The CUDA-core design that the tensor-core bf16 path replaced (float32
 # fmaf for both types; the float32 path keeps it): its ms for each
@@ -474,6 +500,55 @@ LM_TOL_REASON = (
     "logits of scale ~1 in float32: the decode step and the prefill run "
     "other cuBLAS kernels (1 row against 2,080) whose sums differ by ~1e-7 "
     "relative, carried through 36 layers' residual stream")
+
+# The MoE and SSM phases.  qwen2-moe-a2.7b at full width and depth (24
+# layers, 60 experts padded to 64, top-4, 4 shared; bf16, ~30 GB): 8 prompts
+# of 2,048 tokens, 32 greedy decode steps; its continuity in float32 on 4
+# of the 24 layers.  qwen3-moe-235b-a22b at full width (128 experts top-8,
+# GQA 64/4, head dim 128) with its depth cut to 4 of 94 layers (~22 GB bf16;
+# the whole model is ~470 GB): 2 prompts of 2,048, 8 decode steps.
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_STEPS = "qwen2-moe-a2.7b", 8, 2048, 32
+MOE_CONT_LAYERS = 4
+QWEN3_ARCH, QWEN3_LAYERS, QWEN3_BATCH, QWEN3_PROMPT, QWEN3_STEPS = (
+    "qwen3-moe-235b-a22b", 4, 2, 2048, 8)
+# A routing decision that differs between the decode step and the prefill
+# (the router's float32 sums over another number of rows) must be a
+# near-tie: its k-th and (k+1)-th probabilities within this gap in the
+# prefill (~1e-7 is the float32 noise of a probability; 1e-4 leaves room
+# for the hidden state's own float32 drift over the layers before it).  The
+# row is compared no further from that step on; the flips are counted.
+MOE_FLIP_GAP = 1e-4
+# The expert-parallel MoE: one qwen2-moe MoE layer at full width on a
+# (1, 4) mesh of ranks sharing the card (gloo), 8 x 2,048 tokens, against
+# the TP form on the same rank: dropless at cf = E / k (C = T_loc), and at
+# the config's 2.0, where every token with no dropped pair must equal the
+# TP form.  bf16 tolerance: |ep - tp| <= EP_RTOL |tp| + EP_ATOL_RMS rms(tp)
+# elementwise: the expert products run as a batched product over the
+# capacity slots against one product a group, other cuBLAS kernels whose
+# float32 sums round to bf16 once each (2^-8 relative), a few ulps of the
+# output's scale
+EP_MESH, EP_BATCH, EP_SEQ, EP_REPS = (1, 4), 8, 2048, 2
+EP_RTOL, EP_ATOL_RMS = 2.0 ** -7, 2.0 ** -5
+# mamba2-370m at full width and depth (48 layers, bf16): 8 prompts of 2,048
+# tokens with 32 decode steps, then prefill_32k's length (its batch of 32
+# cut to 1) with 64 decode steps; continuity in float32 at full depth on
+# SSM_CONT_BATCH prompts of 2,048 with 32 steps
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS = "mamba2-370m", 8, 2048, 32
+SSM_LONG, SSM_LONG_STEPS, SSM_CONT_BATCH = 32_768, 64, 2
+# Training: one sequence of 4,096 tokens (train_4k's length, its batch of
+# 256 cut to 1), 4 AdamW steps of lm_train_step: mamba2 at full width and
+# depth, qwen2-moe at full width with 4 of 24 layers (~3.0 B parameters)
+MOESSM_TRAIN_SEQ, MOESSM_TRAIN_STEPS, MOE_TRAIN_LAYERS = 4096, 4, 4
+# Their 2-layer float32 loss and gradient checks against the plain path
+# (TRAIN_GRAD_TOL a leaf): mamba2's on the first SSM_GRAD_SEQ tokens (4 of
+# its 256-token chunks), so that the sequential recurrence's steps stay
+# few; the loss within F32_LOSS_RTOL: float32 hidden states of the two
+# paths differ by ~1e-6 relative (sums in other orders), and the loss is a
+# mean of 4,096 cross-entropies of ~12
+SSM_GRAD_SEQ, F32_LOSS_RTOL = 1024, 1e-5
+# The serving runs: timed prefills after a full-size warm-up (the median
+# is reported)
+SERVE_PREFILL_REPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -3344,9 +3419,11 @@ def attention_kernel_phase(torch, dev, report):
     """The flash-attention kernel against its plain version at the LM
     serving path's shapes: granite-8b prefill (8 × 32 heads over 8 × 8, S =
     2,048, d = 128, bf16) and decode (Sq = 1 at q_offset 2,048..2,079 in a
-    4,096-slot cache), danube-3-4b (d = 120, window 4,096) prefill of 6,144
-    and its ring-ordered decode call, ragged Sq/Sk and MQA at small size,
-    and the prefill_32k length (B = 1, S = 32,768)."""
+    4,096-slot cache), the MoE serving phases' calls (qwen2-moe, 8 × 16
+    heads over 8 × 16, and qwen3-moe, 2 × 64 over 2 × 4: S = 2,048, d =
+    128, prefill and decode), danube-3-4b (d = 120, window 4,096) prefill
+    of 6,144 and its ring-ordered decode call, ragged Sq/Sk and MQA at
+    small size, and the prefill_32k length (B = 1, S = 32,768)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_reference,
     )
@@ -3411,6 +3488,29 @@ def attention_kernel_phase(torch, dev, report):
     report["attention_decode"] = rec
     del q, k, v, qd, kc, vc
     torch.cuda.empty_cache()
+
+    # the MoE serving phases' calls, d = 128: qwen2-moe's 16 heads over 16
+    # (G = 1) and qwen3-moe's 64 over 4 (G = 16: a CTA's 128 rows are 8
+    # positions of 16 heads) — prefill, and decode into the S + steps-slot
+    # cache at its first and last position
+    for arch, Bm, H, Hkv, Sm, steps in (
+            ("qwen2-moe", MOE_BATCH, 16, 16, MOE_PROMPT, MOE_STEPS),
+            ("qwen3-moe", QWEN3_BATCH, 64, 4, QWEN3_PROMPT, QWEN3_STEPS)):
+        q, k, v = qkv(Bm * H, Bm * Hkv, Sm, Sm, 128, torch.bfloat16)
+        run(f"{arch} prefill", q, k, v, dict(causal=True), Bm,
+            _visible_pairs(Sm, Sm, 0, 0), Sm, library=(True, None))
+        qd = q[:, :1].contiguous()
+        kc, vc = qkv(Bm * H, Bm * Hkv, 1, Sm + steps, 128,
+                     torch.bfloat16)[1:]
+        for pos in (Sm, Sm + steps - 1):
+            mask = (torch.arange(Sm + steps, device=dev) <= pos)[
+                None, None, None]
+            run(f"{arch} decode q_offset={pos}", qd, kc, vc,
+                dict(causal=True, q_offset=pos), Bm,
+                _visible_pairs(1, Sm + steps, pos, 0), pos + 1,
+                library=(False, mask), graph=True, reps=20)
+        del q, k, v, qd, kc, vc
+        torch.cuda.empty_cache()
 
     # danube-3-4b: d = 120, window 4,096, B = 1, S = 6,144
     W, Sd = 4096, 6144
@@ -3486,21 +3586,24 @@ def attention_kernel_phase(torch, dev, report):
 
 
 def _place(cache, pre, slot_of=None):
-    """Prefill caches into decode caches, in place: position p of ``pre``
-    to slot p, as the JAX smoke test does, or — for a ring of W slots — the
-    last W positions p to slot ``slot_of(p)`` (the JAX package has no such
-    glue: its ring test decodes from position 0)."""
+    """Prefill caches into decode caches, in place: every leaf at its
+    origin (``launch.serve.place_prefill``, as ``generate`` places them) or,
+    for a K/V ring of W slots, the last W positions p to slot ``slot_of(p)``
+    (the JAX package has no such glue: its ring test decodes from position
+    0)."""
     import torch
 
+    from repro_torch.launch.serve import place_prefill
+
+    if slot_of is None:
+        place_prefill(cache, pre)
+        return
     for j in cache:
-        for n in ("k", "v"):
-            src, dst = pre[j][n], cache[j][n]
-            if slot_of is None:
-                dst[:, :, :, :src.shape[3]] = src
-            else:
-                P, W = src.shape[3], dst.shape[3]
-                pos = torch.arange(P - W, P, device=src.device)
-                dst[:, :, :, slot_of(pos)] = src[:, :, :, pos]
+        for n, src in pre[j].items():
+            dst = cache[j][n]
+            P, W = src.shape[3], dst.shape[3]
+            pos = torch.arange(P - W, P, device=src.device)
+            dst[:, :, :, slot_of(pos)] = src[:, :, :, pos]
 
 
 def lm_serving_phase(torch, dev, report):
@@ -3720,7 +3823,8 @@ def attention_backward_phase(torch, dev, report):
     ``torch.autograd`` of the plain attention on the same inputs, at the LM
     training shapes: danube-3-4b (B = 1, 32 heads over 8, S = 4,096, d =
     120, window 4,096, bf16), granite (32 over 8, S = 2,048, d = 128,
-    causal, bf16 and float32) and a window shorter than S (512).  Float32
+    causal, bf16 and float32), a window shorter than S (512) and qwen2-moe
+    (16 heads over 16, S = 4,096, d = 128, causal, bf16).  Float32
     is held elementwise (BWD_TOL), bfloat16 tile by tile against the
     float32 truth (BWD_TILE_TOL), and each bfloat16 case plants two faults
     that the tile check must see.  Each line has the kernel's ms (CUDA events over 3 calls),
@@ -4173,6 +4277,832 @@ def lm_cli_phase(report):
     report["lm_cli"] = rec
 
 
+class RoutingRecorder:
+    """While active, keeps each ``models.moe.route`` call's experts (T, k)
+    and each token's gap between its k-th and (k+1)-th probability, on the
+    card.  (The script's instrument; the port is not changed.)"""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._moe, real = moe, moe.route
+        self._real = real
+
+        def recording(router, xt, k, norm=True):
+            topv, topi = real(router, xt, k, norm)
+            with torch.no_grad():
+                top = torch.softmax(xt.float() @ router, dim=-1).topk(
+                    k + 1, dim=-1).values
+            self.calls.append((topi.detach(), top[:, k - 1] - top[:, k]))
+            return topv, topi
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._real
+
+
+def _moe_share(torch, model, params, batch) -> tuple:
+    """Device ms of one prefill and of its MoE layers: CUDA events around
+    the prefill and around each ``moe_apply`` call (its host sync for the
+    group sizes included)."""
+    from repro_torch.models import moe
+
+    real, spans = moe.moe_apply, []
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*a, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    moe.moe_apply = timed
+    try:
+        start.record()
+        model.prefill(params, batch)
+        end.record()
+        end.synchronize()
+    finally:
+        moe.moe_apply = real
+    return (start.elapsed_time(end),
+            sum(a.elapsed_time(b) for a, b in spans), len(spans))
+
+
+def _arch_line(cfg) -> str:
+    """An LM config's widths, for the serving and training lines."""
+    if cfg.family == "ssm":
+        return (f"d_model {cfg.d_model} d_inner {cfg.d_inner} heads "
+                f"{cfg.ssm_heads} x {cfg.ssm_head_dim} state {cfg.ssm_state} "
+                f"chunk {cfg.ssm_chunk} vocab {cfg.vocab_size} {cfg.dtype}")
+    return (f"d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"hd {cfg.hd} experts {cfg.num_experts} top-"
+            f"{cfg.experts_per_token} d_ff {cfg.d_ff} shared "
+            f"{cfg.num_shared_experts} x {cfg.shared_expert_ff} vocab "
+            f"{cfg.vocab_size} {cfg.dtype}")
+
+
+def _lm_serve_run(torch, dev, model, params, B, S, steps, seed,
+                  routing=False) -> tuple:
+    """One LM's serving path on the card: a warm-up prefill of B prompts of
+    S random tokens, SERVE_PREFILL_REPS timed prefills of the same size
+    (the median reported; each frees the last one's outputs first),
+    ``steps`` greedy decode steps from the last one's caches, one more step
+    under ``torch.profiler`` and a profiled prefill.  The attention-kernel
+    count is set to 0 before the timed prefills and read after the decode
+    steps: each call must launch it once an attention layer.  With
+    ``routing`` (an MoE arch), a separate prefill under ``RoutingRecorder``
+    gives each MoE layer's largest and smallest expert group, and one under
+    CUDA events the MoE layers' share.  Returns (record, tokens)."""
+    import statistics
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    cfg = model.cfg
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed), device=dev)
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        model.prefill(params, batch)                    # warm-up, full size
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        prefill_ms, logits, pre = [], None, None
+        for _ in range(SERVE_PREFILL_REPS):
+            logits = pre = None
+            t0 = time.perf_counter()
+            logits, pre = model.prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        prefill_launches = flash_attention.launches
+        check(bool(torch.isfinite(logits).all()),
+              f"{cfg.name} prefill: non-finite logits")
+        cache = model.init_cache(B, S + steps)
+        _place(cache, pre)
+        nxt = logits[:, -1].argmax(-1)
+        del pre, logits
+        step_ms = []
+        for t in range(steps):
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache,
+                                          {"tokens": nxt[:, None]}, S + t)
+            nxt = lg[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(lg).all()),
+                  f"{cfg.name} decode step {t}: non-finite logits")
+        launches = flash_attention.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(prefill_launches == n_attn * SERVE_PREFILL_REPS,
+              f"{cfg.name}: {SERVE_PREFILL_REPS} prefills launched the "
+              f"attention kernel {prefill_launches} times, not "
+              f"{n_attn * SERVE_PREFILL_REPS}")
+        check(launches - prefill_launches == n_attn * steps,
+              f"{cfg.name}: {steps} decode steps launched the attention "
+              f"kernel {launches - prefill_launches} times, not "
+              f"{n_attn * steps}")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in cache.values() for t in c.values()) // B
+
+        def one_step():
+            out = model.decode_step(params, cache, {"tokens": nxt[:, None]},
+                                    S + steps - 1)
+            torch.cuda.synchronize()        # the wall clock sees it all
+            return out
+
+        def one_prefill():
+            out = model.prefill(params, batch)[0][:, -1]
+            torch.cuda.synchronize()
+            return out
+
+        _, wall_ms, by_op, busy_ms = device_profile(torch, one_step)
+        step_ops = device_ops(torch, one_step)[0]
+        del cache, lg
+        torch.cuda.empty_cache()
+        _, pwall, pby_op, pbusy = device_profile(torch, one_prefill)
+        moe_rec = {}
+        if routing:
+            with RoutingRecorder() as rr:
+                model.prefill(params, batch)
+            groups = []
+            for topi, _ in rr.calls:
+                c = torch.bincount(topi.reshape(-1),
+                                   minlength=cfg.num_experts)
+                groups.append([int(c.max()), int(c.min())])
+            n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+            check(len(groups) == n_moe,
+                  f"{cfg.name} prefill routed {len(groups)} layers")
+            del rr
+            total_ms, moe_ms, moe_calls = _moe_share(torch, model, params,
+                                                     batch)
+            moe_rec = {"expert_groups_max_min_by_layer": groups,
+                       "moe_share_of_prefill": moe_ms / total_ms,
+                       "prefill_event_ms": total_ms,
+                       "moe_layers_event_ms": moe_ms,
+                       "moe_calls": moe_calls}
+    ms_sorted = sorted(step_ms)
+    med = ms_sorted[len(ms_sorted) // 2]
+    pre_med = statistics.median(prefill_ms)
+    rec = {"batch": B, "prompt": S, "steps": steps,
+           "prefill_ms": pre_med, "prefill_ms_all": prefill_ms,
+           "prefill_tokens_per_s": B * S / pre_med * 1e3,
+           "decode_ms_median": med, "decode_ms_min": ms_sorted[0],
+           "decode_ms_max": ms_sorted[-1],
+           "decode_tokens_per_s": B * 1e3 / med,
+           "decode_step_device_busy_ms": busy_ms,
+           "decode_step_profiled_wall_ms": wall_ms,
+           "decode_idle_share": 1 - busy_ms / wall_ms,
+           "decode_step_device_ops": step_ops,
+           "decode_top_ops_ms": top_ops(by_op, 5),
+           "peak_gb": peak_gb, "cache_bytes_per_sequence": cache_bytes,
+           "attention_launches": launches,
+           "prefill_launches": prefill_launches,
+           **moe_rec,
+           "profiled_prefill": {"wall_ms": pwall, "busy_ms": pbusy,
+                                "busy_share": pbusy / pwall,
+                                "top_ops_ms": top_ops(pby_op, 6)}}
+    return rec, tokens
+
+
+def _lm_continuity(torch, dev, cfg, tokens, steps, routing=False) -> dict:
+    """A float32 model's decode continues one prefill: prefill ``tokens``,
+    ``steps`` greedy decode steps, then one prefill over all the tokens;
+    the decode logits within LM_TOL of the long prefill's and the greedy
+    tokens equal.  With ``routing`` (an MoE arch) the experts of each
+    decoded position are compared with the long prefill's: a flip must be
+    a near-tie (gap < MOE_FLIP_GAP), and a row is compared no further from
+    its first flip."""
+    import contextlib
+
+    from repro_torch.models import build
+
+    model = build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    B, S = tokens.shape
+
+    def recorder():
+        return RoutingRecorder() if routing else contextlib.nullcontext()
+
+    with torch.no_grad():
+        logits, pre = model.prefill(params, {"tokens": tokens})
+        cache = model.init_cache(B, S + steps)
+        _place(cache, pre)
+        del pre
+        fed = [logits[:, -1].argmax(-1)]
+        last_prefill = logits[:, -1].clone()
+        del logits
+        dec, dec_routes = [], []
+        for t in range(steps):
+            with recorder() as rec:
+                lg, cache = model.decode_step(
+                    params, cache, {"tokens": fed[-1][:, None]}, S + t)
+            if routing:
+                dec_routes.append([c[0] for c in rec.calls])
+            dec.append(lg[:, 0])
+            fed.append(lg[:, 0].argmax(-1))
+        del cache
+        torch.cuda.empty_cache()
+        dec = torch.stack(dec, 1)                           # (B, steps, V)
+        seq = torch.cat([tokens, torch.stack(fed[:-1], 1)], 1)
+        with recorder() as rec:
+            full = model.prefill(params, {"tokens": seq})[0]
+    flip = torch.zeros((B, steps), dtype=torch.bool, device=dev)
+    flip_gaps = []
+    for layer, (topi, gap) in enumerate(rec.calls if routing else ()):
+        want = topi.view(B, S + steps, -1)[:, S:].sort(-1).values
+        got = torch.stack([r[layer] for r in dec_routes], 1).sort(-1).values
+        diff = (got != want).any(-1)
+        flip |= diff
+        flip_gaps += gap.view(B, S + steps)[:, S:][diff].tolist()
+    check(all(g < MOE_FLIP_GAP for g in flip_gaps), f"{cfg.name} float32: "
+          f"decode routed other experts than the prefill at gaps "
+          f"{flip_gaps}, not near-ties (< {MOE_FLIP_GAP})")
+    keep = torch.cumsum(flip.int(), 1) == 0          # rows up to a flip
+    ref = full[:, S:]
+    err = _check_close(f"{cfg.name} float32 decode", "logits vs prefill",
+                       dec[keep], ref[keep], LM_TOL)
+    last_err = _check_close(f"{cfg.name} float32 prefill", "last logits vs "
+                            "the longer prefill", last_prefill,
+                            full[:, S - 1], LM_TOL)
+    same = torch.equal(dec.argmax(-1)[keep], ref.argmax(-1)[keep])
+    check(same, f"{cfg.name} float32: decode's greedy tokens differ from "
+          f"the prefill's")
+    rec32 = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": "float32",
+             "batch": B, "tokens": S + steps, "logits_err": err,
+             "last_prefill_logits_err": last_err, "greedy_equal": same,
+             "positions_compared": int(keep.sum()), "positions": B * steps}
+    if routing:
+        rec32.update(routing_flips=len(flip_gaps), flip_gaps=flip_gaps)
+    del params, model, full, ref, dec
+    torch.cuda.empty_cache()
+    return rec32
+
+
+def _serve_arch(torch, dev, cfg, runs, seed, note="") -> tuple:
+    """``cfg`` at full width on the card (seeded random weights): one
+    ``_lm_serve_run`` for each (B, S, steps) of ``runs``.  Returns the
+    record and the first run's tokens."""
+    from repro_torch.checkpoint.ckpt import tree_flatten
+    from repro_torch.models import build
+
+    shapes = ", ".join(f"{B} x {S} + {st} steps" for B, S, st in runs)
+    print(f"{cfg.family} serving: {cfg.name} {cfg.num_layers} layers "
+          f"{_arch_line(cfg)}; {shapes}{note}")
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "params": sum(t.numel() for t in tree_flatten(params)[0]),
+           "init_params_s": init_s, "runs": []}
+    first = None
+    for B, S, steps in runs:
+        run, tokens = _lm_serve_run(torch, dev, model, params, B, S, steps,
+                                    seed + S, routing=cfg.family == "moe")
+        rec["runs"].append(run)
+        first = tokens if first is None else first
+    del params, model
+    torch.cuda.empty_cache()
+    return rec, first
+
+
+def moe_serving_phase(torch, dev, report):
+    """The MoE LM's serving path on the card at full width: qwen2-moe (24
+    layers, bf16) prefills 8 prompts of 2,048 random tokens and takes 32
+    greedy decode steps; a float32 copy on 4 layers continues one prefill;
+    qwen3-moe at full width on 4 of its 94 layers prefills 2 prompts of
+    2,048 and decodes 8 steps."""
+    from repro_torch.configs.registry import ARCHS
+
+    cfg = ARCHS[MOE_ARCH]
+    rec, tokens = _serve_arch(torch, dev, cfg,
+                              [(MOE_BATCH, MOE_PROMPT, MOE_STEPS)], 0)
+    print("moe serving " + json.dumps(rec))
+    report["moe_serving"] = rec
+    print(f"moe continuity tolerance (rtol, atol): {LM_TOL}: "
+          f"{LM_TOL_REASON}; routing flips must be near-ties (gap < "
+          f"{MOE_FLIP_GAP})")
+    rec32 = _lm_continuity(
+        torch, dev, dataclasses.replace(cfg, num_layers=MOE_CONT_LAYERS,
+                                        dtype="float32"),
+        tokens, MOE_STEPS, routing=True)
+    print("moe continuity " + json.dumps(rec32))
+    report["moe_continuity"] = rec32
+    cfg3 = dataclasses.replace(ARCHS[QWEN3_ARCH], num_layers=QWEN3_LAYERS)
+    rec3, _ = _serve_arch(torch, dev, cfg3,
+                          [(QWEN3_BATCH, QWEN3_PROMPT, QWEN3_STEPS)], 2,
+                          "; depth cut from 94 layers, full width")
+    print("moe serving (qwen3) " + json.dumps(rec3))
+    report["moe_serving_qwen3"] = rec3
+
+
+def _ep_rank(mesh, seed):
+    """One rank of the EP phase: the qwen2-moe layer (the same seeded
+    weights and tokens on every rank), the TP form on the global tokens,
+    and the EP form dropless and at cf 2.0, with this rank's drops and
+    routing flips (its shard's routing against the full batch's)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.parallel.moe_ep import (
+        capacity, dispatch_slots, moe_apply_ep, token_shard,
+    )
+
+    cfg = ARCHS[MOE_ARCH]
+    dev, D, k = mesh.device, cfg.d_model, cfg.experts_per_token
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = moe.moe_init(g, D, cfg.d_ff, cfg.num_experts, cfg.num_shared_experts,
+                     cfg.shared_expert_ff, torch.bfloat16)
+    B, S = EP_BATCH, EP_SEQ
+    x = torch.randn((B, S, D), generator=g, device=dev).to(torch.bfloat16)
+    E_pad = p["w_gate"].shape[0]
+    out = {"rank": mesh.rank}
+    with torch.no_grad():
+        tp = moe.moe_apply(p, x, experts_per_token=k)
+        b0, Bl, s0, Sl = token_shard(mesh, B, S)
+        T = Bl * Sl
+        xt = x[b0:b0 + Bl, s0:s0 + Sl].reshape(T, D)
+        _, topi = moe.route(p["router"], xt, k)
+        _, topi_all = moe.route(p["router"], x.reshape(-1, D), k)
+        mine = topi_all.view(B, S, k)[b0:b0 + Bl, s0:s0 + Sl].reshape(T, k)
+        flips = (topi.sort(-1).values != mine.sort(-1).values).any(-1)
+        order, _ = moe.sort_pairs(topi)
+        tp_loc = tp[b0:b0 + Bl, s0:s0 + Sl].reshape(T, D).float()
+        rms = float(tp_loc.pow(2).mean().sqrt())
+        for name, cf in (("dropless", cfg.num_experts / k),
+                         ("cf2", cfg.moe_capacity_factor)):
+            C = capacity(cf, T, k, cfg.num_experts)
+            _, _, keep = dispatch_slots(topi, order, E_pad, C)
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            whole = kept.view(T, k).all(-1) & ~flips   # tokens to compare
+            y = moe_apply_ep(p, x, experts_per_token=k, mesh=mesh,
+                             capacity_factor=cf)
+            ms = []
+            for _ in range(EP_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                moe_apply_ep(p, x, experts_per_token=k, mesh=mesh,
+                             capacity_factor=cf)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            y_loc = y[b0:b0 + Bl, s0:s0 + Sl].reshape(T, D).float()
+            diff = (y_loc - tp_loc).abs()
+            bad = diff > EP_RTOL * tp_loc.abs() + EP_ATOL_RMS * rms
+            out[name] = {
+                "capacity_factor": cf, "capacity": C,
+                "pairs": T * k, "dropped_pairs": int((~keep).sum()),
+                "tokens_with_a_drop": int((~kept.view(T, k).all(-1)).sum()),
+                "tokens_compared": int(whole.sum()),
+                "violations": int(bad[whole].sum()),
+                "max_abs_err": float(diff[whole].max()),
+                "tp_rms": rms, "ms": statistics.median(ms), "ms_all": ms,
+                # each rank's dispatch buffer, sent out and back
+                "a2a_bytes_per_exchange": E_pad * C * D * 2,
+                "finite": bool(torch.isfinite(y).all())}
+        out["routing_flips"] = int(flips.sum())
+        out["tokens"] = T
+    return out
+
+
+def moe_ep_phase(torch, report):
+    """The expert-parallel MoE on a (1, 4) mesh of ranks sharing the card
+    (gloo): one qwen2-moe MoE layer at full width, 8 x 2,048 tokens, against
+    the TP form, dropless and at the config's capacity factor."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    t0 = time.perf_counter()
+    print(f"moe ep: {MOE_ARCH} one MoE layer at full width on a "
+          f"{EP_MESH} mesh (ranks share the card over gloo), "
+          f"{EP_BATCH} x {EP_SEQ} tokens; tolerance |ep - tp| <= "
+          f"{EP_RTOL} |tp| + {EP_ATOL_RMS} rms(tp) on tokens with no dropped "
+          f"pair and no routing flip between the shard's and the batch's "
+          f"router products")
+    ranks = spawn_mesh(_ep_rank, *EP_MESH, device="cuda", args=(5,),
+                       timeout=600)
+    rec = {"mesh": list(EP_MESH), "batch": EP_BATCH, "seq": EP_SEQ,
+           "routing_flips": sum(r["routing_flips"] for r in ranks),
+           "phase_s": time.perf_counter() - t0}
+    for name in ("dropless", "cf2"):
+        rows = [r[name] for r in ranks]
+        pairs = sum(x["pairs"] for x in rows)
+        rec[name] = {
+            "capacity_factor": rows[0]["capacity_factor"],
+            "capacity": rows[0]["capacity"],
+            "dropped_pairs": sum(x["dropped_pairs"] for x in rows),
+            "dropped_share": sum(x["dropped_pairs"] for x in rows) / pairs,
+            "tokens_with_a_drop": sum(x["tokens_with_a_drop"] for x in rows),
+            "tokens_compared": sum(x["tokens_compared"] for x in rows),
+            "violations": sum(x["violations"] for x in rows),
+            "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "tp_rms": rows[0]["tp_rms"],
+            "ms_per_layer_by_rank": [x["ms"] for x in rows],
+            "a2a_bytes_per_rank": 2 * rows[0]["a2a_bytes_per_exchange"],
+            "a2a_bytes_all_ranks": 2 * sum(x["a2a_bytes_per_exchange"]
+                                           for x in rows)}
+        check(all(x["finite"] for x in rows), f"moe ep {name}: non-finite")
+        check(rec[name]["violations"] == 0, f"moe ep {name}: "
+              f"{rec[name]['violations']} elements differ from the TP form "
+              f"(max {rec[name]['max_abs_err']})")
+    check(rec["dropless"]["dropped_pairs"] == 0,
+          "moe ep: the dropless capacity dropped pairs")
+    check(rec["routing_flips"] <= EP_BATCH * EP_SEQ // 500,
+          f"moe ep: {rec['routing_flips']} routing flips")
+    print("moe ep " + json.dumps(rec))
+    report["moe_ep"] = rec
+
+
+def ssm_serving_phase(torch, dev, report):
+    """The Mamba2 LM's serving path at full width and depth: 8 prompts of
+    2,048 tokens with 32 decode steps, then one prompt of 32,768 tokens with
+    64 steps (the state of a sequence must not grow with its length); then
+    a float32 copy's decode continues one prefill of the first run's first
+    SSM_CONT_BATCH prompts."""
+    from repro_torch.configs.registry import ARCHS
+
+    cfg = ARCHS[SSM_ARCH]
+    rec, tokens = _serve_arch(torch, dev, cfg,
+                              [(SSM_BATCH, SSM_PROMPT, SSM_STEPS),
+                               (1, SSM_LONG, SSM_LONG_STEPS)], 0,
+                              "; prefill_32k's batch of 32 cut to 1")
+    state = [r["cache_bytes_per_sequence"] for r in rec["runs"]]
+    check(state[0] == state[1], f"mamba2: the state of a sequence grew with "
+          f"its length: {state} bytes")
+    print("ssm serving " + json.dumps(rec))
+    report["ssm_serving"] = rec
+    rec32 = _lm_continuity(torch, dev,
+                           dataclasses.replace(cfg, dtype="float32"),
+                           tokens[:SSM_CONT_BATCH], SSM_STEPS)
+    print("ssm continuity " + json.dumps(rec32))
+    report["ssm_continuity"] = rec32
+
+
+def dense_moe(forced):
+    """A context in which ``moe.moe_apply`` — the LM's MoE layer — is a
+    dense MoE: every logical expert's SwiGLU on every token, weighted by its
+    routing weight (zero where the expert is not among the token's k), plus
+    the shared expert; no sort, no groups, no combine.  The experts are
+    ``forced``'s, call by call (another path's float32 sums may break a
+    near-tie the other way); the gaps of the tokens whose own top-k differs
+    go into the list the context yields."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def swapped():
+        real, calls, gaps = moe.moe_apply, iter(forced), []
+
+        def apply(p, x, *, experts_per_token, router_weights_norm=True):
+            B, S, D = x.shape
+            k = experts_per_token
+            xt = x.reshape(B * S, D)
+            probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+            top = probs.topk(k + 1, dim=-1)
+            topi = next(calls)
+            diff = (top.indices[:, :k].sort(-1).values
+                    != topi.sort(-1).values).any(-1)
+            gaps.extend((top.values[:, k - 1] - top.values[:, k])[diff]
+                        .tolist())
+            w = probs.gather(1, topi)
+            if router_weights_norm:
+                w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+            dense = torch.zeros_like(probs).scatter(1, topi, w)
+            wg, wu, wd = (p[n].unbind(0) for n in ("w_gate", "w_up",
+                                                  "w_down"))
+            y = torch.zeros((B * S, D), dtype=torch.float32, device=x.device)
+            for e in range(probs.shape[1]):
+                a = F.silu(xt @ wg[e]) * (xt @ wu[e])
+                y = y + dense[:, e:e + 1] * (a @ wd[e]).float()
+            if "shared" in p:
+                s = p["shared"]
+                y = y + ((F.silu(xt @ s["gate"]) * (xt @ s["up"]))
+                         @ s["down"]).float()
+            return y.reshape(B, S, D).to(x.dtype)
+
+        moe.moe_apply = apply
+        try:
+            yield gaps
+        finally:
+            moe.moe_apply = real
+    return swapped()
+
+
+def sequential_ssd():
+    """A context in which ``ssm.ssd_chunked`` — the Mamba2 layer's SSD — is
+    the plain recurrence, one position at a time: h_t = exp(dA_t) h_{t-1} +
+    x_t B_tᵀ, y_t = h_t C_t (the JAX package's naive test,
+    tests/test_models_smoke.py:160)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import ssm
+
+    def naive(x, dA, Bm, Cm, chunk, initial_state=None):
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+        ys = []
+        for t in range(S):
+            h = (h * torch.exp(dA[:, t].float())[..., None, None]
+                 + x[:, t].float()[..., None]
+                 * Bm[:, t].float()[:, None, None, :])
+            ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t].float()))
+        return torch.stack(ys, 1).to(x.dtype), h
+
+    @contextlib.contextmanager
+    def swapped():
+        real = ssm.ssd_chunked
+        ssm.ssd_chunked = naive
+        try:
+            yield
+        finally:
+            ssm.ssd_chunked = real
+    return swapped()
+
+
+def _moe_slots(model):
+    """The (block, sublayer) of each MoE layer of an LM in the order its
+    forward pass routes them."""
+    return [(b, j) for b in range(model.nblocks)
+            for j in range(model.period) if model.cfg.is_moe_layer(j)]
+
+
+def moe_ssm_training_phase(torch, dev, report):
+    """The MoE and SSM training paths: 4 AdamW steps of ``lm_train_step`` on
+    one 4,096-token sequence a step, mamba2 at full width and depth and
+    qwen2-moe at full width with 4 layers.  Checks: finite losses; every
+    weight matrix but the routed experts' moved by step 4; the routed
+    experts through their moments, since weight decay moves every slice
+    (``RoutingRecorder`` on every step): after step 1 a logical expert's
+    first-moment slice is non-zero exactly where it received a token in
+    step 1, after step 4 its second-moment slice exactly where it received
+    one in any step, and a padded expert's weights and moments stay zero;
+    qwen2's step-1 loss within TRAIN_LOSS_RTOL of the same forward through
+    the plain attention; qwen2's attention forward and backward launches
+    equal to its attention layers a step.  Then, on 2-layer float32 copies
+    at full width, the loss and every gradient leaf against the plain path
+    (TRAIN_GRAD_TOL of each leaf's largest, the loss within F32_LOSS_RTOL):
+    qwen2-moe's kernels and grouped experts against the plain attention and
+    ``dense_moe`` on the same 4,096 tokens, mamba2's chunked SSD against
+    ``sequential_ssd`` on the first SSM_GRAD_SEQ tokens."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import tree_flatten
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.synthetic import synthetic_token_stream
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+    )
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+
+    S, steps = MOESSM_TRAIN_SEQ, MOESSM_TRAIN_STEPS
+    print(f"moe/ssm training tolerances: qwen2 step-1 loss against the plain "
+          f"attention rtol {TRAIN_LOSS_RTOL}; 2-layer float32 loss rtol "
+          f"{F32_LOSS_RTOL}, gradients {TRAIN_GRAD_TOL} of each leaf's "
+          f"largest against the plain path")
+    runs, fwd_total, bwd_total, first_batch = {}, 0, 0, {}
+    for arch, layers in ((SSM_ARCH, None), (MOE_ARCH, MOE_TRAIN_LAYERS)):
+        cfg = ARCHS[arch]
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        is_moe = cfg.family == "moe"
+        n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+        print(f"moe/ssm training: {cfg.name} {cfg.num_layers} layers "
+              f"{_arch_line(cfg)}; 1 x {S} tokens a step, {steps} steps")
+        stream = synthetic_token_stream(1, S, cfg.vocab_size, seed=0)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    next(stream).items()} for _ in range(steps)]
+        first_batch[arch] = batches[0]
+        model = build(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        leaves = tree_flatten(params)[0]
+        names = [".".join(map(str, path)) for path in _tree_paths(params)]
+        plain = {}
+        if n_attn:
+            with (torch.no_grad(), plain_attention(),
+                  RoutingRecorder() as rr):
+                plain["loss"] = model.loss_fn(params, batches[0]).item()
+            plain["routes"] = [c[0] for c in rr.calls]
+            del rr
+            torch.cuda.empty_cache()
+        opt = adamw_init(params)
+        for p in leaves:
+            p.requires_grad_()
+        snap = [p.detach().to("cpu", copy=True) for p in leaves]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the tokens each expert received: (nblocks, E_pad) a sublayer, for
+        # step 1 and for all steps
+        slots = _moe_slots(model) if is_moe else []
+        E = cfg.num_experts
+        E_pad = (params["blocks"]["l0"]["moe"]["w_gate"].shape[1]
+                 if is_moe else 0)
+        recv = {j: torch.zeros((model.nblocks, E_pad), dtype=torch.bool,
+                               device=dev) for _, j in slots}
+        recv1, expert_check, step1_routes = None, {}, None
+        flash_attention.launches = 0
+        flash_attention_backward.launches = 0
+        losses, step_s, launches = [], [], []
+        for i, b in enumerate(batches):
+            f0, b0 = flash_attention.launches, flash_attention_backward.launches
+            t0 = time.perf_counter()
+            with (RoutingRecorder() if is_moe
+                  else contextlib.nullcontext()) as rr:
+                loss, params, opt = lm_train_step(model, params, opt, b,
+                                                  total_steps=steps)
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            launches.append([flash_attention.launches - f0,
+                             flash_attention_backward.launches - b0])
+            if not is_moe:
+                continue
+            check(len(rr.calls) == len(slots), f"{arch} step {i + 1} routed "
+                  f"{len(rr.calls)} layers, not {len(slots)}")
+            for (blk, j), (topi, _) in zip(slots, rr.calls):
+                got = torch.bincount(topi.reshape(-1), minlength=E_pad) > 0
+                recv[j][blk] |= got
+            if i == 0:
+                step1_routes = [c[0] for c in rr.calls]
+                recv1 = {j: r.clone() for j, r in recv.items()}
+                expert_check["step1_mu"] = _expert_moments(
+                    names, tree_flatten(opt.mu)[0], recv1, E)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fwd_total += flash_attention.launches
+        bwd_total += flash_attention_backward.launches
+        if is_moe:
+            expert_check["step4_nu"] = _expert_moments(
+                names, tree_flatten(opt.nu)[0], recv, E)
+            expert_check["experts_received_tokens"] = {
+                f"l{j}": r[:, :E].sum(1).tolist() for j, r in recv.items()}
+            expert_check["experts_received_tokens_step1"] = {
+                f"l{j}": r[:, :E].sum(1).tolist() for j, r in recv1.items()}
+            for what, res in expert_check.items():
+                if what.startswith("step"):
+                    check(res["mismatches"] == 0 and res["padded_nonzero"] == 0,
+                          f"{arch} training: the expert {what} slices do "
+                          f"not follow the routing: {res}")
+        unmoved, matrices, padded_nonzero, expert_moved = [], 0, [], {}
+        for nm, p, s0 in zip(names, leaves, snap):
+            now = p.detach().cpu()
+            if nm.endswith(("w_gate", "w_up", "w_down")):
+                moved = (now[:, :E] != s0[:, :E]).flatten(2).any(-1)
+                expert_moved[nm] = int(moved.sum())
+                if now[:, E:].any():
+                    padded_nonzero.append(nm)
+                continue
+            if p.ndim - (1 if nm.startswith("blocks.") else 0) >= 2:
+                matrices += 1
+                if torch.equal(now, s0):
+                    unmoved.append(nm)
+        check(all(np.isfinite(losses)), f"{arch} training losses {losses}")
+        check(not unmoved, f"{arch} training left {unmoved} unchanged")
+        check(not padded_nonzero, f"{arch} training moved the padded "
+              f"experts of {padded_nonzero}")
+        check(all(f == n_attn and bw == n_attn for f, bw in launches),
+              f"{arch} training attention launches a step {launches}, not "
+              f"{n_attn} forward and {n_attn} backward")
+        steady = sorted(step_s[1:])
+        med = steady[len(steady) // 2]
+        runs[arch] = {"layers": cfg.num_layers, "dtype": cfg.dtype,
+                      "params": sum(p.numel() for p in leaves),
+                      "batch": 1, "seq": S, "steps": steps,
+                      "losses": losses, "step_s": step_s,
+                      "step_s_median_steady": med, "tokens_per_s": S / med,
+                      "peak_gb": peak_gb,
+                      "attention_launches_per_step": launches,
+                      "matrices_moved": matrices - len(unmoved),
+                      "matrices": matrices}
+        if n_attn:
+            err = abs(losses[0] - plain["loss"]) / abs(plain["loss"])
+            flips = sum(int((a.sort(-1).values != b.sort(-1).values)
+                            .any(-1).sum())
+                        for a, b in zip(plain["routes"], step1_routes or []))
+            runs[arch].update(plain_attention_loss_step1=plain["loss"],
+                              loss_rel_err_step1=err,
+                              routing_flips_vs_plain_step1=flips)
+            check(err <= TRAIN_LOSS_RTOL, f"{arch} step 1 loss {losses[0]} "
+                  f"against the plain attention's {plain['loss']}")
+        if is_moe:
+            runs[arch].update(expert_slices_moved_by_step4=expert_moved,
+                              expert_moments=expert_check)
+        del params, opt, snap, leaves, model, loss, batches, plain
+        torch.cuda.empty_cache()
+
+    # the loss and every gradient leaf of 2-layer float32 copies against the
+    # plain path
+    grad_check = {}
+    for arch in (SSM_ARCH, MOE_ARCH):
+        cfg = dataclasses.replace(ARCHS[arch], num_layers=TRAIN_GRAD_LAYERS,
+                                  dtype="float32")
+        batch = first_batch[arch]
+        if arch == SSM_ARCH:
+            batch = {k: v[:, :SSM_GRAD_SEQ] for k, v in batch.items()}
+        model = build(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(1))
+        leaves = tree_flatten(params)[0]
+        names = [".".join(map(str, path)) for path in _tree_paths(params)]
+        for p in leaves:
+            p.requires_grad_()
+        before = flash_attention_backward.launches
+        with RoutingRecorder() as rr:
+            loss = model.loss_fn(params, batch)
+            loss.backward()
+        grad_launches = flash_attention_backward.launches - before
+        loss_k = loss.item()
+        got = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        gaps = []
+        if arch == SSM_ARCH:
+            ctx = sequential_ssd()
+        else:
+            ctx = contextlib.ExitStack()
+            ctx.enter_context(plain_attention())
+            gaps = ctx.enter_context(dense_moe([c[0] for c in rr.calls]))
+        with ctx:
+            loss = model.loss_fn(params, batch)
+            loss.backward()
+        loss_p = loss.item()
+        grad_err = {}
+        for nm, a, p in zip(names, got, leaves):
+            a, b = a.float(), p.grad.float()
+            grad_err[nm] = ((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30)).item()
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+        check(grad_launches == n_attn, f"the 2-layer {arch} backward "
+              f"launched the backward kernels {grad_launches} times, not "
+              f"{n_attn}")
+        check(all(g < MOE_FLIP_GAP for g in gaps), f"the 2-layer {arch}: "
+              f"the plain path's own routing differs at gaps {gaps}, not "
+              f"near-ties (< {MOE_FLIP_GAP})")
+        check(loss_err <= F32_LOSS_RTOL, f"the 2-layer float32 {arch} loss "
+              f"{loss_k} against the plain path's {loss_p}")
+        bad = {nm: e for nm, e in grad_err.items() if not e <= TRAIN_GRAD_TOL}
+        check(not bad, f"2-layer float32 {arch} gradients differ from the "
+              f"plain path's: {bad}")
+        grad_check[arch] = {
+            "layers": TRAIN_GRAD_LAYERS, "seq": batch["tokens"].shape[1],
+            "plain_path": ("sequential_ssd" if arch == SSM_ARCH
+                           else "plain attention + dense_moe"),
+            "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_err,
+            "tol": TRAIN_GRAD_TOL, "max_rel_err": max(grad_err.values()),
+            "worst_leaf": max(grad_err, key=grad_err.get),
+            "leaves": len(grad_err), "routing_near_ties_forced": len(gaps)}
+        del params, leaves, got, model, loss, a, b, p, rr
+        torch.cuda.empty_cache()
+    rec = {"runs": runs, "grad_check": grad_check,
+           "forward_launches": fwd_total, "backward_launches": bwd_total}
+    print("moe/ssm training " + json.dumps(rec))
+    report["moe_ssm_training"] = rec
+
+
+def _expert_moments(names, moments, received, E) -> dict:
+    """Each routed-expert leaf's moment slices (one an expert a block)
+    against the experts that received a token: a logical expert's slice
+    must be non-zero exactly where it did, a padded expert's zero."""
+    mismatches, padded, nonzero = 0, 0, 0
+    for nm, m in zip(names, moments):
+        if not nm.endswith(("w_gate", "w_up", "w_down")):
+            continue
+        j = nm.split(".")[1]
+        nz = m.detach().flatten(2).ne(0).any(-1)          # (nblocks, E_pad)
+        want = received[int(j[1:])]
+        mismatches += int((nz[:, :E] != want[:, :E]).sum())
+        padded += int(nz[:, E:].sum())
+        nonzero += int(nz[:, :E].sum())
+    return {"mismatches": mismatches, "padded_nonzero": padded,
+            "nonzero_slices": nonzero}
+
+
 def sanitized_phase(torch, store, report):
     """``debug_checks=True`` on the card, through the CUDA kernels: one
     dense sweep of the training corpus's first minibatch on the stream_1k
@@ -4468,6 +5398,18 @@ def main() -> int:
     lm_cli_phase(report)
     print(f"attention backward phase {t1 - t0:.1f} s, lm training phase "
           f"{t2 - t1:.1f} s, lm cli phase {time.perf_counter() - t2:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_serving_phase(torch, dev, report)
+    t1 = time.perf_counter()
+    moe_ep_phase(torch, report)
+    t2 = time.perf_counter()
+    ssm_serving_phase(torch, dev, report)
+    t3 = time.perf_counter()
+    moe_ssm_training_phase(torch, dev, report)
+    print(f"moe serving phase {t1 - t0:.1f} s, moe ep phase {t2 - t1:.1f} "
+          f"s, ssm serving phase {t3 - t2:.1f} s, moe/ssm training phase "
+          f"{time.perf_counter() - t3:.1f} s")
     analysis_phase(torch, report)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
 
@@ -4586,8 +5528,8 @@ def main() -> int:
         "library_ms": None,
     })
     # the granite prefill call (all calls are in the "attention kernel"
-    # lines); the error is the largest of every checked call; the serving
-    # and the training paths' launches
+    # lines); the error is the largest of every checked call; the dense and
+    # MoE serving and training paths' launches
     main = report["attention_main"]
     entries.append({
         "name": "flash_attention",
@@ -4595,7 +5537,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": (report["lm_serving"]["attention_launches"]
-                     + report["lm_training"]["forward_launches"]),
+                     + report["lm_training"]["forward_launches"]
+                     + sum(r["attention_launches"] for key in
+                           ("moe_serving", "moe_serving_qwen3")
+                           for r in report[key]["runs"])
+                     + report["moe_ssm_training"]["forward_launches"]),
         "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
                            for v in report["attention_lines"]),
         "ms": main["ms"],
@@ -4617,7 +5563,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "none: no TPU kernel (XLA differentiates "
                     "src/repro/models/layers.py:198)",
-        "launches": report["lm_training"]["backward_launches"],
+        "launches": (report["lm_training"]["backward_launches"]
+                     + report["moe_ssm_training"]["backward_launches"]),
         "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
                            for v in report["attention_backward_lines"]),
         "ms": main["ms"],

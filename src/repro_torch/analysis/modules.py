@@ -58,15 +58,23 @@ QUARANTINED_MODULES = frozenset({
     "repro_torch.configs.granite_8b",
     "repro_torch.configs.h2o_danube_3_4b",
     "repro_torch.configs.internlm2_20b",
+    "repro_torch.configs.mamba2_370m",
+    "repro_torch.configs.qwen2_moe_a2_7b",
+    "repro_torch.configs.qwen3_moe_235b_a22b",
     "repro_torch.configs.registry",
     # the attention kernel of the LM stack — not an LDA kernel
     # (ops.attention loads it at its first call; no launch contract)
     "repro_torch.kernels.flash_attention",
-    # the dense decoder LM (serving and training)
+    # the decoder LM (serving and training): dense, MoE and Mamba2 layers
     "repro_torch.models",
     "repro_torch.models.convert",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.models.moe",
+    "repro_torch.models.ssm",
+    # the LM's expert-parallel MoE over a mesh of ranks
+    "repro_torch.parallel",
+    "repro_torch.parallel.moe_ep",
     # the LM trainer's AdamW and schedules, loaded inside
     # launch.train.train_lm (the LDA trainers' step sizes are their own)
     "repro_torch.optim",

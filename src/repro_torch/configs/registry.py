@@ -2,11 +2,11 @@
 
 The port's copy of ``repro.configs.registry``: a lazy allowlist of
 (arch name → config module) pairs, importing a config module only when its
-config is requested.  It lists the dense decoder archs that the port's
-``models.LM`` serves (prefill and KV-cache decode) and trains
-(``loss_fn``); the MoE, SSM, hybrid,
-VLM and audio archs of the JAX package wait for their modules (ROADMAP.md,
-queue 1 item 10).
+config is requested.  It lists the archs that the port's ``models.LM``
+serves (prefill and cached decode) and trains (``loss_fn``): the dense
+decoders, the MoE decoders (qwen2-moe, qwen3-moe) and the attention-free
+Mamba2 SSM; the hybrid, VLM and audio archs of the JAX package wait for
+their modules (ROADMAP.md, queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -23,6 +23,9 @@ TEMPLATE_ARCHS: Dict[str, str] = {
     "granite-8b": "repro_torch.configs.granite_8b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
 }
 
 

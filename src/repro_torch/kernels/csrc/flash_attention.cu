@@ -103,7 +103,6 @@ constexpr int kThreads = 256;         // float32 path
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;               // keys a tile, float32 path
 constexpr int kBKT = 128;             // keys a tile, bf16 path
-constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -403,21 +402,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   constexpr size_t smem = smem_bytes<BQ, DP>();
   // the attributes are per function and device, set at its first launch
   // there (not again: a launch may be captured into a CUDA graph)
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = launch_log::optin_smem(
+      reinterpret_cast<const void*>(kernel), (long long)smem,
+      /*max_shared=*/true);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    configured[dev] = true;
-  }
   const long long rows = (long long)sq * group;
   const int ntiles = (int)((rows + BQ - 1) / BQ);
   const long long grid = (long long)bhkv * ntiles;
@@ -852,17 +840,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   constexpr size_t smem = bf16_smem_bytes<NWG, STAGES, DP>();
   // the attribute is per function and device, set at its first launch
   // there (not again: a launch may be captured into a CUDA graph)
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = launch_log::optin_smem(
+      reinterpret_cast<const void*>(kernel), (long long)smem);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured[dev] = true;
-  }
   constexpr int ROWS = NWG * 64;
   const long long rows = (long long)sq * group;
   const int ntiles = (int)((rows + ROWS - 1) / ROWS);

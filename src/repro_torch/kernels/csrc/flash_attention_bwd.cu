@@ -94,7 +94,6 @@ namespace {
 constexpr int kThreads = 256;         // float32 path
 constexpr int kB = 64;                // query rows and keys a tile, float32
 constexpr int kPS = kB + 4;           // row stride of the p / ds tiles
-constexpr int kMaxDevices = 64;
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores (and the delta pass of both types)
@@ -930,24 +929,6 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   }
 }
 
-// the dynamic shared memory attribute of `kernel`, once a device (not
-// again: a launch may be captured into a CUDA graph)
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, size_t smem,
-                      bool (&configured)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 // D = rowsum(dO ∘ o) of `rows` rows into delta; variant DP·10 + (T is bf16)
 template <typename T>
 cudaError_t launch_delta(const void* o, const void* dout, float* delta,
@@ -987,8 +968,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
   auto kdkdv = flash_attention_bwd_dkdv_kernel<T, DP>;
   constexpr size_t smem_kv = dkdv_smem_bytes<DP>();
-  static bool conf_kv[kMaxDevices] = {};
-  err = configure(kdkdv, smem_kv, conf_kv);
+  err = launch_log::optin_smem(reinterpret_cast<const void*>(kdkdv),
+                               (long long)smem_kv);
   if (err != cudaSuccess) return err;
   launch_log::record("flash_attention_bwd_dkdv_kernel", variant,
                      reinterpret_cast<const void*>(kdkdv), grid_dkdv,
@@ -1003,8 +984,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
   auto kdq = flash_attention_bwd_dq_kernel<T, DP>;
   constexpr size_t smem_q = dq_smem_bytes<DP>();
-  static bool conf_q[kMaxDevices] = {};
-  err = configure(kdq, smem_q, conf_q);
+  err = launch_log::optin_smem(reinterpret_cast<const void*>(kdq),
+                               (long long)smem_q);
   if (err != cudaSuccess) return err;
   launch_log::record("flash_attention_bwd_dq_kernel", variant,
                      reinterpret_cast<const void*>(kdq), grid_dq, kThreads,
@@ -1071,8 +1052,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
   auto kdkdv = flash_attention_bwd_dkdv_bf16_kernel<DP>;
   constexpr size_t smem_kv = dkdv_bf16_smem_bytes<DP>();
-  static bool conf_kv[kMaxDevices] = {};
-  err = configure(kdkdv, smem_kv, conf_kv);
+  err = launch_log::optin_smem(reinterpret_cast<const void*>(kdkdv),
+                               (long long)smem_kv);
   if (err != cudaSuccess) return err;
   launch_log::record("flash_attention_bwd_dkdv_bf16_kernel", variant,
                      reinterpret_cast<const void*>(kdkdv), grid_dkdv,
@@ -1088,8 +1069,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
   auto kdq = flash_attention_bwd_dq_bf16_kernel<DP>;
   constexpr size_t smem_q = dq_bf16_smem_bytes<DP>();
-  static bool conf_q[kMaxDevices] = {};
-  err = configure(kdq, smem_q, conf_q);
+  err = launch_log::optin_smem(reinterpret_cast<const void*>(kdq),
+                               (long long)smem_q);
   if (err != cudaSuccess) return err;
   const int qvec = d % 8 == 0 && qg % 16 == 0;
   launch_log::record("flash_attention_bwd_dq_bf16_kernel", variant,

@@ -440,9 +440,8 @@ int gs_sweep_launch(const void* word_ids, const void* counts,
       wide ? (vec ? &gs_loop_kernel<true, true> : &gs_loop_kernel<false, true>)
            : (vec ? &gs_loop_kernel<true, false>
                   : &gs_loop_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = launch_log::optin_smem(reinterpret_cast<const void*>(kernel),
+                               (long long)smem);
   if (err != cudaSuccess) return err;
   // a CTA a document group in the E-step phase
   err = active::launch_cooperative(kernel, p, p.groups, kCtasPerSm, kThreads,

@@ -70,6 +70,63 @@ inline void record(const char* kernel, int variant, const void* func,
                               seq};
 }
 
+// Dynamic shared memory opt-ins, per function and device. The limit
+// (cudaFuncAttributeMaxDynamicSharedMemorySize) belongs to the function, not
+// to a launch: host threads that launch one kernel at different sizes (the
+// threads of a replica pool, at different bucket lengths) would race if each
+// set its own, one lowering it between another's set and launch, which then
+// fails with cudaErrorLaunchOutOfResources. So a limit only rises, under a
+// lock, and once it is high enough no call is made (a launch may be captured
+// into a CUDA graph).
+constexpr int kMaxOptins = 256;
+
+struct Optin {
+  const void* func;
+  int dev;
+  long long bytes;  // the function's limit on `dev`
+};
+
+struct Optins {
+  std::mutex mu;
+  Optin o[kMaxOptins];
+  int n = 0;
+};
+
+Optins g_optins;
+
+// Let `func` launch with `smem` bytes of dynamic shared memory on the
+// current device. `max_shared` also asks for the largest shared memory
+// carveout, once a function and device.
+inline cudaError_t optin_smem(const void* func, long long smem,
+                              bool max_shared = false) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(g_optins.mu);
+  Optin* o = nullptr;
+  for (int i = 0; i < g_optins.n && o == nullptr; ++i)
+    if (g_optins.o[i].func == func && g_optins.o[i].dev == dev)
+      o = &g_optins.o[i];
+  if (o == nullptr) {
+    if (g_optins.n == kMaxOptins) return cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, func);
+    if (err == cudaSuccess && max_shared)
+      err = cudaFuncSetAttribute(func,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    o = &g_optins.o[g_optins.n++];
+    *o = Optin{func, dev, a.maxDynamicSharedSizeBytes};
+  }
+  if (smem <= o->bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(func, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  o->bytes = smem;
+  return cudaSuccess;
+}
+
 // The resources of `kernel`'s `variant` and its last launch: out[0..9] =
 // registers a thread, static shared memory, local bytes a thread, max
 // threads a CTA, the runtime's CTAs an SM at (threads, smem), the last
@@ -99,13 +156,9 @@ inline int query(const char* kernel, int variant, int threads,
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, func);
   if (err != cudaSuccess) return err;
-  if (smem > a.maxDynamicSharedSizeBytes) {
-    // the occupancy asked about may exceed what the last launch opted in to
-    err = cudaFuncSetAttribute(func,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  // the occupancy asked about may exceed what the last launch opted in to
+  err = optin_smem(func, smem);
+  if (err != cudaSuccess) return err;
   int occ = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, func, threads,
                                                       smem);

@@ -245,9 +245,9 @@ inline cudaError_t launch_loglik(const int* word_ids, const float* counts,
                                : &sweep_loglik_kernel<true, false>)
                      : (staged ? &sweep_loglik_kernel<false, true>
                                : &sweep_loglik_kernel<false, false>);
-  if (staged && smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (staged) {
+    err = launch_log::optin_smem(reinterpret_cast<const void*>(kernel),
+                                 (long long)smem);
     if (err != cudaSuccess) return err;
   }
   launch_log::record("sweep_loglik_kernel", (vec ? 0 : 1) | (staged ? 0 : 2),

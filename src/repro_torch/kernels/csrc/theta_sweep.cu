@@ -889,16 +889,6 @@ struct Launch {
   float alpha_m1, k_alpha;
 };
 
-template <typename K_>
-cudaError_t set_smem(K_ kernel, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
 // φ's element type as a variant number: 0 f32, 1 bf16, 2 int8
 template <typename T>
 constexpr int dtype_code() {
@@ -913,7 +903,9 @@ cudaError_t launch_regs(const Launch& a, cudaStream_t st) {
   if (a.slots < 2 * G || a.slots > kMaxSlots) return cudaErrorInvalidValue;
   if (a.word_topics == nullptr) {
     auto kernel = theta_sweep_dense<T, G, kVec>;
-    cudaError_t err = set_smem(kernel, a.smem);
+    // the ring's bytes differ with L: the opt-in only rises
+    cudaError_t err = launch_log::optin_smem(
+        reinterpret_cast<const void*>(kernel), a.smem, /*max_shared=*/true);
     if (err != cudaSuccess) return err;
     launch_log::record("theta_sweep_dense", variant,
                        reinterpret_cast<const void*>(kernel), a.D,
@@ -930,7 +922,9 @@ cudaError_t launch_regs(const Launch& a, cudaStream_t st) {
   } else {
     if (a.A > kStage) return cudaErrorInvalidValue;
     auto kernel = theta_sweep_sched<T, G, kVec>;
-    cudaError_t err = set_smem(kernel, a.smem);
+    // the ring's bytes differ with L: the opt-in only rises
+    cudaError_t err = launch_log::optin_smem(
+        reinterpret_cast<const void*>(kernel), a.smem, /*max_shared=*/true);
     if (err != cudaSuccess) return err;
     launch_log::record("theta_sweep_sched", variant,
                        reinterpret_cast<const void*>(kernel), a.D,
@@ -952,11 +946,9 @@ cudaError_t launch_regs(const Launch& a, cudaStream_t st) {
 template <typename T, bool kScheduled>
 cudaError_t launch_wide(const Launch& a, cudaStream_t st) {
   auto kernel = theta_sweep_wide<T, kScheduled>;
-  if (a.smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err =
+      launch_log::optin_smem(reinterpret_cast<const void*>(kernel), a.smem);
+  if (err != cudaSuccess) return err;
   launch_log::record("theta_sweep_wide",
                      2 * dtype_code<T>() + (kScheduled ? 1 : 0),
                      reinterpret_cast<const void*>(kernel), a.D,

@@ -13,8 +13,9 @@ coordinates ``(d, m)``:
   index (the document shards of one topic shard);
 * ``mesh.device`` — where this rank's tensors live.
 
-Every collective of the port is :meth:`MeshAxis.all_reduce`, a sum: the
-counterpart of ``lax.psum``.  :func:`spawn_mesh` starts a mesh of ranks on
+The port's collectives are :meth:`MeshAxis.all_reduce`, a sum — the
+counterpart of ``lax.psum`` — and :meth:`MeshAxis.all_to_all`, the tiled
+``lax.all_to_all`` of the expert-parallel MoE.  :func:`spawn_mesh` starts a mesh of ranks on
 this host and returns what each rank's function returned.
 """
 from __future__ import annotations
@@ -74,6 +75,34 @@ class MeshAxis:
             out.append(flat[lo:lo + t.numel()].reshape(t.shape))
             lo += t.numel()
         return tuple(out)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled all-to-all over this axis, ``lax.all_to_all(x, axis,
+        split_axis=0, concat_axis=0, tiled=True)``: x's leading axis is cut
+        into ``size`` equal blocks, block j goes to the rank at coordinate
+        j, and the blocks received come back in x's shape, concatenated in
+        the senders' order.  On an axis of size 1, x comes back as it is.
+
+        One ``all_to_all_single`` over the axis's group, on x's bytes (the
+        collective moves them and adds nothing, so any type travels
+        exactly).  On a gloo group a CUDA buffer goes through the host, as
+        in :meth:`all_reduce`.
+        """
+        if self.size == 1:
+            return x
+        if x.shape[0] % self.size:
+            raise ValueError(f"all_to_all over {self.size} ranks needs a "
+                             f"leading axis that they divide, got "
+                             f"{tuple(x.shape)}")
+        src = x.contiguous().reshape(-1).view(torch.uint8)
+        host = (src.device.type != "cpu"
+                and dist.get_backend(self.group) == "gloo")
+        send = src.cpu() if host else src
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        if host:
+            recv = recv.to(src.device)
+        return recv.view(x.dtype).view(x.shape)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,10 +37,10 @@ Run the CLI on a GPU host with
 ``PYTHONPATH=src python -m repro_torch.launch.serve --workdir DIR --topics K
 --vocab W [--make-store] [--traffic --qps Q [--pace] [--replicas N]]``.
 
-``--arch <lm-arch>`` (one of ``configs.registry.ARCHS``, the dense LMs)
-serves the arch's ``.reduced()`` config instead (``serve_lm``, the JAX
-package's): random weights, ``--batch`` all-ones prompts of 16 tokens, one
-prefill and ``--gen-tokens`` greedy KV-cache decode steps through
+``--arch <lm-arch>`` (one of ``configs.registry.ARCHS``: the dense, MoE
+and SSM LMs) serves the arch's ``.reduced()`` config instead (``serve_lm``,
+the JAX package's): random weights, ``--batch`` all-ones prompts of 16
+tokens, one prefill and ``--gen-tokens`` greedy cached decode steps through
 ``models.LM`` (``generate``), then one line with the tokens/s.  Add
 ``--device cpu`` to run either on the host's CPU.
 """
@@ -1092,22 +1092,30 @@ def serve_lda(args) -> None:
           f"device={server.device})")
 
 
+def place_prefill(cache, pre) -> None:
+    """A prefill's caches into decode caches, in place, at the origin of
+    every leaf: position p's keys and values into slot p, an SSM layer's
+    state and conv tail (of the decode cache's shape) whole."""
+    for j in cache:
+        for n, src in pre[j].items():
+            cache[j][n][tuple(slice(0, d) for d in src.shape)] = src
+
+
 def generate(model, params, batch: int, prompt_len: int,
              gen: int) -> Tuple[np.ndarray, float]:
     """Greedy generation, the body of the JAX package's ``serve_lm`` with
     injected parameters: ``batch`` all-ones prompts of ``prompt_len``
     tokens, one ``prefill``, its caches placed into ``init_cache(batch,
-    prompt_len + gen)`` at slot 0, then ``gen`` decode steps, each feeding
-    the last step's argmax.  Returns the (batch, gen + 1) int32 tokens
-    (the prefill's and every step's) and the decode loop's seconds."""
+    prompt_len + gen)`` by ``place_prefill``, then ``gen`` decode steps,
+    each feeding the last step's argmax.  Returns the (batch, gen + 1)
+    int32 tokens (the prefill's and every step's) and the decode loop's
+    seconds."""
     with torch.no_grad():
         tokens = torch.ones((batch, prompt_len), dtype=torch.int32,
                             device=model.device)
         logits, pre = model.prefill(params, {"tokens": tokens})
         cache = model.init_cache(batch, prompt_len + gen)
-        for j in cache:
-            for n in ("k", "v"):
-                cache[j][n][:, :, :, :pre[j][n].shape[3]] = pre[j][n]
+        place_prefill(cache, pre)
         del pre
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         out = [tok.cpu().numpy()]
@@ -1146,9 +1154,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         description="Serve LDA topic mixtures from a parameter store, or "
                     "generate with a reduced LM (--arch).")
     ap.add_argument("--arch", default=LDA_ARCH,
-                    help=f"{LDA_ARCH} (default) or a dense LM arch "
-                         "(granite-8b, granite-20b, internlm2-20b, "
-                         "h2o-danube-3-4b), served at its reduced config")
+                    help=f"{LDA_ARCH} (default) or an LM arch (granite-8b, "
+                         "granite-20b, internlm2-20b, h2o-danube-3-4b, "
+                         "qwen2-moe-a2.7b, qwen3-moe-235b-a22b, "
+                         "mamba2-370m), served at its reduced config")
     ap.add_argument("--workdir", default="build/repro_torch_train",
                     help="parameter store directory (the train CLI's "
                          "default)")

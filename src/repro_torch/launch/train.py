@@ -2,9 +2,9 @@
 
 * ``--arch foem-lda`` (the default) — the paper's system: streaming FOEM
   (or SEM) with the disk-backed ParameterStore.
-* ``--arch <lm-arch>`` (a dense LM of ``configs.registry.ARCHS``) — the
-  arch's ``.reduced()`` config trained on synthetic token streams
-  (``train_lm``): AdamW, a cosine schedule with warmup, checkpoints every
+* ``--arch <lm-arch>`` (an LM of ``configs.registry.ARCHS``: dense, MoE
+  or SSM) — the arch's ``.reduced()`` config trained on synthetic token
+  streams (``train_lm``): AdamW, a cosine schedule with warmup, checkpoints every
   ``--ckpt-every`` steps and ``--resume`` from the latest one.
 
 In LDA mode it trains on a synthetic LDA corpus
@@ -187,9 +187,10 @@ def main(argv: Optional[Sequence[str]] = None):
     the logged losses."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=LDA_ARCH,
-                    help=f"{LDA_ARCH} (default) or a dense LM arch "
-                         "(granite-8b, granite-20b, internlm2-20b, "
-                         "h2o-danube-3-4b), trained at its reduced config")
+                    help=f"{LDA_ARCH} (default) or an LM arch (granite-8b, "
+                         "granite-20b, internlm2-20b, h2o-danube-3-4b, "
+                         "qwen2-moe-a2.7b, qwen3-moe-235b-a22b, "
+                         "mamba2-370m), trained at its reduced config")
     ap.add_argument("--workdir", default="build/repro_torch_train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)

@@ -1,31 +1,43 @@
-"""The dense decoder LM (PyTorch port of ``repro.models.lm``).
+"""The decoder LM (PyTorch port of ``repro.models.lm``).
 
 One model class driven by ``ArchConfig``, like the JAX package's ``LM``,
-for the dense family: GQA / MQA / sliding-window attention (granite,
-internlm2, h2o-danube).  The layers are grouped into super-blocks of
-``period`` layers (1 for the dense family); their parameters are stacked
-on a leading ``nblocks`` axis under ``blocks/l{j}/…`` as in the JAX
-package's pytree, and a Python loop over the super-blocks takes the place
-of ``lax.scan``.
+for the dense, MoE and SSM families:
+
+* dense / GQA / MQA / sliding-window attention   (granite, internlm2, danube)
+* MoE FFN (top-k routed + shared experts)        (qwen2-moe, qwen3-moe)
+* Mamba2 SSD layers, no attention and no FFN     (mamba2)
+
+The layers are grouped into super-blocks of ``period`` = lcm of the layer
+patterns' periods (1 for these families); each super-block's sublayer j is
+an attention or a Mamba2 layer, then an MoE or an MLP FFN (none in a pure
+SSM block), as ``is_attn_layer`` / ``is_moe_layer`` say.  The parameters
+are stacked on a leading ``nblocks`` axis under ``blocks/l{j}/…`` as in the
+JAX package's pytree, and a Python loop over the super-blocks takes the
+place of ``lax.scan``.
 
 The JAX package's three entry points:
 
 * ``loss_fn``      — next-token cross-entropy for training, differentiable
                      by ``torch.autograd`` (``backward()``)
 * ``prefill``      — full forward over a prompt returning logits + caches
-* ``decode_step``  — one token against the KV caches
+* ``decode_step``  — one token against the K/V and SSM caches
 
 Every attention layer goes through ``layers.attention_apply`` →
 ``ops.attention`` → the hand-written flash-attention kernel on the card;
-under autograd its gradient is the hand-written backward kernel.  The MoE,
-SSM, hybrid, VLM and audio families belong to later slices (ROADMAP.md,
-queue 1 item 10): their configs raise ``NotImplementedError``.  The JAX
-package's pjit levers (mesh, ``moe_impl``, ``remat``, ``scan_barrier``,
-``seq_parallel``) mean nothing here: ``ArchConfig`` keeps them and ``LM``
-ignores them.
+under autograd its gradient is the hand-written backward kernel.  The MoE
+FFN (``models.moe``) and the SSD (``models.ssm``) have no TPU kernel in the
+JAX package and are plain PyTorch here.  Given a mesh and ``moe_impl ==
+"ep"``, prefill and training route the MoE layers through the
+expert-parallel form (``parallel.moe_ep``); decode always takes the TP
+form, as the JAX package does.  The hybrid, VLM and audio families belong
+to later slices (ROADMAP.md, queue 1 item 10): their configs raise
+``NotImplementedError``.  The other pjit levers (``remat``,
+``scan_barrier``, ``seq_parallel``) mean nothing here: ``ArchConfig`` keeps
+them and ``LM`` ignores them.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -34,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.runtime.device import Device, resolve_device
 
 Tree = Dict[str, Any]
@@ -41,9 +55,7 @@ Tree = Dict[str, Any]
 #: What each family that this slice does not run is waiting for
 #: (ROADMAP.md, queue 1 item 10).
 _NOT_PORTED = {
-    "moe": "the MoE FFN (models/moe.py, parallel/moe_ep.py)",
-    "ssm": "the Mamba2 SSD layers (models/ssm.py)",
-    "hybrid": "the Mamba2 SSD layers (models/ssm.py) and the MoE FFN",
+    "hybrid": "the attention::mamba interleave of the hybrid family",
     "vlm": "VLM cross-attention",
     "audio": "the audio frontend",
 }
@@ -62,50 +74,90 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family == "dense" and not (
-            cfg.num_experts or cfg.ssm_state or cfg.attn_every
-            or cfg.cross_attn_every or cfg.frontend != "none"
-            or cfg.d_ff <= 0):
+def _lcm(*xs: int) -> int:
+    out = 1
+    for x in xs:
+        if x:
+            out = out * x // math.gcd(out, x)
+    return out
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    """Admit the dense, MoE and SSM families in the layer patterns that
+    their configs have; raise ``NotImplementedError`` for the rest."""
+    plain = not (cfg.attn_every or cfg.cross_attn_every
+                 or cfg.frontend != "none")
+    ok = plain and {
+        "dense": not (cfg.num_experts or cfg.ssm_state) and cfg.d_ff > 0,
+        "moe": cfg.num_experts > 0 and not cfg.ssm_state and cfg.d_ff > 0,
+        "ssm": cfg.ssm_state > 0 and not cfg.num_experts,
+    }.get(cfg.family, False)
+    if ok:
         return
-    part = ("a non-dense layer pattern" if cfg.family == "dense" else
+    part = (f"a {cfg.family} config with another layer pattern"
+            if cfg.family in ("dense", "moe", "ssm") else
             _NOT_PORTED.get(cfg.family, f"the {cfg.family!r} family"))
     raise NotImplementedError(
-        f"{cfg.name}: the port runs the dense decoder family only; {part} "
-        f"is still to port (ROADMAP.md, queue 1 item 10)")
+        f"{cfg.name}: the port runs the dense, MoE and SSM decoder "
+        f"families; {part} is still to port (ROADMAP.md, queue 1 item 10)")
 
 
 class LM(nn.Module):
-    """The dense decoder LM.
+    """The decoder LM.
 
     An ``nn.Module`` for its place in PyTorch code (``device``, ``dtype``),
     but, like the JAX package's ``LM``, it holds no weights: every method
     takes the parameter tree (``init_params`` or ``convert.params_from_jax``)
     and the caches explicitly.  It runs on ``device`` — the card unless the
     caller passes ``device="cpu"`` — and raises on a host without a GPU
-    otherwise.
+    otherwise.  ``mesh`` (a ``launch.mesh.Mesh``, this rank's view) is the
+    distribution context of the expert-parallel MoE only: with it and
+    ``cfg.moe_impl == "ep"`` every rank runs the whole model on the global
+    batch and the MoE layers of prefill and training exchange tokens over
+    the mesh's model axis.
     """
 
-    def __init__(self, cfg: ArchConfig, device: Device = "cuda"):
+    def __init__(self, cfg: ArchConfig, device: Device = "cuda", mesh=None):
         super().__init__()
-        _check_dense(cfg)
+        _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.period = 1                 # a dense super-block is one layer
-        self.nblocks = cfg.num_layers
+        self.mesh = mesh
+        self.period = _lcm(cfg.attn_every or 1,
+                           cfg.moe_every if cfg.num_experts else 1,
+                           cfg.cross_attn_every or 1)
+        if cfg.num_layers % self.period:
+            raise ValueError(
+                f"{cfg.name}: num_layers {cfg.num_layers} not divisible by "
+                f"super-block period {self.period}")
+        self.nblocks = cfg.num_layers // self.period
         self.dtype = torch_dtype(cfg.dtype)
 
     # ------------------------------------------------------------------ init
 
-    def _init_sublayer(self, generator: torch.Generator) -> Tree:
+    def _init_sublayer(self, generator: torch.Generator, j: int) -> Tree:
+        """Sublayer j's leaves, exactly the JAX package's: ``norm1``, then
+        ``attn`` or ``mamba``; ``norm2`` and ``moe`` or ``mlp`` — no
+        ``norm2`` in a pure-SSM block (no FFN at all)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        return {
-            "norm1": L.rmsnorm_init(cfg.d_model, dt, dev),
-            "norm2": L.rmsnorm_init(cfg.d_model, dt, dev),
-            "attn": L.attention_init(generator, cfg.d_model, cfg.num_heads,
-                                     cfg.num_kv_heads, cfg.hd, dt),
-            "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, dt),
-        }
+        p: Tree = {"norm1": L.rmsnorm_init(cfg.d_model, dt, dev)}
+        if cfg.is_attn_layer(j):
+            p["attn"] = L.attention_init(generator, cfg.d_model,
+                                         cfg.num_heads, cfg.num_kv_heads,
+                                         cfg.hd, dt)
+        else:
+            p["mamba"] = ssm_lib.mamba_init(
+                generator, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                cfg.ssm_expand, cfg.ssm_conv, dt)
+        if cfg.is_moe_layer(j):
+            p["norm2"] = L.rmsnorm_init(cfg.d_model, dt, dev)
+            p["moe"] = moe_lib.moe_init(
+                generator, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                cfg.num_shared_experts, cfg.shared_expert_ff, dt)
+        elif cfg.d_ff > 0:
+            p["norm2"] = L.rmsnorm_init(cfg.d_model, dt, dev)
+            p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, dt)
+        return p
 
     def init_params(self, generator: torch.Generator) -> Tree:
         """Random weights from ``generator`` (a ``torch.Generator`` on this
@@ -122,7 +174,7 @@ class LM(nn.Module):
         }
         blocks: Optional[Tree] = None
         for b in range(self.nblocks):
-            blk = {f"l{j}": self._init_sublayer(generator)
+            blk = {f"l{j}": self._init_sublayer(generator, j)
                    for j in range(self.period)}
             if blocks is None:
                 blocks = tree_map(
@@ -140,20 +192,32 @@ class LM(nn.Module):
     # ----------------------------------------------------------------- cache
 
     def init_cache(self, batch: int, max_seq: int) -> Tree:
-        """Per-block decode caches, stacked on the block axis:
-        ``{"l{j}": {"k", "v"}}`` of (nblocks, batch, KV, kv_len, hd), zeros.
+        """Per-block decode caches, stacked on the block axis, zeros: an
+        attention layer's ``{"k", "v"}`` of (nblocks, batch, KV, kv_len,
+        hd), a Mamba2 layer's ``{"state"}`` (nblocks, batch, H, P, N)
+        float32 and ``{"conv"}`` (nblocks, batch, k − 1, conv_dim).
 
         Sliding-window layers get a RING buffer of ``window`` slots instead
         of ``max_seq`` (slot = position mod window)."""
-        cfg = self.cfg
+        cfg, nb = self.cfg, self.nblocks
         kv_len = max_seq
         if cfg.sliding_window > 0:
             kv_len = min(max_seq, cfg.sliding_window)
-        shape = (self.nblocks, batch, cfg.num_kv_heads, kv_len, cfg.hd)
-        return {f"l{j}": {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-        } for j in range(self.period)}
+        out: Tree = {}
+        for j in range(self.period):
+            if cfg.is_attn_layer(j):
+                shape = (nb, batch, cfg.num_kv_heads, kv_len, cfg.hd)
+                out[f"l{j}"] = {
+                    n: torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device) for n in ("k", "v")}
+            else:
+                one = ssm_lib.mamba_cache_init(
+                    batch, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                    cfg.ssm_expand, cfg.ssm_conv, self.dtype,
+                    device=self.device)
+                out[f"l{j}"] = {n: t.expand((nb,) + t.shape).contiguous()
+                                for n, t in one.items()}
+        return out
 
     # --------------------------------------------------------------- forward
 
@@ -166,22 +230,52 @@ class LM(nn.Module):
         for j in range(self.period):
             lp = bp[f"l{j}"]
             h = L.rmsnorm(x, lp["norm1"])
-            kvc = None
-            if decode:
-                kvc = (bcache[f"l{j}"]["k"], bcache[f"l{j}"]["v"])
-            o, newkv = L.attention_apply(
-                lp["attn"], h, None,
-                num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads, hd=cfg.hd,
-                causal=True, window=cfg.sliding_window,
-                positions=positions,
-                rope_theta=cfg.rope_theta if cfg.use_rope else 0.0,
-                kv_cache=kvc, cache_pos=pos if decode else None,
-            )
-            x = x + o
-            if mode != "train":
-                newc[f"l{j}"] = {"k": newkv[0], "v": newkv[1]}
-            h = L.rmsnorm(x, lp["norm2"])
-            x = x + L.mlp_apply(lp["mlp"], h)
+            if cfg.is_attn_layer(j):
+                kvc = None
+                if decode:
+                    kvc = (bcache[f"l{j}"]["k"], bcache[f"l{j}"]["v"])
+                o, newkv = L.attention_apply(
+                    lp["attn"], h, None,
+                    num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+                    hd=cfg.hd, causal=True, window=cfg.sliding_window,
+                    positions=positions,
+                    rope_theta=cfg.rope_theta if cfg.use_rope else 0.0,
+                    kv_cache=kvc, cache_pos=pos if decode else None,
+                )
+                x = x + o
+                if mode != "train":
+                    newc[f"l{j}"] = {"k": newkv[0], "v": newkv[1]}
+            else:
+                o, newssm = ssm_lib.mamba_apply(
+                    lp["mamba"], h,
+                    d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                    expand=cfg.ssm_expand, chunk=cfg.ssm_chunk,
+                    cache=bcache[f"l{j}"] if decode else None, decode=decode,
+                )
+                x = x + o
+                if decode:              # the caches are written in place
+                    for n, t in newssm.items():
+                        bcache[f"l{j}"][n].copy_(t)
+                if mode != "train":
+                    newc[f"l{j}"] = newssm
+            if cfg.is_moe_layer(j):
+                h = L.rmsnorm(x, lp["norm2"])
+                if (cfg.moe_impl == "ep" and self.mesh is not None
+                        and not decode):
+                    from repro_torch.parallel.moe_ep import moe_apply_ep
+
+                    x = x + moe_apply_ep(
+                        lp["moe"], h,
+                        experts_per_token=cfg.experts_per_token,
+                        mesh=self.mesh,
+                        capacity_factor=cfg.moe_capacity_factor)
+                else:
+                    x = x + moe_lib.moe_apply(
+                        lp["moe"], h,
+                        experts_per_token=cfg.experts_per_token)
+            elif cfg.d_ff > 0:
+                h = L.rmsnorm(x, lp["norm2"])
+                x = x + L.mlp_apply(lp["mlp"], h)
         return x, newc
 
     def backbone(self, params: Tree, x: torch.Tensor, *,
@@ -191,8 +285,9 @@ class LM(nn.Module):
 
         ``mode="train"`` keeps no caches and returns ``(hidden, None)``;
         ``mode="prefill"`` makes new stacked caches of the prompt's keys and
-        values; ``mode="decode"`` writes the step's keys and values into
-        ``caches`` in place and returns them."""
+        values and the SSM layers' final states and conv tails;
+        ``mode="decode"`` writes the step's keys and values, and the new SSM
+        states and tails, into ``caches`` in place and returns them."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode must be train, prefill or decode, not "
                              f"{mode!r}")
@@ -283,7 +378,8 @@ class LM(nn.Module):
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor]):
         """Forward over a full prompt ``batch["tokens"]`` (B, S); returns
-        (logits (B, S, vocab), caches of (nblocks, B, KV, S, hd))."""
+        (logits (B, S, vocab), caches: K/V of (nblocks, B, KV, S, hd), SSM
+        states and conv tails as ``init_cache`` shapes them)."""
         x = self.embed_inputs(params, batch)
         S = x.shape[1]
         hidden, caches = self.backbone(
@@ -306,5 +402,5 @@ class LM(nn.Module):
         return self.logits(params, hidden), caches
 
 
-def build(cfg: ArchConfig, device: Device = "cuda") -> LM:
-    return LM(cfg, device=device)
+def build(cfg: ArchConfig, device: Device = "cuda", mesh=None) -> LM:
+    return LM(cfg, device=device, mesh=mesh)

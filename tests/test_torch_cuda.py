@@ -10,6 +10,9 @@ Shapes are odd on purpose: K not a multiple of the 1024-thread CTA, zero
 count columns, A above the warp width, and K = 50,000 (``bigmodel``), where
 the per-document state leaves shared memory for the global scratch.
 Tolerances are chip_smoke.py's: float32 sums over K taken in another order.
+Host threads that launch the register path at different lengths at once (a
+thread-backend replica pool) all launch, each with the bits of its launch
+made alone.
 
 The training sweeps (``gs_sweep``, ``scheduled_sweep``) are held against
 their plain versions at odd K, A = 1 and A = K, with duplicate words in a
@@ -288,6 +291,39 @@ def test_register_paths_match_plain(cuda, phi_dtype, K, code):
     path = sweep_path(K, 0, 40, q.element_size(), q.data_ptr())
     assert (path.kind, path.code) == ("registers", code)
     _theta_call(wid, est, ev, theta, q, None, scale)
+
+
+def test_threads_at_different_lengths_launch_together(cuda):
+    """Host threads launch the register path at different bucket lengths at
+    once, as a thread-backend replica pool does: the ring's shared memory
+    differs with L, and no thread's launch may find the kernel's opt-in
+    lowered by another's (too many resources requested for launch); every
+    launch gives the bits of the same launch made alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    D, K, rounds = 8, 1000, 200
+    lengths = (16, 64, 160, 256)
+    runs = []
+    for L in lengths:
+        wid, est, ev, theta, phi, _ = _inputs(D, L, K, 50, 0, cuda, seed=L)
+        args = (wid, est, ev, theta, phi)
+        want = theta_sweep(*args, alpha_m1=0.01, num_sweeps=2)
+        runs.append((args, want))
+    smem = {sweep_path(K, 0, L, 4, runs[0][0][4].data_ptr()).smem
+            for L in lengths}
+    assert len(smem) == len(lengths)
+    torch.cuda.synchronize()
+
+    def hammer(run):
+        args, want = run
+        got = [theta_sweep(*args, alpha_m1=0.01, num_sweeps=2)
+               for _ in range(rounds)]
+        torch.cuda.synchronize()
+        return all(torch.equal(x, y) for g in got for x, y in zip(g, want))
+
+    with ThreadPoolExecutor(len(lengths)) as pool:
+        same = list(pool.map(hammer, runs))
+    assert same == [True] * len(lengths)
 
 
 @pytest.mark.parametrize("phi_dtype", ["float32", "int8"])

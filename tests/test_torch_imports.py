@@ -115,18 +115,22 @@ def test_blocked_slice_modules_stand_alone(name, kernel):
     "repro_torch.models.lm",
     "repro_torch.models.convert",
     "repro_torch.configs.registry",
+    "repro_torch.models.moe",
+    "repro_torch.models.ssm",
+    "repro_torch.parallel.moe_ep",
 ])
 def test_lm_slice_modules_stand_alone(name):
-    """The LM serving slice's modules import without JAX, the registry's
-    config modules too, and the attention kernel's CUDA source is one of
-    the build's."""
+    """The LM slices' modules import without JAX, the registry's config
+    modules too (the dense, MoE and SSM archs), and the attention kernel's
+    CUDA source is one of the build's."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         f"import importlib; importlib.import_module({name!r})\n"
         "from repro_torch.configs.registry import ARCHS\n"
-        "assert all(ARCHS[n].family == 'dense' for n in ARCHS)\n"
+        "assert {ARCHS[n].family for n in ARCHS} == {'dense', 'moe', "
+        "'ssm'}\n"
         "from repro_torch.kernels import build\n"
         "assert 'flash_attention' in build.KERNELS\n"
         "assert (build.CSRC / 'flash_attention.cu').exists()\n"

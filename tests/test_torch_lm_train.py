@@ -31,6 +31,19 @@ across by ``convert.params_from_jax``; the tokens come from numpy seeds.
   losses within ``BF16_LOSS_RTOL`` of the JAX loop's.
 * The train CLI in LM mode: 12 steps with checkpoints, a resume from step
   10, and the LM example.
+
+The MoE and SSM archs (``MOE_SSM``: qwen2-moe, qwen3-moe, mamba2 reduced,
+float32) are held the same way: ``loss_fn`` and every gradient leaf —
+the padded experts' (zero), the float32 router's, ``A_log``, ``D`` and
+``dt_bias`` — at S = 64 and 1,024 within ``RTOL``/``ATOL``, with no NaN
+through the SSD's masked segment sums; five ``lm_train_step``s against the
+jitted JAX step; ``generate``'s greedy tokens against the JAX ``serve_lm``
+body; and the two CLIs (``serve --arch qwen2-moe-a2.7b``, ``train --arch
+mamba2-370m``).  A float32 routing near-tie (gap under ``NEAR_TIE``) may
+pick another expert in the other package and move that token's loss by
+O(1) (~1e-4 of the mean at S = 1,024): the MoE cases record the port's
+routing gaps, report the near-tie tokens and assert that they stay rare,
+at most one routing decision in ``RARE`` = 500.
 """
 import dataclasses
 
@@ -51,7 +64,7 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.data.synthetic import synthetic_token_stream
 from repro_torch.kernels.flash_attention import flash_attention_backward
 from repro_torch.launch import serve, train
-from repro_torch.models import build, layers, params_from_jax
+from repro_torch.models import build, layers, moe, params_from_jax
 from repro_torch.models.lm import tree_map
 from repro_torch.optim import adamw_init
 
@@ -61,6 +74,26 @@ RTOL, ATOL = 1e-4, 1e-6
 # per-token terms, well under 1e-2 relative
 BF16_LOSS_RTOL = 1e-2
 DENSE = ["granite-8b", "granite-20b", "internlm2-20b", "h2o-danube-3-4b"]
+MOE_SSM = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "mamba2-370m"]
+NEAR_TIE, RARE = 1e-6, 500  # float32 routing gaps that may flip
+
+
+@pytest.fixture
+def route_gaps(monkeypatch):
+    """The per-token routing gaps of every ``moe.route`` call in the
+    port."""
+    gaps = []
+    real = moe.route
+
+    def recording(router, xt, k, norm=True):
+        with torch.no_grad():
+            top = torch.softmax(xt.float() @ router, dim=-1).topk(
+                k + 1, dim=-1).values
+        gaps.append((top[:, k - 1] - top[:, k]).numpy())
+        return real(router, xt, k, norm)
+
+    monkeypatch.setattr(moe, "route", recording)
+    return gaps
 
 
 def _pair(name, seed, **changes):
@@ -103,6 +136,22 @@ def test_token_stream_bitwise_the_jax_one(batch, seq, vocab, seed):
 @pytest.mark.parametrize("S", [64, 1024])
 @pytest.mark.parametrize("name", DENSE)
 def test_loss_and_gradients_match_jax(name, S):
+    _loss_and_gradients_match_jax(name, S)
+
+
+@pytest.mark.parametrize("S", [64, 1024])
+@pytest.mark.parametrize("name", MOE_SSM)
+def test_moe_ssm_loss_and_gradients_match_jax(name, S, route_gaps):
+    _loss_and_gradients_match_jax(name, S)
+    if route_gaps:
+        gaps = np.concatenate(route_gaps)
+        ties = np.flatnonzero(gaps < NEAR_TIE)
+        print(f"near-tie routing decisions: {ties.size} of {gaps.size}, "
+              f"gaps {gaps[ties]}")
+        assert ties.size <= max(1, gaps.size // RARE)
+
+
+def _loss_and_gradients_match_jax(name, S):
     mj, pj, mt, pt = _pair(name, 1)
     batch = _batch(mt.cfg, 2, S, 2)
     lj, gj = jax.value_and_grad(mj.loss_fn)(
@@ -118,6 +167,7 @@ def test_loss_and_gradients_match_jax(name, S):
         for key in path:
             t = t[key.key]
         assert t.grad is not None, path
+        assert torch.isfinite(t.grad).all(), path
         np.testing.assert_allclose(t.grad.numpy(), _np(g), rtol=RTOL,
                                    atol=ATOL, err_msg=str(path))
 
@@ -141,7 +191,8 @@ def test_backbone_train_mode_keeps_no_cache_and_chunks_need_whole_seq():
         mt.loss_fn(pt, {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
-@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b",
+                                  "qwen2-moe-a2.7b", "mamba2-370m"])
 def test_train_steps_match_the_jax_loop(name):
     """Five steps of the port's ``lm_train_step`` against the JAX
     ``train_lm`` step (value_and_grad, cosine_warmup(opt.count, 1e-3, 20,
@@ -240,9 +291,11 @@ def _jax_serve_lm_body(model, params, B, prompt_len, gen):
     return np.concatenate(out, 1)
 
 
-@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("name", ["granite-8b", "h2o-danube-3-4b"]
+                         + MOE_SSM)
 def test_generate_matches_the_jax_serve_lm(name):
-    """Danube's 32-key ring wraps: 16 prompt tokens and 24 decode steps."""
+    """Danube's 32-key ring wraps: 16 prompt tokens and 24 decode steps;
+    mamba2's state and conv tail are placed whole."""
     mj, pj, mt, pt = _pair(name, 6)
     B, prompt_len, gen = 3, 16, 24
     got, seconds = serve.generate(mt, pt, B, prompt_len, gen)
@@ -354,6 +407,21 @@ def test_lm_serve_cli(capsys):
     assert out is None
     line = capsys.readouterr().out
     assert "granite-8b: generated 4×2 tokens" in line and "tok/s" in line
+
+
+def test_moe_serve_cli(capsys):
+    serve.main(["--arch", "qwen2-moe-a2.7b", "--gen-tokens", "4",
+                "--batch", "2", "--device", "cpu"])
+    line = capsys.readouterr().out
+    assert "qwen2-moe-a2.7b: generated 4×2 tokens" in line
+
+
+def test_ssm_train_cli(tmp_path):
+    losses = train.main(["--arch", "mamba2-370m", "--workdir",
+                         str(tmp_path / "m"), "--steps", "6",
+                         "--ckpt-every", "3", "--minibatch", "4",
+                         "--seq-len", "32", "--device", "cpu"])
+    assert len(losses) == 6 and np.all(np.isfinite(losses))
 
 
 def test_lm_example_runs(tmp_path):

@@ -136,7 +136,11 @@ order:
    window 4,096, S = 6,144) and its ring-ordered decode call (which must
    equal the absolute-position call bitwise), ragged Sq/Sk and MQA at small
    size, and the prefill_32k length (B = 1, S = 32,768; its last 128 rows
-   checked); each with its bound, its share of the bound and the time of
+   checked), the VLM's cross-attention (8 × 32 heads over 8 × 8,
+   non-causal, 2,048 queries and one decode query over 1,601 image keys),
+   musicgen (8 × 24 over 8 × 24, d = 64: prefill and decode) and jamba's
+   attention layer (2 × 64 over 2 × 8, prefill); each with its bound, its
+   share of the bound and the time of
    one ``scaled_dot_product_attention`` call on the same inputs (a
    yardstick the port never calls); after the build it counts the
    tensor-core instructions (HGMMA, HMMA) in the SASS of the attention
@@ -154,7 +158,9 @@ order:
    TPU counterpart) against ``torch.autograd`` of the plain attention at
    the training shapes — danube-3-4b (B = 1, 32 heads over 8,
    S = 4,096, d = 120, window 4,096, bf16), granite (32 over 8, S = 2,048,
-   d = 128, causal, bf16 and float32), a 512-key window — each with its
+   d = 128, causal, bf16 and float32), a 512-key window, qwen2-moe's
+   and musicgen's calls (G = 1; d 128, d 64) and the VLM's non-causal
+   cross-attention (4,096 queries over 1,601 image keys) — each with its
    ms beside the replaced CUDA-core design's (``BWD_PRIOR_MS``), its path,
    launches, bound, the plain version's ms, the backward of one
    ``scaled_dot_product_attention`` (a yardstick the port never calls) and
@@ -205,7 +211,31 @@ order:
    tokens/s, peak GB, every matrix moved, any expert slice that did not
    reported, the padded experts still zero, 4 + 4 attention launches a
    qwen2 step);
-17. the analysis layer: from the build on, every launch the wrappers make
+17. drives the VLM, audio and hybrid paths (their attention layers through
+   the two attention kernels): llama-3.2-vision-11b at full width and
+   depth (40 layers, 8 of them cross-attending to 1,601 seeded image
+   embeddings a prompt; bf16, 10.11 B parameters) prefills 8 prompts of
+   2,048 tokens and takes 32 greedy decode steps (``vlm serving`` line: as
+   the MoE lines, 48 attention launches a call, and the cross layers' K/V
+   recompute a decode step timed alone beside the step's busy time); its
+   float32 copy on one super-block (5 layers) continues one prefill (``vlm
+   continuity``); musicgen-medium whole (48 layers, MHA 24 × 64; bf16)
+   prefills 8 × 2,048 seeded frame embeddings and decodes 32 steps fed
+   seeded frames (``audio serving``), its float32 copy continuing one
+   prefill (``audio continuity``); jamba-1.5-large-398b on one super-block
+   of 8 layers at its attention and SSM widths, 16 experts top-2, d_ff cut
+   from 24,576 to 12,288 (24.59 B parameters; the cut printed on the
+   line), 2 × 2,048 and 8 decode steps writing K/V and SSM state in one
+   block's caches (``hybrid serving``), a float32 copy at d_ff 2,048
+   continuing one prefill with routing flips only at near-ties (``hybrid
+   continuity``); and 4 AdamW steps on one 4,096-position sequence of
+   musicgen whole (one-hot frames) and of the VLM on 5 layers with seeded
+   image embeddings (``vlm/audio training``: losses, step s, peak GB, the
+   lr-0 step bitwise, every matrix moved, self + cross attention launches
+   forward and backward a step, step 1's loss against the plain attention,
+   and float32 loss and gradients of 2 musicgen layers and the VLM's
+   super-block against the plain attention);
+18. the analysis layer: from the build on, every launch the wrappers make
    is noted (``repro_torch.analysis.launches``) and recorded by its
    library (``csrc/launch_log.cuh``); after the baselines, a
    ``debug_checks=True`` ``FOEMTrainer.step`` at the stream_1k width and a
@@ -457,8 +487,9 @@ TRAIN_GRAD_TOL_BF16 = 2.0 ** -5     # bfloat16: ||g_kernel - g_plain|| /
 # to 16.6: a few times that gap)
 TRAIN_WITNESS_SEQ, TRAIN_WITNESS_RTOL = 1024, 2e-3
 LM_CLI_ARCH = "granite-8b"  # the CLIs' reduced config
-# The attention backward checks: (name, (BH, BHkv, S, d, window), type);
-# the first, danube's training call, is the kernel's main line
+# The attention backward checks: (name, (BH, BHkv, S, d, window), type),
+# causal over S = Sq = Sk, or non-causal over S = (Sq, Sk); the first,
+# danube's training call, is the kernel's main line
 BWD_CASES = (
     ("danube training window=4096", (32, 8, TRAIN_SEQ, 120, 4096),
      "bfloat16"),
@@ -467,6 +498,12 @@ BWD_CASES = (
     ("granite window=512", (32, 8, 2048, 128, 512), "bfloat16"),
     # qwen2-moe's training call: 16 heads over 16 (G = 1), causal
     ("qwen2-moe training", (16, 16, TRAIN_SEQ, 128, 0), "bfloat16"),
+    # llama-3.2-vision's cross-attention training call: 32 heads over 8,
+    # non-causal, Sq 4,096 over the 1,601 image tokens (S given as (Sq, Sk))
+    ("vlm cross-attention training", (32, 8, (TRAIN_SEQ, 1601), 128, 0),
+     "bfloat16"),
+    # musicgen's: 24 heads over 24 (G = 1), d 64, causal
+    ("musicgen training", (24, 24, TRAIN_SEQ, 64, 0), "bfloat16"),
 )
 # The CUDA-core design that the tensor-core bf16 path replaced (float32
 # fmaf for both types; the float32 path keeps it): its ms for each
@@ -549,6 +586,36 @@ SSM_GRAD_SEQ, F32_LOSS_RTOL = 1024, 1e-5
 # The serving runs: timed prefills after a full-size warm-up (the median
 # is reported)
 SERVE_PREFILL_REPS = 3
+# The VLM, audio and hybrid phases.  llama-3.2-vision-11b at full width and
+# depth (40 layers, cross-attention in 8 of them to 1,601 image tokens;
+# bf16, 10.11 B parameters, 20.2 GB): 8 prompts of 2,048 tokens with seeded
+# image embeddings, 32 greedy decode steps (decode_32k's batch and cache cut
+# to one card); its float32 continuity on one super-block (5 layers) on
+# CONT_BATCH prompts.  musicgen-medium whole (48 layers, 24 heads of 64 over
+# 24: MHA; bf16): 8 x 2,048 seeded frame embeddings, then 32 decode steps
+# fed seeded frames; float32 continuity at full depth on CONT_BATCH.
+VLM_ARCH, VLM_BATCH, VLM_PROMPT, VLM_STEPS = ("llama-3.2-vision-11b", 8,
+                                              2048, 32)
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_PROMPT, AUDIO_STEPS = ("musicgen-medium", 8,
+                                                      2048, 32)
+VLM_CONT_LAYERS, CONT_BATCH = 5, 2
+# jamba-1.5-large-398b on one super-block of 8 layers (attention at j = 4,
+# Mamba2 elsewhere, MoE on odd j) at its attention and SSM widths (d 8,192,
+# 64 heads over 8, SSM state 64, d_inner 16,384) with its 16 experts top-2,
+# and one cut of width: d_ff (the MLP and each expert) from 24,576 to
+# 12,288 (24.59 B parameters, 49.2 GB in bf16).  The 8 layers whole are
+# 45.1 B, 90 GB; cutting the experts instead saves nothing, since the
+# expert weights are padded to a multiple of 16 (pad_experts, the JAX
+# layout).  2 prompts of 2,048, 8 decode steps; the float32 continuity on
+# the same layers at d_ff 2,048 (7.48 B parameters, 29.9 GB)
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_FF = "jamba-1.5-large-398b", 8, 12288
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS, HYBRID_CONT_FF = 2, 2048, 8, 2048
+# Training: one sequence of 4,096 tokens, 4 AdamW steps of lm_train_step:
+# musicgen whole (one-hot frames, the JAX train_lm's batch), the VLM on one
+# super-block of 5 of its 40 layers (2.18 B parameters) with seeded image
+# embeddings; the float32 gradient check on 2 layers of musicgen and on the
+# VLM's super-block (its period is 5: no 2-layer VLM has a cross layer)
+VLM_TRAIN_LAYERS, AUDIO_GRAD_LAYERS = 5, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -3421,9 +3488,13 @@ def attention_kernel_phase(torch, dev, report):
     2,048, d = 128, bf16) and decode (Sq = 1 at q_offset 2,048..2,079 in a
     4,096-slot cache), the MoE serving phases' calls (qwen2-moe, 8 × 16
     heads over 8 × 16, and qwen3-moe, 2 × 64 over 2 × 4: S = 2,048, d =
-    128, prefill and decode), danube-3-4b (d = 120, window 4,096) prefill
-    of 6,144 and its ring-ordered decode call, ragged Sq/Sk and MQA at
-    small size, and the prefill_32k length (B = 1, S = 32,768)."""
+    128, prefill and decode), the VLM's cross-attention (8 × 32 heads over
+    8 × 8, non-causal, 2,048 queries and one over 1,601 image keys),
+    musicgen (8 × 24 over 8 × 24, d = 64, causal prefill of 2,048 and
+    decode), jamba's attention layer (2 × 64 over 2 × 8, prefill of
+    2,048), danube-3-4b (d = 120, window 4,096) prefill of 6,144 and its
+    ring-ordered decode call, ragged Sq/Sk and MQA at small size, and the
+    prefill_32k length (B = 1, S = 32,768)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_reference,
     )
@@ -3511,6 +3582,48 @@ def attention_kernel_phase(torch, dev, report):
                 library=(False, mask), graph=True, reps=20)
         del q, k, v, qd, kc, vc
         torch.cuda.empty_cache()
+
+    # the VLM's cross-attention, d = 128: 8 x 32 heads over 8 x 8,
+    # non-causal, the prompt's 2,048 queries and one decode query over the
+    # 1,601 image keys (ragged against every key tile); SDPA unmasked
+    nimg = 1601
+    q, k, v = qkv(VLM_BATCH * 32, VLM_BATCH * 8, VLM_PROMPT, nimg, 128,
+                  torch.bfloat16)
+    _, rec = run("vlm cross-attention prefill", q, k, v, dict(causal=False),
+                 VLM_BATCH, VLM_PROMPT * nimg, nimg, library=(False, None))
+    report["attention_cross_prefill"] = rec
+    _, rec = run("vlm cross-attention decode", q[:, :1].contiguous(), k, v,
+                 dict(causal=False), VLM_BATCH, nimg, nimg,
+                 library=(False, None), graph=True, reps=20)
+    report["attention_cross_decode"] = rec
+    del q, k, v
+    # musicgen, d = 64 (the padded d <= 64 path): 8 x 24 heads over 8 x 24
+    # (G = 1), causal prefill of 2,048 and decode at its first and last step
+    Sa, steps = AUDIO_PROMPT, AUDIO_STEPS
+    q, k, v = qkv(AUDIO_BATCH * 24, AUDIO_BATCH * 24, Sa, Sa + steps, 64,
+                  torch.bfloat16)
+    kp, vp = k[:, :Sa].contiguous(), v[:, :Sa].contiguous()
+    _, rec = run("musicgen prefill", q, kp, vp, dict(causal=True),
+                 AUDIO_BATCH, _visible_pairs(Sa, Sa, 0, 0), Sa,
+                 library=(True, None))
+    report["attention_audio_prefill"] = rec
+    qd = q[:, :1].contiguous()
+    for pos in (Sa, Sa + steps - 1):
+        mask = (torch.arange(Sa + steps, device=dev) <= pos)[None, None, None]
+        run(f"musicgen decode q_offset={pos}", qd, k, v,
+            dict(causal=True, q_offset=pos), AUDIO_BATCH,
+            _visible_pairs(1, Sa + steps, pos, 0), pos + 1,
+            library=(False, mask), graph=True, reps=20)
+    del q, k, v, kp, vp, qd
+    # jamba's one attention layer in 8, d = 128: 2 x 64 heads over 2 x 8
+    # (G = 8), causal prefill of 2,048
+    q, k, v = qkv(HYBRID_BATCH * 64, HYBRID_BATCH * 8, HYBRID_PROMPT,
+                  HYBRID_PROMPT, 128, torch.bfloat16)
+    run("jamba prefill", q, k, v, dict(causal=True), HYBRID_BATCH,
+        _visible_pairs(HYBRID_PROMPT, HYBRID_PROMPT, 0, 0), HYBRID_PROMPT,
+        library=(True, None))
+    del q, k, v
+    torch.cuda.empty_cache()
 
     # danube-3-4b: d = 120, window 4,096, B = 1, S = 6,144
     W, Sd = 4096, 6144
@@ -3823,8 +3936,11 @@ def attention_backward_phase(torch, dev, report):
     ``torch.autograd`` of the plain attention on the same inputs, at the LM
     training shapes: danube-3-4b (B = 1, 32 heads over 8, S = 4,096, d =
     120, window 4,096, bf16), granite (32 over 8, S = 2,048, d = 128,
-    causal, bf16 and float32), a window shorter than S (512) and qwen2-moe
-    (16 heads over 16, S = 4,096, d = 128, causal, bf16).  Float32
+    causal, bf16 and float32), a window shorter than S (512), qwen2-moe
+    (16 heads over 16, S = 4,096, d = 128, causal, bf16), the VLM's
+    cross-attention (32 over 8, non-causal, 4,096 queries over 1,601 image
+    keys, d = 128, bf16) and musicgen (24 over 24, S = 4,096, d = 64,
+    causal, bf16).  Float32
     is held elementwise (BWD_TOL), bfloat16 tile by tile against the
     float32 truth (BWD_TILE_TOL), and each bfloat16 case plants two faults
     that the tile check must see.  Each line has the kernel's ms (CUDA events over 3 calls),
@@ -3865,12 +3981,11 @@ def attention_backward_phase(torch, dev, report):
 
     def faults(name, q, k, v, o, dout, lse, got, want, truth, kw):
         """The planted faults: each must fail the tile check."""
-        S = q.shape[1]
-        mid = slice(S // 2, S // 2 + BWD_TILE)
+        Sq, Sk = q.shape[1], k.shape[1]
         dk = got[1].clone()
-        dk[0, mid] = 0
+        dk[0, Sk // 2:Sk // 2 + BWD_TILE] = 0
         shifted = lse.clone()
-        shifted[0, mid] += BWD_FAULT_LSE_SHIFT
+        shifted[0, Sq // 2:Sq // 2 + BWD_TILE] += BWD_FAULT_LSE_SHIFT
         bad = flash_attention_backward(q, k, v, o, dout, shifted, **kw)
         out = {}
         for fault, grads in (("dk_tile_zeroed", (got[0], dk, got[2])),
@@ -3883,9 +3998,12 @@ def attention_backward_phase(torch, dev, report):
         return out
 
     def run(name, BH, BHkv, S, d, window, dtype):
-        q, k, v, dout = [torch.randn((n, S, d), generator=g, device=dev)
-                         .to(dtype) for n in (BH, BHkv, BHkv, BH)]
-        kw = dict(causal=True, window=window)
+        causal = not isinstance(S, tuple)       # (Sq, Sk): cross-attention
+        Sq, Sk = (S, S) if causal else S
+        q, k, v, dout = [torch.randn((n, s, d), generator=g, device=dev)
+                         .to(dtype) for n, s in ((BH, Sq), (BHkv, Sk),
+                                                 (BHkv, Sk), (BH, Sq))]
+        kw = dict(causal=causal, window=window)
         o, lse = flash_attention(q, k, v, **kw, return_lse=True)
         before = flash_attention_backward.launches
         got = flash_attention_backward(q, k, v, o, dout, lse, **kw)
@@ -3913,10 +4031,12 @@ def attention_backward_phase(torch, dev, report):
             q, k, v, o, dout, lse, **kw), 3)
         plain_ms = cuda_time_ms(lambda: flash_attention_backward_reference(
             q, k, v, dout, **kw), 1)
-        q4 = q.view(1, BH, S, d).detach().requires_grad_()
-        k4 = k.view(1, BHkv, S, d).detach().requires_grad_()
-        v4 = v.view(1, BHkv, S, d).detach().requires_grad_()
-        if 0 < window < S:
+        q4 = q.view(1, BH, Sq, d).detach().requires_grad_()
+        k4 = k.view(1, BHkv, Sk, d).detach().requires_grad_()
+        v4 = v.view(1, BHkv, Sk, d).detach().requires_grad_()
+        if not causal:
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True)
+        elif 0 < window < S:
             ip = torch.arange(S, device=dev)
             band = (ip[None, :] <= ip[:, None]) & (
                 ip[None, :] > ip[:, None] - window)
@@ -3925,10 +4045,11 @@ def attention_backward_phase(torch, dev, report):
         else:                           # causal (the window holds all of S)
             o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                 enable_gqa=True)
-        g4 = dout.view(1, BH, S, d)
+        g4 = dout.view(1, BH, Sq, d)
         lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), g4, retain_graph=True), 3)
-        bound = _bwd_bound(q, k, _visible_pairs(S, S, 0, window))
+        bound = _bwd_bound(q, k, _visible_pairs(Sq, Sk, 0, window)
+                           if causal else Sq * Sk)
         prior = BWD_PRIOR_MS.get(name)
         rec = {"case": name, "dtype": ty, "q": list(q.shape),
                "kv": list(k.shape), **kw,
@@ -4341,39 +4462,93 @@ def _moe_share(torch, model, params, batch) -> tuple:
 
 def _arch_line(cfg) -> str:
     """An LM config's widths, for the serving and training lines."""
+    ssm = (f"d_inner {cfg.d_inner} ssm heads {cfg.ssm_heads} x "
+           f"{cfg.ssm_head_dim} state {cfg.ssm_state} chunk {cfg.ssm_chunk}")
     if cfg.family == "ssm":
-        return (f"d_model {cfg.d_model} d_inner {cfg.d_inner} heads "
-                f"{cfg.ssm_heads} x {cfg.ssm_head_dim} state {cfg.ssm_state} "
-                f"chunk {cfg.ssm_chunk} vocab {cfg.vocab_size} {cfg.dtype}")
-    return (f"d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
-            f"hd {cfg.hd} experts {cfg.num_experts} top-"
+        return (f"d_model {cfg.d_model} {ssm} vocab {cfg.vocab_size} "
+                f"{cfg.dtype}")
+    line = (f"d_model {cfg.d_model} heads {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} hd {cfg.hd} experts {cfg.num_experts} top-"
             f"{cfg.experts_per_token} d_ff {cfg.d_ff} shared "
             f"{cfg.num_shared_experts} x {cfg.shared_expert_ff} vocab "
             f"{cfg.vocab_size} {cfg.dtype}")
+    if cfg.attn_every:
+        line += (f"; attention every {cfg.attn_every} (at "
+                 f"{cfg.attn_offset}), Mamba2 elsewhere: {ssm}")
+    if cfg.cross_attn_every:
+        line += (f"; cross-attention every {cfg.cross_attn_every} to "
+                 f"{cfg.image_tokens} image tokens")
+    if cfg.frontend == "audio_frames":
+        line += "; frame-embedding inputs"
+    return line
+
+
+def _lm_inputs(torch, dev, cfg, B, S, steps, seed) -> dict:
+    """A serving run's seeded inputs on the card: the prompts' ``tokens``
+    (B, S) — an audio config's frame ``embeds`` (B, S + steps, d_model)
+    instead, the decode steps fed frames, not tokens —, and a VLM's
+    ``image_embeds`` (B, image_tokens, d_model) float32 beside them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    if cfg.frontend == "audio_frames":
+        out["embeds"] = torch.randn((B, S + steps, cfg.d_model), generator=g,
+                                    device=dev)
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab_size, (B, S),
+                                      generator=g, device=dev)
+    if cfg.frontend == "image_patches":
+        out["image_embeds"] = torch.randn((B, cfg.image_tokens, cfg.d_model),
+                                          generator=g, device=dev)
+    return out
+
+
+def _prompt(inputs, S) -> dict:
+    """The prefill batch of the first S positions (the image whole)."""
+    return {k: (v if k == "image_embeds" else v[:, :S])
+            for k, v in inputs.items()}
+
+
+def _step_batch(inputs, t, nxt) -> dict:
+    """Decode step t's batch: the greedy tokens ``nxt`` (B,) — an audio
+    config's frame t instead — and a VLM's image, every step."""
+    b = {k: v for k, v in inputs.items() if k == "image_embeds"}
+    if "embeds" in inputs:
+        b["embeds"] = inputs["embeds"][:, t:t + 1]
+    else:
+        b["tokens"] = nxt[:, None]
+    return b
+
+
+def _attention_calls(cfg) -> int:
+    """Attention kernel launches of one forward: a self-attention and a
+    cross-attention layer launch it once each."""
+    return sum(cfg.is_attn_layer(i) + cfg.is_cross_attn_layer(i)
+               for i in range(cfg.num_layers))
 
 
 def _lm_serve_run(torch, dev, model, params, B, S, steps, seed,
                   routing=False) -> tuple:
     """One LM's serving path on the card: a warm-up prefill of B prompts of
-    S random tokens, SERVE_PREFILL_REPS timed prefills of the same size
-    (the median reported; each frees the last one's outputs first),
-    ``steps`` greedy decode steps from the last one's caches, one more step
-    under ``torch.profiler`` and a profiled prefill.  The attention-kernel
-    count is set to 0 before the timed prefills and read after the decode
-    steps: each call must launch it once an attention layer.  With
-    ``routing`` (an MoE arch), a separate prefill under ``RoutingRecorder``
-    gives each MoE layer's largest and smallest expert group, and one under
-    CUDA events the MoE layers' share.  Returns (record, tokens)."""
+    S random tokens (an audio config's frames; a VLM's with seeded image
+    embeddings, ``_lm_inputs``), SERVE_PREFILL_REPS timed prefills of the
+    same size (the median reported; each frees the last one's outputs
+    first), ``steps`` greedy decode steps from the last one's caches (an
+    audio config fed the next frames), one more step under
+    ``torch.profiler`` and a profiled prefill.  The attention-kernel count
+    is set to 0 before the timed prefills and read after the decode steps:
+    each call must launch it once a self-attention and once a
+    cross-attention layer.  With ``routing`` (an MoE layer in the arch), a
+    separate prefill under ``RoutingRecorder`` gives each MoE layer's
+    largest and smallest expert group, and one under CUDA events the MoE
+    layers' share.  Returns (record, inputs)."""
     import statistics
 
     from repro_torch.kernels.flash_attention import flash_attention
 
     cfg = model.cfg
-    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
-    tokens = torch.randint(0, cfg.vocab_size, (B, S),
-                           generator=torch.Generator(device=dev)
-                           .manual_seed(seed), device=dev)
-    batch = {"tokens": tokens}
+    n_attn = _attention_calls(cfg)
+    inputs = _lm_inputs(torch, dev, cfg, B, S, steps, seed)
+    batch = _prompt(inputs, S)
     with torch.no_grad():
         model.prefill(params, batch)                    # warm-up, full size
         torch.cuda.synchronize()
@@ -4397,8 +4572,8 @@ def _lm_serve_run(torch, dev, model, params, B, S, steps, seed,
         step_ms = []
         for t in range(steps):
             t0 = time.perf_counter()
-            lg, cache = model.decode_step(params, cache,
-                                          {"tokens": nxt[:, None]}, S + t)
+            lg, cache = model.decode_step(
+                params, cache, _step_batch(inputs, S + t, nxt), S + t)
             nxt = lg[:, -1].argmax(-1)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -4418,8 +4593,9 @@ def _lm_serve_run(torch, dev, model, params, B, S, steps, seed,
                           for c in cache.values() for t in c.values()) // B
 
         def one_step():
-            out = model.decode_step(params, cache, {"tokens": nxt[:, None]},
-                                    S + steps - 1)
+            out = model.decode_step(
+                params, cache, _step_batch(inputs, S + steps - 1, nxt),
+                S + steps - 1)
             torch.cuda.synchronize()        # the wall clock sees it all
             return out
 
@@ -4457,6 +4633,8 @@ def _lm_serve_run(torch, dev, model, params, B, S, steps, seed,
     med = ms_sorted[len(ms_sorted) // 2]
     pre_med = statistics.median(prefill_ms)
     rec = {"batch": B, "prompt": S, "steps": steps,
+           "inputs": {k: list(v.shape) for k, v in inputs.items()},
+           "attention_calls_per_forward": n_attn,
            "prefill_ms": pre_med, "prefill_ms_all": prefill_ms,
            "prefill_tokens_per_s": B * S / pre_med * 1e3,
            "decode_ms_median": med, "decode_ms_min": ms_sorted[0],
@@ -4474,30 +4652,33 @@ def _lm_serve_run(torch, dev, model, params, B, S, steps, seed,
            "profiled_prefill": {"wall_ms": pwall, "busy_ms": pbusy,
                                 "busy_share": pbusy / pwall,
                                 "top_ops_ms": top_ops(pby_op, 6)}}
-    return rec, tokens
+    return rec, inputs
 
 
-def _lm_continuity(torch, dev, cfg, tokens, steps, routing=False) -> dict:
-    """A float32 model's decode continues one prefill: prefill ``tokens``,
-    ``steps`` greedy decode steps, then one prefill over all the tokens;
-    the decode logits within LM_TOL of the long prefill's and the greedy
-    tokens equal.  With ``routing`` (an MoE arch) the experts of each
-    decoded position are compared with the long prefill's: a flip must be
-    a near-tie (gap < MOE_FLIP_GAP), and a row is compared no further from
-    its first flip."""
+def _lm_continuity(torch, dev, cfg, inputs, steps, routing=False) -> dict:
+    """A float32 model's decode continues one prefill: prefill the prompts
+    of ``inputs`` (``_lm_inputs``'s), ``steps`` greedy decode steps (an
+    audio config fed the next frames), then one prefill over all the
+    positions; the decode logits within LM_TOL of the long prefill's and
+    the greedy tokens equal.  With ``routing`` (an MoE arch) the experts of
+    each decoded position are compared with the long prefill's: a flip must
+    be a near-tie (gap < MOE_FLIP_GAP), and a row is compared no further
+    from its first flip."""
     import contextlib
 
     from repro_torch.models import build
 
     model = build(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-    B, S = tokens.shape
+    S = (inputs["tokens"].shape[1] if "tokens" in inputs
+         else inputs["embeds"].shape[1] - steps)
+    B = next(iter(inputs.values())).shape[0]
 
     def recorder():
         return RoutingRecorder() if routing else contextlib.nullcontext()
 
     with torch.no_grad():
-        logits, pre = model.prefill(params, {"tokens": tokens})
+        logits, pre = model.prefill(params, _prompt(inputs, S))
         cache = model.init_cache(B, S + steps)
         _place(cache, pre)
         del pre
@@ -4508,7 +4689,8 @@ def _lm_continuity(torch, dev, cfg, tokens, steps, routing=False) -> dict:
         for t in range(steps):
             with recorder() as rec:
                 lg, cache = model.decode_step(
-                    params, cache, {"tokens": fed[-1][:, None]}, S + t)
+                    params, cache, _step_batch(inputs, S + t, fed[-1]),
+                    S + t)
             if routing:
                 dec_routes.append([c[0] for c in rec.calls])
             dec.append(lg[:, 0])
@@ -4516,9 +4698,12 @@ def _lm_continuity(torch, dev, cfg, tokens, steps, routing=False) -> dict:
         del cache
         torch.cuda.empty_cache()
         dec = torch.stack(dec, 1)                           # (B, steps, V)
-        seq = torch.cat([tokens, torch.stack(fed[:-1], 1)], 1)
+        whole = dict(inputs)
+        if "tokens" in inputs:
+            whole["tokens"] = torch.cat([inputs["tokens"],
+                                         torch.stack(fed[:-1], 1)], 1)
         with recorder() as rec:
-            full = model.prefill(params, {"tokens": seq})[0]
+            full = model.prefill(params, whole)[0]
     flip = torch.zeros((B, steps), dtype=torch.bool, device=dev)
     flip_gaps = []
     for layer, (topi, gap) in enumerate(rec.calls if routing else ()):
@@ -4551,10 +4736,11 @@ def _lm_continuity(torch, dev, cfg, tokens, steps, routing=False) -> dict:
     return rec32
 
 
-def _serve_arch(torch, dev, cfg, runs, seed, note="") -> tuple:
+def _serve_arch(torch, dev, cfg, runs, seed, note="", probe=None) -> tuple:
     """``cfg`` at full width on the card (seeded random weights): one
-    ``_lm_serve_run`` for each (B, S, steps) of ``runs``.  Returns the
-    record and the first run's tokens."""
+    ``_lm_serve_run`` for each (B, S, steps) of ``runs``; then ``probe(model,
+    params, inputs)``, if given, adds its record's keys on the first run's
+    inputs.  Returns the record and the first run's inputs."""
     from repro_torch.checkpoint.ckpt import tree_flatten
     from repro_torch.models import build
 
@@ -4571,10 +4757,13 @@ def _serve_arch(torch, dev, cfg, runs, seed, note="") -> tuple:
            "init_params_s": init_s, "runs": []}
     first = None
     for B, S, steps in runs:
-        run, tokens = _lm_serve_run(torch, dev, model, params, B, S, steps,
-                                    seed + S, routing=cfg.family == "moe")
+        run, inputs = _lm_serve_run(torch, dev, model, params, B, S, steps,
+                                    seed + S, routing=cfg.num_experts > 0)
         rec["runs"].append(run)
-        first = tokens if first is None else first
+        first = inputs if first is None else first
+    if probe is not None:
+        with torch.no_grad():
+            rec.update(probe(model, params, first))
     del params, model
     torch.cuda.empty_cache()
     return rec, first
@@ -4589,7 +4778,7 @@ def moe_serving_phase(torch, dev, report):
     from repro_torch.configs.registry import ARCHS
 
     cfg = ARCHS[MOE_ARCH]
-    rec, tokens = _serve_arch(torch, dev, cfg,
+    rec, inputs = _serve_arch(torch, dev, cfg,
                               [(MOE_BATCH, MOE_PROMPT, MOE_STEPS)], 0)
     print("moe serving " + json.dumps(rec))
     report["moe_serving"] = rec
@@ -4599,7 +4788,7 @@ def moe_serving_phase(torch, dev, report):
     rec32 = _lm_continuity(
         torch, dev, dataclasses.replace(cfg, num_layers=MOE_CONT_LAYERS,
                                         dtype="float32"),
-        tokens, MOE_STEPS, routing=True)
+        inputs, MOE_STEPS, routing=True)
     print("moe continuity " + json.dumps(rec32))
     report["moe_continuity"] = rec32
     cfg3 = dataclasses.replace(ARCHS[QWEN3_ARCH], num_layers=QWEN3_LAYERS)
@@ -4738,7 +4927,7 @@ def ssm_serving_phase(torch, dev, report):
     from repro_torch.configs.registry import ARCHS
 
     cfg = ARCHS[SSM_ARCH]
-    rec, tokens = _serve_arch(torch, dev, cfg,
+    rec, inputs = _serve_arch(torch, dev, cfg,
                               [(SSM_BATCH, SSM_PROMPT, SSM_STEPS),
                                (1, SSM_LONG, SSM_LONG_STEPS)], 0,
                               "; prefill_32k's batch of 32 cut to 1")
@@ -4749,9 +4938,123 @@ def ssm_serving_phase(torch, dev, report):
     report["ssm_serving"] = rec
     rec32 = _lm_continuity(torch, dev,
                            dataclasses.replace(cfg, dtype="float32"),
-                           tokens[:SSM_CONT_BATCH], SSM_STEPS)
+                           {k: v[:SSM_CONT_BATCH] for k, v in inputs.items()},
+                           SSM_STEPS)
     print("ssm continuity " + json.dumps(rec32))
     report["ssm_continuity"] = rec32
+
+
+def vlm_serving_phase(torch, dev, report):
+    """The VLM's serving path at full width and depth: llama-3.2-vision-11b
+    (40 layers, 8 of them cross-attending to 1,601 seeded image
+    embeddings a prompt; bf16) prefills 8 prompts of 2,048 tokens and takes
+    32 greedy decode steps, each recomputing the cross layers' keys and
+    values from the image embeddings (no cross cache, as in the JAX
+    package); then a float32 copy on one super-block (5 layers, one cross
+    layer) continues one prefill of CONT_BATCH prompts."""
+    from repro_torch.configs.registry import ARCHS
+
+    cfg = ARCHS[VLM_ARCH]
+
+    def cross_kv(model, params, inputs):
+        """What a decode step recomputes that a cross K/V cache would hold:
+        every cross layer's K and V projections of the image embeddings,
+        timed alone by CUDA events, and the bytes such a cache would
+        take."""
+        img = model.image_embeds(inputs)
+        xs = [params["blocks"][f"l{j}"]["xattn"] for j in range(model.period)
+              if cfg.is_cross_attn_layer(j)]
+
+        def recompute():
+            for p in xs:
+                for b in range(model.nblocks):
+                    img @ p["wk"][b]
+                    img @ p["wv"][b]
+        n = len(xs) * model.nblocks
+        kv = img.shape[0] * img.shape[1] * cfg.num_kv_heads * cfg.hd
+        return {"cross_kv_recompute_ms_per_step": cuda_time_ms(recompute, 5),
+                "cross_kv_cache_bytes": 2 * n * kv * img.element_size()}
+
+    rec, inputs = _serve_arch(
+        torch, dev, cfg, [(VLM_BATCH, VLM_PROMPT, VLM_STEPS)], 0,
+        f"; {VLM_BATCH} x {cfg.image_tokens} seeded image embeddings "
+        f"(decode_32k's batch and cache cut to one card)", probe=cross_kv)
+    run = rec["runs"][0]
+    rec["cross_kv_recompute_share_of_decode_busy"] = (
+        rec["cross_kv_recompute_ms_per_step"]
+        / run["decode_step_device_busy_ms"])
+    n_self = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    n_cross = sum(cfg.is_cross_attn_layer(i) for i in range(cfg.num_layers))
+    rec.update(self_attention_layers=n_self, cross_attention_layers=n_cross)
+    check(run["attention_calls_per_forward"] == n_self + n_cross,
+          f"vlm: {run['attention_calls_per_forward']} attention calls a "
+          f"forward, not {n_self} self + {n_cross} cross")
+    print("vlm serving " + json.dumps(rec))
+    report["vlm_serving"] = rec
+    print(f"vlm continuity tolerance (rtol, atol): {LM_TOL}: "
+          f"{LM_TOL_REASON}")
+    rec32 = _lm_continuity(
+        torch, dev, dataclasses.replace(cfg, num_layers=VLM_CONT_LAYERS,
+                                        dtype="float32"),
+        {k: v[:CONT_BATCH] for k, v in inputs.items()}, VLM_STEPS)
+    print("vlm continuity " + json.dumps(rec32))
+    report["vlm_continuity"] = rec32
+
+
+def audio_serving_phase(torch, dev, report):
+    """The audio LM's serving path at full width and depth: musicgen-medium
+    (48 layers, MHA: 24 heads of 64 over 24; bf16) prefills 8 x 2,048 seeded
+    frame embeddings and takes 32 decode steps, each fed the next seeded
+    frame; then a float32 copy at full depth continues one prefill of
+    CONT_BATCH sequences over the same frames."""
+    from repro_torch.configs.registry import ARCHS
+
+    cfg = ARCHS[AUDIO_ARCH]
+    rec, inputs = _serve_arch(
+        torch, dev, cfg, [(AUDIO_BATCH, AUDIO_PROMPT, AUDIO_STEPS)], 0,
+        "; decode fed seeded frames (the EnCodec frontend is a stub in both "
+        "packages)")
+    print("audio serving " + json.dumps(rec))
+    report["audio_serving"] = rec
+    rec32 = _lm_continuity(torch, dev,
+                           dataclasses.replace(cfg, dtype="float32"),
+                           {k: v[:CONT_BATCH] for k, v in inputs.items()},
+                           AUDIO_STEPS)
+    print("audio continuity " + json.dumps(rec32))
+    report["audio_continuity"] = rec32
+
+
+def hybrid_serving_phase(torch, dev, report):
+    """The hybrid stack's serving path: jamba on one super-block of 8 layers
+    (attention at j = 4, Mamba2 elsewhere, MoE on odd j) at its attention
+    and SSM widths with 16 experts top-2 and d_ff cut to HYBRID_FF, bf16:
+    2 prompts of 2,048, 8 decode steps writing K/V and SSM state in place in
+    one block's caches; then a float32 copy at d_ff HYBRID_CONT_FF
+    continues one prefill (routing flips between decode and prefill must
+    be near-ties)."""
+    from repro_torch.configs.registry import ARCHS
+
+    full = ARCHS[HYBRID_ARCH]
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS, d_ff=HYBRID_FF)
+    cut = (f"; cut: depth {full.num_layers} -> {HYBRID_LAYERS} layers (one "
+           f"super-block), d_ff {full.d_ff} -> {HYBRID_FF} (the MLP and each "
+           f"expert; {full.num_experts} experts kept: pad_experts rounds any "
+           f"fewer up to 16)")
+    rec, inputs = _serve_arch(
+        torch, dev, cfg, [(HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS)], 0, cut)
+    rec["cut"] = cut[2:]
+    check(rec["runs"][0]["attention_calls_per_forward"] == 1,
+          "hybrid: one attention layer in 8 must launch the kernel")
+    print("hybrid serving " + json.dumps(rec))
+    report["hybrid_serving"] = rec
+    print(f"hybrid continuity tolerance (rtol, atol): {LM_TOL}; routing "
+          f"flips must be near-ties (gap < {MOE_FLIP_GAP})")
+    rec32 = _lm_continuity(
+        torch, dev, dataclasses.replace(cfg, d_ff=HYBRID_CONT_FF,
+                                        dtype="float32"),
+        inputs, HYBRID_STEPS, routing=True)
+    print("hybrid continuity " + json.dumps(rec32))
+    report["hybrid_continuity"] = rec32
 
 
 def dense_moe(forced):
@@ -5085,6 +5388,187 @@ def moe_ssm_training_phase(torch, dev, report):
     report["moe_ssm_training"] = rec
 
 
+def vlm_audio_training_phase(torch, dev, report):
+    """The audio and VLM training paths: 4 AdamW steps of ``lm_train_step``
+    on one 4,096-position sequence a step — musicgen whole on the one-hot
+    frames of the JAX ``train_lm`` (``launch.train.lm_batch``), the VLM on
+    one super-block (5 of its 40 layers) with seeded image embeddings.
+    Checks: finite losses; step 1 (lr 0) leaves every parameter's bits;
+    every weight matrix moved by step 4; forward and backward attention
+    launches a step equal to the self- plus cross-attention layers; step
+    1's loss within TRAIN_LOSS_RTOL of the same forward through the plain
+    attention.  Then the loss (F32_LOSS_RTOL) and every gradient leaf
+    (TRAIN_GRAD_TOL of its largest) of float32 copies through the kernels
+    against the plain attention's autograd: musicgen on AUDIO_GRAD_LAYERS
+    layers, the VLM on its super-block (a 2-layer VLM has no cross
+    layer)."""
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import tree_flatten
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.synthetic import synthetic_token_stream
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+    )
+    from repro_torch.launch.train import lm_batch, lm_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+
+    S, steps = MOESSM_TRAIN_SEQ, MOESSM_TRAIN_STEPS
+    print(f"vlm/audio training tolerances: step-1 loss against the plain "
+          f"attention rtol {TRAIN_LOSS_RTOL}; float32 loss rtol "
+          f"{F32_LOSS_RTOL}, gradients {TRAIN_GRAD_TOL} of each leaf's "
+          f"largest against the plain attention")
+
+    def batches_of(cfg, n, seed):
+        stream = synthetic_token_stream(1, S, cfg.vocab_size, seed=seed)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        out = []
+        for _ in range(n):
+            b = {k: v.to(dev) for k, v in lm_batch(
+                cfg, {k: torch.from_numpy(v)
+                      for k, v in next(stream).items()}).items()}
+            if "image_embeds" in b:         # seeded, not the CLI's 0.01s
+                b["image_embeds"] = torch.randn(b["image_embeds"].shape,
+                                                generator=g, device=dev)
+            out.append(b)
+        return out
+
+    runs, fwd_total, bwd_total = {}, 0, 0
+    for arch, layers in ((AUDIO_ARCH, None), (VLM_ARCH, VLM_TRAIN_LAYERS)):
+        cfg = ARCHS[arch]
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        n_attn = _attention_calls(cfg)
+        print(f"vlm/audio training: {cfg.name} {cfg.num_layers} layers "
+              f"{_arch_line(cfg)}; 1 x {S} positions a step, {steps} steps")
+        batches = batches_of(cfg, steps, 0)
+        model = build(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        leaves = tree_flatten(params)[0]
+        names = [".".join(map(str, path)) for path in _tree_paths(params)]
+        with torch.no_grad(), plain_attention():
+            plain_loss = model.loss_fn(params, batches[0]).item()
+        torch.cuda.empty_cache()
+        opt = adamw_init(params)
+        for p in leaves:
+            p.requires_grad_()
+        snap = [p.detach().to("cpu", copy=True) for p in leaves]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        flash_attention_backward.launches = 0
+        losses, step_s, launches = [], [], []
+        for i, b in enumerate(batches):
+            f0, b0 = flash_attention.launches, flash_attention_backward.launches
+            t0 = time.perf_counter()
+            loss, params, opt = lm_train_step(model, params, opt, b,
+                                              total_steps=steps)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            launches.append([flash_attention.launches - f0,
+                             flash_attention_backward.launches - b0])
+            if i == 0:
+                same = [torch.equal(p.detach().cpu(), s0)
+                        for p, s0 in zip(leaves, snap)]
+                check(all(same), f"{arch} training step 1 (lr 0) changed "
+                      + ", ".join(nm for nm, ok in zip(names, same)
+                                  if not ok))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fwd_total += flash_attention.launches
+        bwd_total += flash_attention_backward.launches
+        unmoved, matrices = [], 0
+        for nm, p, s0 in zip(names, leaves, snap):
+            if p.ndim - (1 if nm.startswith("blocks.") else 0) >= 2:
+                matrices += 1
+                if torch.equal(p.detach().cpu(), s0):
+                    unmoved.append(nm)
+        check(all(np.isfinite(losses)), f"{arch} training losses {losses}")
+        check(not unmoved, f"{arch} training left {unmoved} unchanged")
+        check(all(f == n_attn and bw == n_attn for f, bw in launches),
+              f"{arch} training attention launches a step {launches}, not "
+              f"{n_attn} forward and {n_attn} backward")
+        err = abs(losses[0] - plain_loss) / abs(plain_loss)
+        check(err <= TRAIN_LOSS_RTOL, f"{arch} step 1 loss {losses[0]} "
+              f"against the plain attention's {plain_loss}")
+        steady = sorted(step_s[1:])
+        med = steady[len(steady) // 2]
+        runs[arch] = {"layers": cfg.num_layers, "dtype": cfg.dtype,
+                      "params": sum(p.numel() for p in leaves),
+                      "batch": 1, "seq": S, "steps": steps,
+                      "inputs": {k: list(v.shape)
+                                 for k, v in batches[0].items()},
+                      "losses": losses, "step_s": step_s,
+                      "step_s_median_steady": med, "tokens_per_s": S / med,
+                      "peak_gb": peak_gb,
+                      "attention_launches_per_step": launches,
+                      "attention_calls_per_forward": n_attn,
+                      "matrices_moved": matrices - len(unmoved),
+                      "matrices": matrices,
+                      "plain_attention_loss_step1": plain_loss,
+                      "loss_rel_err_step1": err}
+        del params, opt, snap, leaves, model, loss, batches
+        torch.cuda.empty_cache()
+
+    # the loss and every gradient leaf of float32 copies against the plain
+    # attention
+    grad_check = {}
+    for arch, layers in ((AUDIO_ARCH, AUDIO_GRAD_LAYERS),
+                         (VLM_ARCH, VLM_TRAIN_LAYERS)):
+        cfg = dataclasses.replace(ARCHS[arch], num_layers=layers,
+                                  dtype="float32")
+        batch = batches_of(cfg, 1, 1)[0]
+        model = build(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(1))
+        leaves = tree_flatten(params)[0]
+        names = [".".join(map(str, path)) for path in _tree_paths(params)]
+        for p in leaves:
+            p.requires_grad_()
+        before = flash_attention_backward.launches
+        loss = model.loss_fn(params, batch)
+        loss.backward()
+        grad_launches = flash_attention_backward.launches - before
+        loss_k = loss.item()
+        got = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        with plain_attention():
+            loss = model.loss_fn(params, batch)
+            loss.backward()
+        loss_p = loss.item()
+        grad_err = {}
+        for nm, a, p in zip(names, got, leaves):
+            a, b = a.float(), p.grad.float()
+            grad_err[nm] = ((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30)).item()
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        n_attn = _attention_calls(cfg)
+        check(grad_launches == n_attn, f"the {layers}-layer {arch} backward "
+              f"launched the backward kernels {grad_launches} times, not "
+              f"{n_attn}")
+        check(loss_err <= F32_LOSS_RTOL, f"the {layers}-layer float32 {arch} "
+              f"loss {loss_k} against the plain attention's {loss_p}")
+        bad = {nm: e for nm, e in grad_err.items() if not e <= TRAIN_GRAD_TOL}
+        check(not bad, f"{layers}-layer float32 {arch} gradients differ from "
+              f"the plain attention's: {bad}")
+        grad_check[arch] = {
+            "layers": layers, "seq": S, "attention_calls": n_attn,
+            "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_err,
+            "tol": TRAIN_GRAD_TOL, "max_rel_err": max(grad_err.values()),
+            "worst_leaf": max(grad_err, key=grad_err.get),
+            "leaves": len(grad_err),
+            "cross_leaves_max_rel_err": max(
+                (e for nm, e in grad_err.items() if "xattn" in nm),
+                default=None)}
+        del params, leaves, got, model, loss, a, b, p
+        torch.cuda.empty_cache()
+    rec = {"runs": runs, "grad_check": grad_check,
+           "forward_launches": fwd_total, "backward_launches": bwd_total}
+    print("vlm/audio training " + json.dumps(rec))
+    report["vlm_audio_training"] = rec
+
+
 def _expert_moments(names, moments, received, E) -> dict:
     """Each routed-expert leaf's moment slices (one an expert a block)
     against the experts that received a token: a logical expert's slice
@@ -5410,6 +5894,18 @@ def main() -> int:
     print(f"moe serving phase {t1 - t0:.1f} s, moe ep phase {t2 - t1:.1f} "
           f"s, ssm serving phase {t3 - t2:.1f} s, moe/ssm training phase "
           f"{time.perf_counter() - t3:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vlm_serving_phase(torch, dev, report)
+    t1 = time.perf_counter()
+    audio_serving_phase(torch, dev, report)
+    t2 = time.perf_counter()
+    hybrid_serving_phase(torch, dev, report)
+    t3 = time.perf_counter()
+    vlm_audio_training_phase(torch, dev, report)
+    print(f"vlm serving phase {t1 - t0:.1f} s, audio serving phase "
+          f"{t2 - t1:.1f} s, hybrid serving phase {t3 - t2:.1f} s, vlm/audio "
+          f"training phase {time.perf_counter() - t3:.1f} s")
     analysis_phase(torch, report)
     print(f"phases took {time.perf_counter() - t_start:.1f} s")
 
@@ -5528,8 +6024,8 @@ def main() -> int:
         "library_ms": None,
     })
     # the granite prefill call (all calls are in the "attention kernel"
-    # lines); the error is the largest of every checked call; the dense and
-    # MoE serving and training paths' launches
+    # lines); the error is the largest of every checked call; the dense,
+    # MoE, VLM, audio and hybrid serving and training paths' launches
     main = report["attention_main"]
     entries.append({
         "name": "flash_attention",
@@ -5539,9 +6035,12 @@ def main() -> int:
         "launches": (report["lm_serving"]["attention_launches"]
                      + report["lm_training"]["forward_launches"]
                      + sum(r["attention_launches"] for key in
-                           ("moe_serving", "moe_serving_qwen3")
+                           ("moe_serving", "moe_serving_qwen3",
+                            "vlm_serving", "audio_serving",
+                            "hybrid_serving")
                            for r in report[key]["runs"])
-                     + report["moe_ssm_training"]["forward_launches"]),
+                     + report["moe_ssm_training"]["forward_launches"]
+                     + report["vlm_audio_training"]["forward_launches"]),
         "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
                            for v in report["attention_lines"]),
         "ms": main["ms"],
@@ -5564,7 +6063,8 @@ def main() -> int:
         "replaces": "none: no TPU kernel (XLA differentiates "
                     "src/repro/models/layers.py:198)",
         "launches": (report["lm_training"]["backward_launches"]
-                     + report["moe_ssm_training"]["backward_launches"]),
+                     + report["moe_ssm_training"]["backward_launches"]
+                     + report["vlm_audio_training"]["backward_launches"]),
         "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
                            for v in report["attention_backward_lines"]),
         "ms": main["ms"],

@@ -1,9 +1,12 @@
-"""Train a reduced-config dense LM of the PyTorch port on synthetic token
+"""Train a reduced-config LM of the PyTorch port on synthetic token
 streams — the LM substrate end to end (AdamW, checkpoints, resume) through
 ``repro_torch.launch.train --arch``.
 
     PYTHONPATH=src python examples/torch/train_lm.py --arch granite-8b \\
         --steps 30
+    # the VLM, the audio LM and the hybrid stack the same way:
+    PYTHONPATH=src python examples/torch/train_lm.py \\
+        --arch llama-3.2-vision-11b   # musicgen-medium, jamba-1.5-large-398b
     # resume from the latest checkpoint:
     PYTHONPATH=src python examples/torch/train_lm.py --steps 40 --resume
     PYTHONPATH=src python examples/torch/train_lm.py --quick --device cpu
@@ -16,8 +19,11 @@ from repro_torch.launch import train
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-8b",
-                    help="granite-8b, granite-20b, internlm2-20b or "
-                         "h2o-danube-3-4b (trained at its reduced config)")
+                    help="granite-8b, granite-20b, internlm2-20b, "
+                         "h2o-danube-3-4b, qwen2-moe-a2.7b, "
+                         "qwen3-moe-235b-a22b, mamba2-370m, "
+                         "jamba-1.5-large-398b, llama-3.2-vision-11b or "
+                         "musicgen-medium (trained at its reduced config)")
     ap.add_argument("--steps", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--workdir", default=None,

@@ -59,10 +59,13 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _fn(lib: ctypes.CDLL, symbol: str, restype, argtypes):
+    """``symbol`` of ``lib`` with its signature; the restype is set before
+    the argtypes that mark the set-up done, so a thread that finds it done
+    finds it whole."""
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = argtypes
         fn.restype = restype
+        fn.argtypes = argtypes
     return fn
 
 

@@ -58,14 +58,18 @@ QUARANTINED_MODULES = frozenset({
     "repro_torch.configs.granite_8b",
     "repro_torch.configs.h2o_danube_3_4b",
     "repro_torch.configs.internlm2_20b",
+    "repro_torch.configs.jamba_1_5_large_398b",
+    "repro_torch.configs.llama_3_2_vision_11b",
     "repro_torch.configs.mamba2_370m",
+    "repro_torch.configs.musicgen_medium",
     "repro_torch.configs.qwen2_moe_a2_7b",
     "repro_torch.configs.qwen3_moe_235b_a22b",
     "repro_torch.configs.registry",
     # the attention kernel of the LM stack — not an LDA kernel
     # (ops.attention loads it at its first call; no launch contract)
     "repro_torch.kernels.flash_attention",
-    # the decoder LM (serving and training): dense, MoE and Mamba2 layers
+    # the decoder LM (serving and training): dense, MoE, Mamba2, hybrid,
+    # cross-attention and audio-frame layers
     "repro_torch.models",
     "repro_torch.models.convert",
     "repro_torch.models.layers",

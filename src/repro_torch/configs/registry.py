@@ -2,11 +2,13 @@
 
 The port's copy of ``repro.configs.registry``: a lazy allowlist of
 (arch name → config module) pairs, importing a config module only when its
-config is requested.  It lists the archs that the port's ``models.LM``
-serves (prefill and cached decode) and trains (``loss_fn``): the dense
-decoders, the MoE decoders (qwen2-moe, qwen3-moe) and the attention-free
-Mamba2 SSM; the hybrid, VLM and audio archs of the JAX package wait for
-their modules (ROADMAP.md, queue 1 item 10).
+config is requested.  It lists every LM arch of the JAX package's
+registry, all of which the port's ``models.LM`` serves (prefill and cached
+decode) and trains (``loss_fn``): the dense decoders, the MoE decoders
+(qwen2-moe, qwen3-moe), the attention-free Mamba2 SSM, the hybrid
+attention/Mamba2/MoE stack (jamba), the VLM with cross-attention to image
+embeddings (llama-3.2-vision) and the decoder over audio frame embeddings
+(musicgen).
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ TEMPLATE_ARCHS: Dict[str, str] = {
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 

@@ -11,6 +11,11 @@ here runs at import time.  Several processes may build at once — the ranks
 of a ``launch.mesh.spawn_mesh`` — so :func:`build` holds an exclusive
 ``fcntl`` lock on ``_build/.lock`` while it looks for and compiles
 libraries: the first process builds, the others find the libraries built.
+
+Several threads of one process may launch at once (a thread-backend
+replica pool): :func:`load` loads a library and runs its wrapper's ctypes
+set-up (``bind``) once, under one lock, and :func:`count_launch` adds to a
+wrapper's ``launches`` counter under another, so the counts are exact.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -38,6 +43,8 @@ KERNELS = ("theta_sweep", "gs_sweep", "scheduled_sweep", "sharded_sweep",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Set[Tuple[str, Callable]] = set()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -111,8 +118,12 @@ def loaded() -> Sequence[str]:
         return sorted(_loaded)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def load(name: str,
+         bind: Optional[Callable[[ctypes.CDLL], None]] = None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed, with
+    ``bind(lib)`` — a wrapper's ``argtypes`` / ``restype`` set-up — run on
+    it once, before any caller gets it.  Both under one lock: threads that
+    call at once wait for the set-up, never see half of it."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -122,4 +133,15 @@ def load(name: str) -> ctypes.CDLL:
 
             launches.follow(lib, name)
             _loaded[name] = lib
+        if bind is not None and (name, bind) not in _bound:
+            bind(lib)
+            _bound.add((name, bind))
         return lib
+
+
+def count_launch(wrapper: Callable, n: int = 1) -> None:
+    """``wrapper.launches += n`` under a lock, exact when threads launch at
+    once (a bare ``+=`` on an attribute is a read, an add and a write, and
+    two threads may read the same count)."""
+    with _count_lock:
+        wrapper.launches += n

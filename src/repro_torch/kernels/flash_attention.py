@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.gs_sweep import ptr
 
 NEG_INF = -1e30
@@ -117,18 +118,20 @@ def flash_attention_reference(
 # CUDA route
 # ---------------------------------------------------------------------------
 
+def _bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    fn = lib.flash_attention_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 5 + [i] * 8 + [ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
 def _launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 8 + [ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("flash_attention", _bind)
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor,
@@ -205,7 +208,7 @@ def flash_attention(
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
                            f"({rc})")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return (out, lse) if return_lse else out
 
 
@@ -234,18 +237,20 @@ def flash_attention_backward_reference(
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
+def _bwd_bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    fn = lib.flash_attention_bwd_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+
+
 def _bwd_launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("flash_attention_bwd")
-    fn = lib.flash_attention_bwd_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("flash_attention_bwd", _bwd_bind)
 
 
 def check_backward_args(q, k, v, o, dout, lse) -> None:
@@ -324,7 +329,7 @@ def flash_attention_backward(
         msg = lib.flash_attention_bwd_error_string(rc).decode()
         raise RuntimeError(f"flash_attention_backward kernel launch failed: "
                            f"{msg} ({rc})")
-    flash_attention_backward.launches += 1
+    count_launch(flash_attention_backward)
     return dq, dk, dv
 
 

@@ -43,6 +43,7 @@ import torch
 from repro_torch.analysis import contracts, launches
 from repro_torch.analysis.budget import Cell
 from repro_torch.analysis.checks import kernel_fits
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.gs_sweep import check_cuda_args, ptr
 
 EstepOut = Tuple[torch.Tensor, Optional[torch.Tensor]]
@@ -130,18 +131,20 @@ def fused_estep_reference(
 # CUDA route
 # ---------------------------------------------------------------------------
 
+def _bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    fn = lib.fused_estep_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p] * 8 + [ctypes.c_longlong, i, i, f, f, f, i, p]
+    fn.restype = ctypes.c_int
+    lib.fused_estep_error_string.argtypes = [ctypes.c_int]
+    lib.fused_estep_error_string.restype = ctypes.c_char_p
+
+
 def _launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("fused_estep")
-    fn = lib.fused_estep_launch
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [ctypes.c_longlong, i, i, f, f, f, i, p]
-        fn.restype = ctypes.c_int
-        lib.fused_estep_error_string.argtypes = [ctypes.c_int]
-        lib.fused_estep_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("fused_estep", _bind)
 
 
 def fused_estep(
@@ -209,7 +212,7 @@ def fused_estep(
                           if path.kind == "registers"
                           else "fused_estep_two_pass",
                           Cell(D=T, L=1, K=K, W_s=0), **kw)
-        fused_estep.launches += 1
+        count_launch(fused_estep)
     return mu, res
 
 

@@ -44,6 +44,7 @@ import torch
 from repro_torch.analysis import contracts, launches
 from repro_torch.analysis.budget import Cell
 from repro_torch.analysis.checks import kernel_fits
+from repro_torch.kernels.build import count_launch
 
 #: The register path's widest K (512 threads × 5 float4 lane groups in
 #: ``csrc/gs_sweep.cu``, a capacity of its launch contract); wider sweeps
@@ -340,21 +341,23 @@ def dense_operands(word_ids, counts, mu, theta, phi_wk, phi_k):
     ]
 
 
+def _bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gs_sweep_launch.argtypes = (
+        [p] * 18 + [i] * 5 + [f] * 4 + [ctypes.POINTER(i), p])
+    lib.gs_sweep_launch.restype = ctypes.c_int
+    lib.sweep_loglik_launch.argtypes = (
+        [p] * 6 + [i] * 3 + [f] * 4 + [p])
+    lib.sweep_loglik_launch.restype = ctypes.c_int
+    lib.gs_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.gs_sweep_error_string.restype = ctypes.c_char_p
+
+
 def _launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("gs_sweep")
-    if lib.gs_sweep_launch.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gs_sweep_launch.argtypes = (
-            [p] * 18 + [i] * 5 + [f] * 4 + [ctypes.POINTER(i), p])
-        lib.gs_sweep_launch.restype = ctypes.c_int
-        lib.sweep_loglik_launch.argtypes = (
-            [p] * 6 + [i] * 3 + [f] * 4 + [p])
-        lib.sweep_loglik_launch.restype = ctypes.c_int
-        lib.gs_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.gs_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("gs_sweep", _bind)
 
 
 def _raise_on(lib, rc: int, kernel: str) -> None:
@@ -446,7 +449,7 @@ def gs_sweep(
                           vec=not path.code & 1, wide=bool(path.code & 2))
             if emit_loglik:
                 note_loglik("gs_sweep", cell, theta_o, phi_o, ptot_o)
-        gs_sweep.launches += 1
+        count_launch(gs_sweep)
         gs_sweep.launches_per_call = enqueued.value
     loglik = tok_ll.sum() if emit_loglik else None
     return mu_out, res, theta_o, phi_o, ptot_o, loglik
@@ -501,7 +504,7 @@ def sweep_loglik_partials(
         if launches.enabled():
             note_loglik("gs_sweep", Cell(D=D, L=L, K=K, W_s=phi_wk.shape[0]),
                         theta, phi_wk, phi_k)
-        sweep_loglik_partials.launches += 1
+        count_launch(sweep_loglik_partials)
     return out
 
 

@@ -39,6 +39,7 @@ import torch
 from repro_torch.analysis import launches
 from repro_torch.analysis.budget import Cell
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.gs_sweep import (
     SweepOut,
     check_cuda_args,
@@ -174,21 +175,23 @@ def fold_orders(word_ids: torch.Tensor, live: torch.Tensor, num_rows: int,
     return rows + pairs
 
 
+def _bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    fn = lib.scheduled_sweep_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([p] * 10 + [i] + [p] * 8 + [i, i, i, f, f, f, f,
+                                                ctypes.POINTER(i), p])
+    fn.restype = ctypes.c_int
+    lib.scheduled_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
+    lib.scheduled_pass_launch.restype = ctypes.c_int
+    lib.scheduled_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.scheduled_sweep_error_string.restype = ctypes.c_char_p
+
+
 def _launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("scheduled_sweep")
-    fn = lib.scheduled_sweep_launch
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p] * 10 + [i] + [p] * 8 + [i, i, i, f, f, f, f,
-                                                    ctypes.POINTER(i), p])
-        fn.restype = ctypes.c_int
-        lib.scheduled_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
-        lib.scheduled_pass_launch.restype = ctypes.c_int
-        lib.scheduled_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.scheduled_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("scheduled_sweep", _bind)
 
 
 def _raise_on(lib, rc: int) -> None:
@@ -285,7 +288,7 @@ def scheduled_sweep(
                 note_loglik("scheduled_sweep",
                             Cell(D=D, L=L, K=K, W_s=W_s, A=A), theta_o,
                             phi_o, ptot_o)
-        scheduled_sweep.launches += 1
+        count_launch(scheduled_sweep)
         scheduled_sweep.launches_per_call = 2 + enqueued.value  # + the pass
     loglik = tok_ll.sum() if emit_loglik else None
     return mu_out, res, theta_o, phi_o, ptot_o, loglik

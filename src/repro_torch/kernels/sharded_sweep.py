@@ -59,6 +59,7 @@ import torch
 from repro_torch.analysis import contracts, launches
 from repro_torch.analysis.budget import Cell
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.gs_sweep import (
     check_cuda_args,
     column_segments,
@@ -240,24 +241,26 @@ def sharded_fold_reference(
 # CUDA route
 # ---------------------------------------------------------------------------
 
+def _bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sharded_probe_launch.argtypes = (
+        [p] * 8 + [i, p, p, i, i, i, i, f, f, f, p])
+    lib.sharded_probe_launch.restype = ctypes.c_int
+    lib.sharded_fold_launch.argtypes = (
+        [p] * 12 + [i] + [p] * 16 + [i, i, i, f, f, f,
+                                     ctypes.POINTER(i), p])
+    lib.sharded_fold_launch.restype = ctypes.c_int
+    lib.sharded_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
+    lib.sharded_pass_launch.restype = ctypes.c_int
+    lib.sharded_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.sharded_sweep_error_string.restype = ctypes.c_char_p
+
+
 def _launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("sharded_sweep")
-    if lib.sharded_probe_launch.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sharded_probe_launch.argtypes = (
-            [p] * 8 + [i, p, p, i, i, i, i, f, f, f, p])
-        lib.sharded_probe_launch.restype = ctypes.c_int
-        lib.sharded_fold_launch.argtypes = (
-            [p] * 12 + [i] + [p] * 16 + [i, i, i, f, f, f,
-                                         ctypes.POINTER(i), p])
-        lib.sharded_fold_launch.restype = ctypes.c_int
-        lib.sharded_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
-        lib.sharded_pass_launch.restype = ctypes.c_int
-        lib.sharded_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.sharded_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("sharded_sweep", _bind)
 
 
 def _sched_operands(kernel, word_ids, K, W, word_topics, token_active):
@@ -340,7 +343,7 @@ def sharded_probe(
             else:
                 launches.note("sharded_sweep", "probe_dense_kernel", cell,
                               vec=path.code == 0)
-        sharded_probe.launches += 1
+        count_launch(sharded_probe)
     return s, pm
 
 
@@ -447,7 +450,7 @@ def sharded_fold(
                 launches.note("sharded_sweep", "dense_loop_kernel", cell)
             if emit_loglik:
                 launches.note("sharded_sweep", "loglik_u_kernel", cell)
-        sharded_fold.launches += 1
+        count_launch(sharded_fold)
         sharded_fold.launches_per_call = passes + enqueued.value
     return mu_out, res, theta_o, phi_o, ptot_o, live_m, u
 

@@ -44,6 +44,7 @@ from repro_torch.analysis import contracts, launches
 from repro_torch.analysis.budget import Cell
 from repro_torch.analysis.checks import kernel_fits
 from repro_torch.analysis.validate import PHI_DTYPES
+from repro_torch.kernels.build import count_launch
 
 _PHI_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -200,19 +201,21 @@ def theta_sweep_reference(
     return theta, est_counts * ll, ev_counts * ll
 
 
+def _bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    fn = lib.theta_sweep_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, p, p, i, p, p, i, p, p, p, p, p,
+                   i, i, i, i, i, i, i, i, i, f, f, p]
+    fn.restype = ctypes.c_int
+    lib.theta_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.theta_sweep_error_string.restype = ctypes.c_char_p
+
+
 def _launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("theta_sweep")
-    fn = lib.theta_sweep_launch
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, p, p, i, p, p, p, p, p,
-                       i, i, i, i, i, i, i, i, i, f, f, p]
-        fn.restype = ctypes.c_int
-        lib.theta_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.theta_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.load("theta_sweep", _bind)
 
 
 def _check_cuda_args(word_ids, est_counts, ev_counts, theta, phi,
@@ -328,7 +331,7 @@ def theta_sweep(
         else:
             launches.note("theta_sweep", contracts.theta_contract(
                 "wide", dtype), cell, state=path.kind)
-    theta_sweep.launches += 1
+    count_launch(theta_sweep)
     return theta_out, est_ll, ev_ll
 
 

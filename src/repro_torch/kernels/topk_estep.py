@@ -47,6 +47,7 @@ import torch
 from repro_torch.analysis import launches
 from repro_torch.analysis.budget import Cell
 
+from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.gs_sweep import (
     check_cuda_args,
     ptr,
@@ -233,24 +234,26 @@ def _runs(order: torch.Tensor,
 # CUDA route
 # ---------------------------------------------------------------------------
 
+def _bind(lib) -> None:
+    """The library's ctypes signatures, set once (``build.load``)."""
+    fn = lib.topk_estep_launch
+    p, f = ctypes.c_void_p, ctypes.c_float
+    fn.argtypes = [p] * 8 + [ctypes.c_longlong, ctypes.c_int, f, f, f, p]
+    fn.restype = ctypes.c_int
+    lib.topk_estep_error_string.argtypes = [ctypes.c_int]
+    lib.topk_estep_error_string.restype = ctypes.c_char_p
+    lib.topk_loop_pass_launch.argtypes = [p, p, ctypes.c_size_t, p]
+    lib.topk_loop_pass_launch.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.topk_loop_launch.argtypes = ([p] * 20 + [i] * 6 + [f] * 3
+                                     + [ctypes.POINTER(i), p])
+    lib.topk_loop_launch.restype = ctypes.c_int
+
+
 def _launcher():
     from repro_torch.kernels import build
 
-    lib = build.load("topk_estep")
-    fn = lib.topk_estep_launch
-    if fn.argtypes is None:
-        p, f = ctypes.c_void_p, ctypes.c_float
-        fn.argtypes = [p] * 8 + [ctypes.c_longlong, ctypes.c_int, f, f, f, p]
-        fn.restype = ctypes.c_int
-        lib.topk_estep_error_string.argtypes = [ctypes.c_int]
-        lib.topk_estep_error_string.restype = ctypes.c_char_p
-        lib.topk_loop_pass_launch.argtypes = [p, p, ctypes.c_size_t, p]
-        lib.topk_loop_pass_launch.restype = ctypes.c_int
-        i = ctypes.c_int
-        lib.topk_loop_launch.argtypes = ([p] * 20 + [i] * 6 + [f] * 3
-                                         + [ctypes.POINTER(i), p])
-        lib.topk_loop_launch.restype = ctypes.c_int
-    return lib
+    return build.load("topk_estep", _bind)
 
 
 def _raise_on(lib, rc: int, kernel: str) -> None:
@@ -310,7 +313,7 @@ def topk_estep(
         if launches.enabled():
             launches.note("topk_estep", "topk_estep_kernel",
                           Cell(D=T, L=1, K=A, W_s=0, A=A))
-        topk_estep.launches += 1
+        count_launch(topk_estep)
     return mu, delta
 
 
@@ -409,7 +412,7 @@ def blocked_sweep(
             cell = Cell(D=D, L=L, K=K, W_s=W_s, A=A)
             note_pass("topk_estep", cell, mu, mu_out, None, loop=None)
             launches.note("topk_estep", "topk_loop_kernel", cell, nb=nb)
-        blocked_sweep.launches += 1
+        count_launch(blocked_sweep)
         blocked_sweep.launches_per_call = 1 + enqueued.value  # + the copy
     return theta_o, phi_o, ptot_o, mu_out, abs_delta, token_topics
 

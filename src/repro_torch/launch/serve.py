@@ -37,11 +37,13 @@ Run the CLI on a GPU host with
 ``PYTHONPATH=src python -m repro_torch.launch.serve --workdir DIR --topics K
 --vocab W [--make-store] [--traffic --qps Q [--pace] [--replicas N]]``.
 
-``--arch <lm-arch>`` (one of ``configs.registry.ARCHS``: the dense, MoE
-and SSM LMs) serves the arch's ``.reduced()`` config instead (``serve_lm``,
-the JAX package's): random weights, ``--batch`` all-ones prompts of 16
-tokens, one prefill and ``--gen-tokens`` greedy cached decode steps through
-``models.LM`` (``generate``), then one line with the tokens/s.  Add
+``--arch <lm-arch>`` (one of ``configs.registry.ARCHS``) serves the arch's
+``.reduced()`` config instead (``serve_lm``, the JAX package's): random
+weights, ``--batch`` all-ones prompts of 16 tokens (a VLM's with image
+embeddings of ones × 0.01), one prefill and ``--gen-tokens`` greedy cached
+decode steps through ``models.LM`` (``generate``), then one line with the
+tokens/s.  An audio arch (musicgen) exits with a message: its LM reads
+frame embeddings, and the CLI has no frame feed.  Add
 ``--device cpu`` to run either on the host's CPU.
 """
 from __future__ import annotations
@@ -1105,15 +1107,26 @@ def generate(model, params, batch: int, prompt_len: int,
              gen: int) -> Tuple[np.ndarray, float]:
     """Greedy generation, the body of the JAX package's ``serve_lm`` with
     injected parameters: ``batch`` all-ones prompts of ``prompt_len``
-    tokens, one ``prefill``, its caches placed into ``init_cache(batch,
-    prompt_len + gen)`` by ``place_prefill``, then ``gen`` decode steps,
-    each feeding the last step's argmax.  Returns the (batch, gen + 1)
-    int32 tokens (the prefill's and every step's) and the decode loop's
-    seconds."""
+    tokens (a VLM's with ``image_embeds`` of ones × 0.01, (batch,
+    image_tokens, d_model) float32, fed to the prefill and every step), one
+    ``prefill``, its caches placed into ``init_cache(batch, prompt_len +
+    gen)`` by ``place_prefill``, then ``gen`` decode steps, each feeding
+    the last step's argmax.  Returns the (batch, gen + 1) int32 tokens (the
+    prefill's and every step's) and the decode loop's seconds."""
+    cfg = model.cfg
+    if cfg.frontend == "audio_frames":
+        raise ValueError(
+            f"{cfg.name}: the LM takes frame embeddings (batch['embeds']), "
+            f"not tokens; greedy token generation has no frame feed")
     with torch.no_grad():
         tokens = torch.ones((batch, prompt_len), dtype=torch.int32,
                             device=model.device)
-        logits, pre = model.prefill(params, {"tokens": tokens})
+        extra = {}
+        if cfg.frontend == "image_patches":
+            extra["image_embeds"] = torch.ones(
+                (batch, cfg.image_tokens, cfg.d_model), dtype=torch.float32,
+                device=model.device) * 0.01
+        logits, pre = model.prefill(params, {"tokens": tokens, **extra})
         cache = model.init_cache(batch, prompt_len + gen)
         place_prefill(cache, pre)
         del pre
@@ -1121,7 +1134,8 @@ def generate(model, params, batch: int, prompt_len: int,
         out = [tok.cpu().numpy()]
         t0 = time.time()
         for i in range(gen):
-            lg, cache = model.decode_step(params, cache, {"tokens": tok},
+            lg, cache = model.decode_step(params, cache,
+                                          {"tokens": tok, **extra},
                                           prompt_len + i)
             tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
             out.append(tok.cpu().numpy())
@@ -1131,7 +1145,9 @@ def generate(model, params, batch: int, prompt_len: int,
 
 def serve_lm(args) -> np.ndarray:
     """The ``--arch <lm-arch>`` CLI: ``generate`` on the reduced config's
-    random weights; returns the generated tokens."""
+    random weights; returns the generated tokens.  An audio arch exits with
+    a message: its LM reads frame embeddings, and the CLI, like the JAX
+    package's, has no frame feed."""
     from repro_torch.configs.registry import ARCHS   # the LM stack
     from repro_torch.models import build
 
@@ -1139,6 +1155,12 @@ def serve_lm(args) -> np.ndarray:
         raise SystemExit(f"unknown arch {args.arch!r}: {LDA_ARCH} or one of "
                          f"{sorted(ARCHS)}")
     cfg = ARCHS[args.arch].reduced()
+    if cfg.frontend == "audio_frames":
+        raise SystemExit(
+            f"{args.arch}: the LM takes precomputed frame embeddings "
+            f"(batch['embeds'], (B, S, {cfg.d_model})), not tokens, and the "
+            f"serve CLI has no frame feed; drive LM.prefill / "
+            f"LM.decode_step with embeds instead")
     model = build(cfg, device=args.device)
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
@@ -1157,7 +1179,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help=f"{LDA_ARCH} (default) or an LM arch (granite-8b, "
                          "granite-20b, internlm2-20b, h2o-danube-3-4b, "
                          "qwen2-moe-a2.7b, qwen3-moe-235b-a22b, "
-                         "mamba2-370m), served at its reduced config")
+                         "mamba2-370m, jamba-1.5-large-398b, "
+                         "llama-3.2-vision-11b; musicgen-medium takes frame "
+                         "embeddings and exits), served at its reduced "
+                         "config")
     ap.add_argument("--workdir", default="build/repro_torch_train",
                     help="parameter store directory (the train CLI's "
                          "default)")

@@ -29,7 +29,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -132,6 +132,24 @@ def lm_train_step(model, params, opt, batch, *, total_steps: int):
     return loss.detach(), params, opt
 
 
+def lm_batch(cfg, batch: Dict[str, torch.Tensor]) -> Dict[str,
+                                                         torch.Tensor]:
+    """A token batch of ``synthetic_token_stream`` in ``cfg``'s inputs, as
+    the JAX package's ``train_lm`` builds them: an audio config's
+    ``embeds`` = one_hot(tokens mod d_model) float32 in place of
+    ``tokens``; a VLM's ``image_embeds`` of ones × 0.01, (B, image_tokens,
+    d_model) float32, beside them."""
+    batch = dict(batch)
+    if cfg.frontend == "audio_frames":
+        batch["embeds"] = torch.nn.functional.one_hot(
+            batch.pop("tokens").long() % cfg.d_model, cfg.d_model).float()
+    if cfg.frontend == "image_patches":
+        B = batch["labels"].shape[0]
+        batch["image_embeds"] = torch.ones(
+            (B, cfg.image_tokens, cfg.d_model), dtype=torch.float32) * 0.01
+    return batch
+
+
 def train_lm(args) -> List[float]:
     """The ``--arch <lm-arch>`` CLI: train the reduced config from random
     weights (a ``torch.Generator`` seeded with ``--seed`` on the device),
@@ -169,7 +187,8 @@ def train_lm(args) -> List[float]:
     t0 = time.time()
     losses = []
     for step in range(step0 + 1, args.steps + 1):
-        batch = {k: torch.from_numpy(v) for k, v in next(stream).items()}
+        batch = lm_batch(cfg, {k: torch.from_numpy(v)
+                               for k, v in next(stream).items()})
         loss, params, opt = lm_train_step(model, params, opt, batch,
                                           total_steps=args.steps)
         if step % args.log_every == 0:
@@ -190,7 +209,9 @@ def main(argv: Optional[Sequence[str]] = None):
                     help=f"{LDA_ARCH} (default) or an LM arch (granite-8b, "
                          "granite-20b, internlm2-20b, h2o-danube-3-4b, "
                          "qwen2-moe-a2.7b, qwen3-moe-235b-a22b, "
-                         "mamba2-370m), trained at its reduced config")
+                         "mamba2-370m, jamba-1.5-large-398b, "
+                         "llama-3.2-vision-11b, musicgen-medium), trained "
+                         "at its reduced config")
     ap.add_argument("--workdir", default="build/repro_torch_train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)

@@ -1,8 +1,10 @@
 """Weights carried across from the JAX package's ``LM`` to the port's.
 
-The JAX ``LM.init_params`` pytree — ``embed`` (V, D), ``blocks/l{j}/…``
-stacked on a leading ``nblocks`` axis, ``final_norm`` (D,), ``lm_head``
-(D, V) — becomes the port's parameter tree of the same names and shapes.
+The JAX ``LM.init_params`` pytree — ``embed`` (V, D) (none in an audio
+config's tree), ``blocks/l{j}/…`` stacked on a leading ``nblocks`` axis
+(with ``xnorm`` and ``xattn`` on a VLM's cross-attention sublayers),
+``final_norm`` (D,), ``lm_head`` (D, V) — becomes the port's parameter
+tree of the same names and shapes.
 The port keeps the JAX matrix layout: projections are ``(in, out)`` and
 applied as ``x @ W`` (``models.layers``), so no matrix is transposed.  The
 tree comes as numpy arrays (``jax.device_get`` of the JAX tree); this

@@ -1,19 +1,24 @@
 """The decoder LM (PyTorch port of ``repro.models.lm``).
 
 One model class driven by ``ArchConfig``, like the JAX package's ``LM``,
-for the dense, MoE and SSM families:
+for every family of its registry:
 
 * dense / GQA / MQA / sliding-window attention   (granite, internlm2, danube)
-* MoE FFN (top-k routed + shared experts)        (qwen2-moe, qwen3-moe)
-* Mamba2 SSD layers, no attention and no FFN     (mamba2)
+* MoE FFN (top-k routed + shared experts)        (qwen2-moe, qwen3-moe, jamba)
+* Mamba2 SSD layers, attention::Mamba2 interleave (mamba2, jamba)
+* cross-attention every n-th layer on image embeddings (llama-3.2-vision)
+* a frontend of precomputed frame embeddings     (musicgen)
 
 The layers are grouped into super-blocks of ``period`` = lcm of the layer
-patterns' periods (1 for these families); each super-block's sublayer j is
-an attention or a Mamba2 layer, then an MoE or an MLP FFN (none in a pure
-SSM block), as ``is_attn_layer`` / ``is_moe_layer`` say.  The parameters
-are stacked on a leading ``nblocks`` axis under ``blocks/l{j}/…`` as in the
-JAX package's pytree, and a Python loop over the super-blocks takes the
-place of ``lax.scan``.
+patterns' periods (8 for jamba, 5 for llama-3.2-vision, 1 for the rest);
+each super-block's sublayer j is an attention or a Mamba2 layer
+(``is_attn_layer``), then a cross-attention to ``image_embeds`` where
+``is_cross_attn_layer``, then an MoE or an MLP FFN (``is_moe_layer``; no
+FFN in a pure SSM block).  The parameters are stacked on a leading
+``nblocks`` axis under ``blocks/l{j}/…`` as in the JAX package's pytree,
+and a Python loop over the super-blocks takes the place of ``lax.scan``.
+An audio config (``frontend == "audio_frames"``) has no ``embed`` leaf: its
+batches carry ``embeds`` (B, S, d_model) in place of ``tokens``.
 
 The JAX package's three entry points:
 
@@ -22,18 +27,26 @@ The JAX package's three entry points:
 * ``prefill``      — full forward over a prompt returning logits + caches
 * ``decode_step``  — one token against the K/V and SSM caches
 
-Every attention layer goes through ``layers.attention_apply`` →
-``ops.attention`` → the hand-written flash-attention kernel on the card;
-under autograd its gradient is the hand-written backward kernel.  The MoE
-FFN (``models.moe``) and the SSD (``models.ssm``) have no TPU kernel in the
-JAX package and are plain PyTorch here.  Given a mesh and ``moe_impl ==
-"ep"``, prefill and training route the MoE layers through the
-expert-parallel form (``parallel.moe_ep``); decode always takes the TP
-form, as the JAX package does.  The hybrid, VLM and audio families belong
-to later slices (ROADMAP.md, queue 1 item 10): their configs raise
-``NotImplementedError``.  The other pjit levers (``remat``,
-``scan_barrier``, ``seq_parallel``) mean nothing here: ``ArchConfig`` keeps
-them and ``LM`` ignores them.
+A block's caches may mix K/V (attention sublayers) and SSM state and conv
+tail (Mamba2 sublayers), as jamba's do; decode writes both in place.  The
+cross-attention keeps no cache: every step recomputes its keys and values
+from ``image_embeds``, as the JAX package does.  ``image_embeds`` (B,
+image_tokens, d_model) is cast to the model's type once, at the model's
+entry, as the audio frames are: the attention kernel takes q, k and v of
+one type (the JAX package lets a float32 source promote the cross K/V to
+float32 in a bf16 model).
+
+Every attention and cross-attention layer goes through
+``layers.attention_apply`` → ``ops.attention`` → the hand-written
+flash-attention kernel on the card; under autograd its gradient is the
+hand-written backward kernel.  The MoE FFN (``models.moe``) and the SSD
+(``models.ssm``) have no TPU kernel in the JAX package and are plain
+PyTorch here.  Given a mesh and ``moe_impl == "ep"``, prefill and training
+route the MoE layers through the expert-parallel form
+(``parallel.moe_ep``); decode, and any run without a mesh, take the TP
+form, as the JAX package does.  The other pjit levers (``remat``,
+``scan_barrier``, ``seq_parallel``) mean nothing here: ``ArchConfig``
+keeps them and ``LM`` ignores them.
 """
 from __future__ import annotations
 
@@ -51,14 +64,6 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.runtime.device import Device, resolve_device
 
 Tree = Dict[str, Any]
-
-#: What each family that this slice does not run is waiting for
-#: (ROADMAP.md, queue 1 item 10).
-_NOT_PORTED = {
-    "hybrid": "the attention::mamba interleave of the hybrid family",
-    "vlm": "VLM cross-attention",
-    "audio": "the audio frontend",
-}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -82,26 +87,6 @@ def _lcm(*xs: int) -> int:
     return out
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    """Admit the dense, MoE and SSM families in the layer patterns that
-    their configs have; raise ``NotImplementedError`` for the rest."""
-    plain = not (cfg.attn_every or cfg.cross_attn_every
-                 or cfg.frontend != "none")
-    ok = plain and {
-        "dense": not (cfg.num_experts or cfg.ssm_state) and cfg.d_ff > 0,
-        "moe": cfg.num_experts > 0 and not cfg.ssm_state and cfg.d_ff > 0,
-        "ssm": cfg.ssm_state > 0 and not cfg.num_experts,
-    }.get(cfg.family, False)
-    if ok:
-        return
-    part = (f"a {cfg.family} config with another layer pattern"
-            if cfg.family in ("dense", "moe", "ssm") else
-            _NOT_PORTED.get(cfg.family, f"the {cfg.family!r} family"))
-    raise NotImplementedError(
-        f"{cfg.name}: the port runs the dense, MoE and SSM decoder "
-        f"families; {part} is still to port (ROADMAP.md, queue 1 item 10)")
-
-
 class LM(nn.Module):
     """The decoder LM.
 
@@ -119,7 +104,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device: Device = "cuda", mesh=None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -137,8 +121,9 @@ class LM(nn.Module):
 
     def _init_sublayer(self, generator: torch.Generator, j: int) -> Tree:
         """Sublayer j's leaves, exactly the JAX package's: ``norm1``, then
-        ``attn`` or ``mamba``; ``norm2`` and ``moe`` or ``mlp`` — no
-        ``norm2`` in a pure-SSM block (no FFN at all)."""
+        ``attn`` or ``mamba``; ``xnorm`` and ``xattn`` on a cross-attention
+        layer; ``norm2`` and ``moe`` or ``mlp`` — no ``norm2`` in a
+        pure-SSM block (no FFN at all)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         p: Tree = {"norm1": L.rmsnorm_init(cfg.d_model, dt, dev)}
         if cfg.is_attn_layer(j):
@@ -149,6 +134,11 @@ class LM(nn.Module):
             p["mamba"] = ssm_lib.mamba_init(
                 generator, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
                 cfg.ssm_expand, cfg.ssm_conv, dt)
+        if cfg.is_cross_attn_layer(j):
+            p["xnorm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
+            p["xattn"] = L.attention_init(generator, cfg.d_model,
+                                          cfg.num_heads, cfg.num_kv_heads,
+                                          cfg.hd, dt)
         if cfg.is_moe_layer(j):
             p["norm2"] = L.rmsnorm_init(cfg.d_model, dt, dev)
             p["moe"] = moe_lib.moe_init(
@@ -164,18 +154,25 @@ class LM(nn.Module):
         model's device), with the JAX initialisers' distributions: matrices
         normal × 1/√fan_in, the embedding normal × 1, norms at 1.  Each
         super-block is drawn on its own and written into the stacked
-        tensors, so no second copy of the weights is ever held."""
+        tensors, so no second copy of the weights is ever held; a single
+        super-block (jamba cut to 8 layers is one of 49 GB) becomes the
+        stack as it is, a view with the leading axis of 1.  An audio
+        config has no ``embed`` leaf."""
         cfg, dt = self.cfg, self.dtype
         if generator.device.type != self.device.type:
             raise ValueError(f"the generator lies on {generator.device}, the "
                              f"model on {self.device}")
-        params: Tree = {
-            "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt),
-        }
+        params: Tree = {}
+        if cfg.frontend != "audio_frames":
+            params["embed"] = L.embed_init(generator, cfg.vocab_size,
+                                           cfg.d_model, dt)
         blocks: Optional[Tree] = None
         for b in range(self.nblocks):
             blk = {f"l{j}": self._init_sublayer(generator, j)
                    for j in range(self.period)}
+            if self.nblocks == 1:
+                blocks = tree_map(lambda t: t.unsqueeze(0), blk)
+                break
             if blocks is None:
                 blocks = tree_map(
                     lambda t: torch.empty((self.nblocks,) + tuple(t.shape),
@@ -222,8 +219,9 @@ class LM(nn.Module):
     # --------------------------------------------------------------- forward
 
     def _block_apply(self, bp: Tree, x: torch.Tensor, *,
-                     positions: torch.Tensor, bcache: Optional[Tree],
-                     mode: str, pos: Optional[int]):
+                     positions: torch.Tensor,
+                     image_embeds: Optional[torch.Tensor],
+                     bcache: Optional[Tree], mode: str, pos: Optional[int]):
         cfg = self.cfg
         decode = mode == "decode"
         newc: Tree = {}
@@ -258,6 +256,13 @@ class LM(nn.Module):
                         bcache[f"l{j}"][n].copy_(t)
                 if mode != "train":
                     newc[f"l{j}"] = newssm
+            if cfg.is_cross_attn_layer(j):
+                h = L.rmsnorm(x, lp["xnorm"])
+                o, _ = L.attention_apply(
+                    lp["xattn"], h, image_embeds,
+                    num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+                    hd=cfg.hd, causal=False, rope_theta=0.0)
+                x = x + o
             if cfg.is_moe_layer(j):
                 h = L.rmsnorm(x, lp["norm2"])
                 if (cfg.moe_impl == "ep" and self.mesh is not None
@@ -279,9 +284,14 @@ class LM(nn.Module):
         return x, newc
 
     def backbone(self, params: Tree, x: torch.Tensor, *,
-                 positions: torch.Tensor, caches: Optional[Tree] = None,
-                 mode: str = "train", pos: Optional[int] = None):
+                 positions: torch.Tensor,
+                 image_embeds: Optional[torch.Tensor] = None,
+                 caches: Optional[Tree] = None, mode: str = "train",
+                 pos: Optional[int] = None):
         """Runs the block stack.  Returns (hidden, caches).
+
+        ``image_embeds`` (B, image_tokens, d_model) are the cross-attention
+        layers' keys' and values' source (a VLM config; the model's type).
 
         ``mode="train"`` keeps no caches and returns ``(hidden, None)``;
         ``mode="prefill"`` makes new stacked caches of the prompt's keys and
@@ -299,7 +309,8 @@ class LM(nn.Module):
             for b in range(self.nblocks):
                 x, _ = self._block_apply(
                     tree_map(lambda t: t[b], blocks), x, positions=positions,
-                    bcache=None, mode=mode, pos=None)
+                    image_embeds=image_embeds, bcache=None, mode=mode,
+                    pos=None)
             return x, None
         out: Optional[Tree] = caches if mode == "decode" else None
         for b in range(self.nblocks):
@@ -307,6 +318,7 @@ class LM(nn.Module):
             bc = (tree_map(lambda t: t[b], caches) if mode == "decode"
                   else None)
             x, newc = self._block_apply(bp, x, positions=positions,
+                                        image_embeds=image_embeds,
                                         bcache=bc, mode=mode, pos=pos)
             if mode == "prefill":
                 if out is None:
@@ -319,8 +331,19 @@ class LM(nn.Module):
         return x, out
 
     def embed_inputs(self, params: Tree, batch: Dict[str, torch.Tensor]):
+        """The (B, S, d_model) inputs of the stack in the model's type: the
+        embeddings of ``batch["tokens"]``, or an audio config's frame
+        embeddings ``batch["embeds"]``."""
+        if self.cfg.frontend == "audio_frames":
+            return batch["embeds"].to(self.device, self.dtype)
         tokens = batch["tokens"].to(self.device).long()
         return params["embed"][tokens].to(self.dtype)
+
+    def image_embeds(self, batch: Dict[str, torch.Tensor]):
+        """``batch["image_embeds"]`` in the model's type on its device, or
+        None."""
+        img = batch.get("image_embeds")
+        return None if img is None else img.to(self.device, self.dtype)
 
     def logits(self, params: Tree, hidden: torch.Tensor) -> torch.Tensor:
         h = L.rmsnorm(hidden, params["final_norm"])
@@ -338,8 +361,9 @@ class LM(nn.Module):
         backward (``torch.utils.checkpoint``, the counterpart of the JAX
         package's ``jax.checkpoint``), so no (B, S, V) float32 tensor is
         ever held; the chunks' sums are added in order and divided by B·S.
+        B and S come from ``tokens``, or an audio batch's ``embeds``.
         """
-        B, S = batch["tokens"].shape[:2]
+        B, S = batch["embeds" if "embeds" in batch else "tokens"].shape[:2]
         cS = min(512, S)
         nchunks = S // cS
         if nchunks > 1 and S % cS:
@@ -348,7 +372,7 @@ class LM(nn.Module):
         x = self.embed_inputs(params, batch)
         hidden, _ = self.backbone(
             params, x, positions=torch.arange(S, device=self.device),
-            mode="train")
+            image_embeds=self.image_embeds(batch), mode="train")
         hidden = L.rmsnorm(hidden, params["final_norm"])
         labels = batch["labels"].to(self.device).long()
         if nchunks <= 1:
@@ -377,28 +401,33 @@ class LM(nn.Module):
     # ------------------------------------------------------------- serving
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor]):
-        """Forward over a full prompt ``batch["tokens"]`` (B, S); returns
-        (logits (B, S, vocab), caches: K/V of (nblocks, B, KV, S, hd), SSM
-        states and conv tails as ``init_cache`` shapes them)."""
+        """Forward over a full prompt ``batch["tokens"]`` (B, S) (an audio
+        config's ``batch["embeds"]`` (B, S, d_model); a VLM's
+        ``batch["image_embeds"]`` beside it); returns (logits (B, S,
+        vocab), caches: K/V of (nblocks, B, KV, S, hd), SSM states and conv
+        tails as ``init_cache`` shapes them)."""
         x = self.embed_inputs(params, batch)
         S = x.shape[1]
         hidden, caches = self.backbone(
             params, x, positions=torch.arange(S, device=self.device),
-            mode="prefill")
+            image_embeds=self.image_embeds(batch), mode="prefill")
         return self.logits(params, hidden), caches
 
     def decode_step(self, params: Tree, caches: Tree,
                     batch: Dict[str, torch.Tensor], pos):
-        """One decode step.  ``batch["tokens"]`` is (B, 1); ``pos`` (an int
-        or a 0-d tensor) is its position.  The caches are updated in place
-        and returned with the logits (B, 1, vocab)."""
+        """One decode step.  ``batch["tokens"]`` is (B, 1) (an audio
+        config's ``batch["embeds"]`` (B, 1, d_model); a VLM's
+        ``batch["image_embeds"]`` beside it, every step); ``pos`` (an int or
+        a 0-d tensor) is its position.  The caches are updated in place and
+        returned with the logits (B, 1, vocab)."""
         pos = int(pos)
         x = self.embed_inputs(params, batch)
         hidden, caches = self.backbone(
             params, x,
             positions=torch.full((1,), pos, dtype=torch.long,
                                  device=self.device),
-            caches=caches, mode="decode", pos=pos)
+            image_embeds=self.image_embeds(batch), caches=caches,
+            mode="decode", pos=pos)
         return self.logits(params, hidden), caches
 
 

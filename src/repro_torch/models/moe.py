@@ -21,7 +21,7 @@ form is ``repro_torch.parallel.moe_ep``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -101,12 +101,16 @@ def pairs_of(xt: torch.Tensor, k: int, order: torch.Tensor) -> torch.Tensor:
     return rep.index_select(0, order)
 
 
-def combine(vals: torch.Tensor, inv: torch.Tensor, k: int) -> torch.Tensor:
-    """The sorted pairs' weighted outputs (T·k, D) summed into their
+def combine(vals: torch.Tensor, inv: torch.Tensor, k: int,
+            T: Optional[int] = None) -> torch.Tensor:
+    """The sorted pairs' weighted outputs (T·k, D) summed into their T
     tokens, (T, D): back in (token, slot) order, then a sum over the k
-    slots in order — no atomics."""
+    slots in order — no atomics.  ``T`` defaults to T·k / k; with k = 0 it
+    must be given (zeros, as the JAX package's scatter of no pair)."""
     D = vals.shape[-1]
-    return vals.index_select(0, inv).view(-1, k, D).sum(1)
+    if T is None:
+        T = inv.numel() // k
+    return vals.index_select(0, inv).view(T, k, D).sum(1)
 
 
 def grouped_ffn(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -148,7 +152,7 @@ def moe_apply(p: Params, x: torch.Tensor, *, experts_per_token: int,
     sizes = torch.bincount(topi.reshape(-1), minlength=Ep).tolist()
     out = grouped_ffn(xs, p["w_gate"], p["w_up"], p["w_down"], sizes)
     w = topv.reshape(-1).index_select(0, order)
-    y = combine(out.float() * w[:, None], inv, k)
+    y = combine(out.float() * w[:, None], inv, k, B * S)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xt).float()
     return y.reshape(B, S, D).to(x.dtype)

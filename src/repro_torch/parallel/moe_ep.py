@@ -148,7 +148,7 @@ def _ep_local(p: Params, xt: torch.Tensor, *, k: int, num_experts: int,
     back = F.pad(back, (0, 0, 0, 1)).reshape(E * (C + 1), D)
     vals = back.index_select(0, cell)
     w = topv.reshape(-1).index_select(0, order)
-    y = combine(vals.float() * w[:, None], inv, k)
+    y = combine(vals.float() * w[:, None], inv, k, xt.shape[0])
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xt).float()
     return y.to(xt.dtype)

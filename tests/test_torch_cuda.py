@@ -326,6 +326,39 @@ def test_threads_at_different_lengths_launch_together(cuda):
     assert same == [True] * len(lengths)
 
 
+def test_launch_counts_exact_under_threads(cuda):
+    """4 host threads × 200 launches of one wrapper, started together
+    against a library whose ctypes set-up is not done yet (the threads
+    race into ``build.load``): every launch succeeds with the bits of the
+    same launch made alone, and the counter reads exactly 800 more."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    threads, rounds = 4, 200
+    q, k, v = _attn_inputs(8, 2, 16, 64, 32, torch.float32, cuda, 2)
+    want = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    with build._lock:           # a fresh load: the set-up runs again
+        build._loaded.pop("flash_attention", None)
+        build._bound.discard(("flash_attention", fa._bind))
+    start = threading.Barrier(threads)
+
+    def hammer(_):
+        start.wait()
+        got = [flash_attention(q, k, v, causal=True) for _ in range(rounds)]
+        torch.cuda.synchronize()
+        return all(torch.equal(g, want) for g in got)
+
+    before = flash_attention.launches
+    with ThreadPoolExecutor(threads) as pool:
+        same = list(pool.map(hammer, range(threads)))
+    assert same == [True] * threads
+    assert flash_attention.launches - before == threads * rounds
+
+
 @pytest.mark.parametrize("phi_dtype", ["float32", "int8"])
 def test_document_bits_independent_of_lengths_and_order(cuda, phi_dtype):
     """Documents whose fit lengths differ by 4x run longest first; each
@@ -1308,6 +1341,13 @@ def _attn_inputs(BH, BHkv, Sq, Sk, d, dtype, dev, seed, off=0):
     (4, 1, 1, 1000, 128, True, 0, 999, 0),   # B·Hkv = 1 decode
     (8, 2, 70, 70, 120, True, 24, 0, 1),     # unaligned base, d = 120
     (4, 2, 33, 50, 17, True, 0, 0, 17),      # offset by a row of odd d
+    # llama-3.2-vision's cross-attention: non-causal, Sq > Sk, the 1,601
+    # image tokens ragged against every key tile; its decode form
+    (8, 2, 2048, 1601, 128, False, 0, 0, 0),
+    (32, 8, 1, 1601, 128, False, 0, 0, 0),
+    # musicgen: MHA (G = 1), d = 64, causal prefill and decode
+    (24, 24, 300, 300, 64, True, 0, 0, 0),
+    (24, 24, 1, 300, 64, True, 0, 299, 0),
 ])
 def test_flash_attention_matches_plain(cuda, dtype, BH, BHkv, Sq, Sk, d,
                                        causal, window, qoff, off):
@@ -1390,6 +1430,89 @@ def test_reduced_lm_prefill_and_decode_match_the_cpu(cuda, name, dtype):
     torch.testing.assert_close(dec_g, dec_c, rtol=rtol, atol=atol)
 
 
+def _new_family_batch(cfg, B, S, seed, dev):
+    """Seeded inputs of the hybrid, VLM or audio LM: tokens (an audio
+    config's frame embeddings) and a VLM's image embeddings."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    if cfg.frontend == "audio_frames":
+        out["embeds"] = torch.randn((B, S, cfg.d_model), generator=g)
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+    if cfg.frontend == "image_patches":
+        out["image_embeds"] = torch.randn((B, cfg.image_tokens, cfg.d_model),
+                                          generator=g)
+    return {k: t.to(dev) for k, t in out.items()}
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("llama-3.2-vision-11b", "float32"), ("llama-3.2-vision-11b", "bfloat16"),
+    ("musicgen-medium", "float32"), ("musicgen-medium", "bfloat16"),
+    ("jamba-1.5-large-398b", "float32")])
+def test_new_family_lm_prefill_and_decode_match_the_plain_path(cuda, name,
+                                                               dtype):
+    """The VLM, audio and hybrid LMs at full attention width with their
+    depth cut to one super-block (5, 2 and 8 layers), seeded weights, on the
+    card: prefill of 2 × 40 positions and 8 decode steps through the kernels
+    — one launch a self-attention and a cross-attention layer a call —
+    against the same on the card through the plain attention
+    (``flash_attention_reference``), within the kernel's tolerance carried
+    through the layers (``LM_TOL``).  jamba (d 8,192, 64 heads over 8, 16
+    experts top-2) has its FFNs cut to d_ff 2,048 so that float32 fits
+    beside the plain path, and runs in float32 only: in bf16 a routing
+    near-tie may flip between the two attentions' ulps and move a token by
+    O(1)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.serve import place_prefill
+    from repro_torch.models import build
+
+    layers = {"llama-3.2-vision-11b": 5, "musicgen-medium": 2,
+              "jamba-1.5-large-398b": 8}[name]
+    cfg = dataclasses.replace(ARCHS[name], num_layers=layers, dtype=dtype)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, d_ff=2048)
+    n_attn = sum(cfg.is_attn_layer(i) + cfg.is_cross_attn_layer(i)
+                 for i in range(cfg.num_layers))
+    model = build(cfg, device=cuda)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
+    B, S, steps = 2, 40, 8
+    batch = _new_family_batch(cfg, B, S + steps, 1, cuda)
+
+    def at(b, lo, hi):
+        return {k: (t if k == "image_embeds" else t[:, lo:hi])
+                for k, t in b.items()}
+
+    def run():
+        with torch.no_grad():
+            logits, pre = model.prefill(params, at(batch, 0, S))
+            cache = model.init_cache(B, S + steps)
+            place_prefill(cache, pre)
+            outs = [logits]
+            for t in range(S, S + steps):
+                lg, cache = model.decode_step(params, cache,
+                                              at(batch, t, t + 1), t)
+                outs.append(lg)
+        return torch.cat(outs, 1).float().cpu()
+
+    before = flash_attention.launches
+    got = run()
+    assert flash_attention.launches - before == n_attn * (1 + steps)
+    real = ops.attention
+    ops.attention = (lambda q, k, v, *, causal=True, window=0, q_offset=0:
+                     flash_attention_reference(q, k, v, causal=causal,
+                                               window=window,
+                                               q_offset=q_offset))
+    try:
+        want = run()
+    finally:
+        ops.attention = real
+    assert torch.isfinite(got).all()
+    rtol, atol = LM_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("BH,BHkv,Sq,Sk,d,qoff", [
@@ -1469,11 +1592,18 @@ def _assert_backward_close(got, want, truth, dtype):
     (8, 2, 1024, 120, True, 4096),           # danube's grouping, 2 KV heads
     (8, 2, 200, 100, True, 0),               # 200-byte rows: no TMA
     (6, 2, 400, 64, True, 40),               # a window < one 128-key tile
+    # llama-3.2-vision's cross-attention: non-causal, Sq > Sk, Sk = 1,601
+    # ragged against every tile width
+    (8, 2, (2048, 1601), 128, False, 0),
+    (4, 1, (300, 77), 128, False, 0),
+    # musicgen: MHA (G = 1), d = 64, causal
+    (24, 24, 300, 64, True, 0),
 ])
 def test_flash_attention_backward_matches_plain(cuda, dtype, BH, BHkv, S, d,
                                                 causal, window):
     """S is Sq = Sk or (Sq, Sk), the queries then the last Sq positions
-    (q_offset = Sk - Sq)."""
+    (q_offset = Sk - Sq; negative for a non-causal Sq > Sk, where no mask
+    reads it)."""
     Sq, Sk = S if isinstance(S, tuple) else (S, S)
     q, _, _ = _attn_inputs(BH, BHkv, Sq, Sk, d, dtype, cuda, Sq + d)
     _, k, v = _attn_inputs(BH, BHkv, Sk, Sk, d, dtype, cuda, Sk + d)

@@ -121,8 +121,8 @@ def test_blocked_slice_modules_stand_alone(name, kernel):
 ])
 def test_lm_slice_modules_stand_alone(name):
     """The LM slices' modules import without JAX, the registry's config
-    modules too (the dense, MoE and SSM archs), and the attention kernel's
-    CUDA source is one of the build's."""
+    modules too (the dense, MoE, SSM, hybrid, VLM and audio archs), and the
+    attention kernel's CUDA source is one of the build's."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -130,7 +130,7 @@ def test_lm_slice_modules_stand_alone(name):
         f"import importlib; importlib.import_module({name!r})\n"
         "from repro_torch.configs.registry import ARCHS\n"
         "assert {ARCHS[n].family for n in ARCHS} == {'dense', 'moe', "
-        "'ssm'}\n"
+        "'ssm', 'hybrid', 'vlm', 'audio'}\n"
         "from repro_torch.kernels import build\n"
         "assert 'flash_attention' in build.KERNELS\n"
         "assert (build.CSRC / 'flash_attention.cu').exists()\n"

@@ -35,6 +35,14 @@ near-tie (a token's k-th and (k+1)-th probabilities within
 would move a token's output by O(1): the MoE tests record the port's
 routing gaps and assert that none is that close, so such a tie shows as
 what it is and not as a mismatch of the logits.
+
+The hybrid, VLM and audio configs (``NEW_FAMILIES``) equal the JAX
+package's, and the registry lists every JAX arch.  Their reduced configs,
+and three layer patterns no config of the registry has (a dense config
+with experts, an MoE config with a Mamba2 interleave, an SSM with
+experts), build in both packages with equal prefill logits and caches at
+ATOL/RTOL; ``test_torch_hybrid.py``, ``test_torch_vlm.py`` and
+``test_torch_audio.py`` hold the three archs in full.
 """
 import dataclasses
 
@@ -44,6 +52,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import ArchConfig as JaxArchConfig
 from repro.configs.registry import ARCHS as JAX_ARCHS
 from repro.models import build as jax_build
 from repro.models import layers as jax_layers
@@ -57,6 +66,10 @@ from repro_torch.models.lm import tree_map
 ATOL = RTOL = 1e-4
 DENSE = ["granite-8b", "h2o-danube-3-4b"]
 MOE_SSM = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "mamba2-370m"]
+# the hybrid, VLM and audio archs (tests/test_torch_hybrid.py,
+# test_torch_vlm.py and test_torch_audio.py hold them in full)
+NEW_FAMILIES = ["jamba-1.5-large-398b", "llama-3.2-vision-11b",
+                "musicgen-medium"]
 # routing gaps closer than this may flip between the packages in float32
 # (a hundred times the float32 noise of a probability)
 NEAR_TIE = 1e-6
@@ -105,7 +118,7 @@ def _np(x):
 
 @pytest.mark.parametrize("name", ["granite-8b", "granite-20b",
                                   "internlm2-20b", "h2o-danube-3-4b"]
-                         + MOE_SSM)
+                         + MOE_SSM + NEW_FAMILIES)
 def test_port_configs_equal_the_jax_package(name):
     assert dataclasses.asdict(ARCHS[name]) == dataclasses.asdict(
         JAX_ARCHS[name])
@@ -115,34 +128,79 @@ def test_port_configs_equal_the_jax_package(name):
 
 
 def test_registry_lists_the_dense_archs():
-    """(The name predates the MoE and SSM archs.)  The seven archs the
-    port runs, and their families."""
+    """(The name predates the other families.)  The ten archs the port
+    runs — every arch of the JAX package's registry — and their
+    families."""
     assert {n: ARCHS[n].family for n in list_archs()} == {
         "granite-20b": "dense", "granite-8b": "dense",
         "h2o-danube-3-4b": "dense", "internlm2-20b": "dense",
         "mamba2-370m": "ssm", "qwen2-moe-a2.7b": "moe",
-        "qwen3-moe-235b-a22b": "moe"}
-    assert list_archs() == sorted(ARCHS)
+        "qwen3-moe-235b-a22b": "moe", "jamba-1.5-large-398b": "hybrid",
+        "llama-3.2-vision-11b": "vlm", "musicgen-medium": "audio"}
+    assert list_archs() == sorted(ARCHS) == sorted(JAX_ARCHS)
 
 
-@pytest.mark.parametrize("name", sorted(set(JAX_ARCHS) - set(ARCHS)))
+def _prefill_batches(cfg, B, S, seed):
+    """The same numpy-seeded inputs for both packages: tokens (an audio
+    config's frame embeddings), and a VLM's image embeddings."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend == "audio_frames":
+        out["embeds"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (B, S))
+    if cfg.frontend == "image_patches":
+        out["image_embeds"] = rng.normal(
+            size=(B, cfg.image_tokens, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v, jnp.int32 if k == "tokens" else None)
+             for k, v in out.items()},
+            {k: torch.from_numpy(v) for k, v in out.items()})
+
+
+def _prefill_parity(cfg):
+    """``cfg`` builds in both packages, and the port's prefill logits and
+    caches (the JAX weights carried across) are the JAX package's within
+    ATOL/RTOL."""
+    mj = jax_build(_jax_cfg(cfg))
+    pj = mj.init_params(jax.random.PRNGKey(3))
+    mt = LM(cfg, device="cpu")
+    pt = params_from_jax(jax.device_get(pj), device="cpu")
+    bj, bt = _prefill_batches(cfg, 2, 20, 4)
+    lj, cj = mj.prefill(pj, bj)
+    lt, ct = mt.prefill(pt, bt)
+    np.testing.assert_allclose(lt.numpy(), _np(lj), atol=ATOL, rtol=RTOL)
+    _cmp_caches(ct, cj, atol=ATOL, rtol=RTOL)
+
+
+def _jax_cfg(cfg):
+    """The JAX package's ``ArchConfig`` of the same fields."""
+    return JaxArchConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.mark.parametrize("name", NEW_FAMILIES)
 def test_non_dense_families_raise(name):
+    """(The name predates the hybrid, VLM and audio slice, whose archs these
+    cases refused.)  ``LM`` builds each of them, ``NotImplementedError``
+    no more, and its reduced config's prefill logits and caches are the
+    JAX package's."""
     cfg = ArchConfig(**dataclasses.asdict(JAX_ARCHS[name].reduced()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        LM(cfg, device="cpu")
+    _prefill_parity(cfg)
 
 
 @pytest.mark.parametrize("family,change", [
     ("dense", dict(num_experts=4)), ("moe", dict(attn_every=2)),
     ("ssm", dict(num_experts=4))])
 def test_other_layer_patterns_raise(family, change):
-    """A ported family with a layer pattern its configs do not have (a
-    hybrid interleave, experts in an SSM) is still to port."""
+    """(The name predates the slice that ported every layer pattern, whose
+    configs these cases refused.)  A family in a layer pattern its configs
+    do not have — a dense config with experts (top-0: the FFN adds zeros,
+    as in the JAX package), a hybrid interleave of an MoE config (its SSM
+    layers of state 0), experts in an SSM — builds in both packages, and
+    the port's prefill logits and caches are the JAX package's."""
     name = {"dense": "granite-8b", "moe": "qwen2-moe-a2.7b",
             "ssm": "mamba2-370m"}[family]
-    cfg = dataclasses.replace(ARCHS[name].reduced(), **change)
-    with pytest.raises(NotImplementedError, match="another layer pattern"):
-        LM(cfg, device="cpu")
+    _prefill_parity(dataclasses.replace(ARCHS[name].reduced(), **change))
 
 
 def test_training_mode_is_not_in_this_slice():

@@ -102,7 +102,7 @@ order:
    UCI docword file (``baselines step`` lines: wall ms, ``fused_estep``
    launches — ``max_sweeps`` a step for OVB and SCVB, 0 for OGS —, train
    perplexity, peak device memory, Σφ̂(k) against the merge's mass);
-9. dry-runs the LDA cells (``launch.dryrun.run_cell``, dense): stream_1k
+9. dry-runs the LDA cells (``launch.dryrun.run_lda_cell``, dense): stream_1k
    must fit the card, run one step from zero statistics, launch both sweep
    kernels and peak below the card's memory; stream_4k and bigmodel are
    sized and run only if they fit (``dryrun`` lines, one record each:
@@ -184,8 +184,8 @@ order:
 15. runs the LM CLIs in processes of their own: ``launch.serve --arch
    granite-8b --gen-tokens 8``, ``launch.train --arch granite-8b --steps
    12 --ckpt-every 5`` (the loss must fall) and its ``--resume --steps 14``
-   (from step 10), and ``examples/torch/train_lm.py --quick`` (``lm cli``
-   line);
+   (from step 10), and ``examples/torch/train_lm.py --quick``, the serve
+   CLI and the example beside the two train runs (``lm cli`` line);
 16. drives the MoE and Mamba2 paths (no kernel of their own: the JAX
    package has none there; their attention layers go through the two
    attention kernels): qwen2-moe-a2.7b at full width and depth (24 layers,
@@ -2330,7 +2330,7 @@ def sharded_training_phase(torch, cap, report):
 
 
 def dryrun_phase(torch, report):
-    """The LDA cells' dry run (``launch.dryrun.run_cell``) on the card, the
+    """The LDA cells' dry run (``launch.dryrun.run_lda_cell``) on the card, the
     dense cell of each ``DRYRUN_SHAPES`` regime: each sized from its
     stand-ins against the card's free memory, and run from seed 0 when it
     fits.  stream_1k must fit, run, launch both sweep kernels, peak below
@@ -2347,8 +2347,8 @@ def dryrun_phase(torch, report):
     gs_sweep.launches = 0                 # counts of this path only
     scheduled_sweep.launches = 0
     t0 = time.perf_counter()
-    recs = [dryrun.run_cell(name, impl="dense", seed=0,
-                            out_dir=str(ROOT / "build" / "dryrun"))
+    recs = [dryrun.run_lda_cell(name, impl="dense", seed=0,
+                                out_dir=str(ROOT / "build" / "dryrun"))
             for name in DRYRUN_SHAPES]
     wall = time.perf_counter() - t0
     launched = {"gs_sweep": gs_sweep.launches,
@@ -2376,6 +2376,285 @@ def dryrun_phase(torch, report):
     report["dryrun"] = {"seconds": wall, "launches": launched,
                         "records": recs}
     print(f"dryrun phase {wall:.1f} s, launches {json.dumps(launched)}")
+
+
+#: The LM dry run's cells that must fit one card and run at full width and
+#: depth: (arch, shape) → the attention kernel's launches a step.
+LM_DRYRUN_FIT = {("h2o-danube-3-4b", "decode_32k"): 24,
+                 ("h2o-danube-3-4b", "long_500k"): 24,
+                 ("mamba2-370m", "decode_32k"): 0,
+                 ("mamba2-370m", "long_500k"): 0}
+#: The named card shape of the LM train cell: musicgen-medium whole, two
+#: microbatches of one 2,048-token sequence, at the end of the warm-up
+#: (count 2000: lr 3e-4; at count 0 the warm-up's lr is 0 and nothing
+#: would move).
+LM_CARD_ARCH, LM_CARD_SEQ, LM_CARD_BATCH = "musicgen-medium", 2048, 2
+LM_CARD_MICRO, LM_CARD_COUNT = 2, 2000
+#: The accumulated gradient against two single-microbatch passes summed
+#: in float32, over every leaf: ||acc - ref|| / ||ref||.  Both run the same
+#: kernels on the same (1, 2,048) microbatches (the attention backward
+#: writes each gradient tile once, without atomics), so their bf16
+#: gradients agree and the float32 sums and the halving are the same
+#: operations: a sound run reads ~0.  One microbatch taken twice reads
+#: ||g0 - g1|| / ||g0 + g1||, orders of magnitude above this.
+LM_CARD_GRAD_RTOL = 1e-5
+PAR_RANKS = 4               # the parallel phase's mesh: (1, 4), gloo
+PAR_ELEMENTS = 1 << 20      # the compressed gradient's elements a rank
+PAR_ATOL = 1e-5             # collectives against the all-reduce
+PAR_COMPRESS_RTOL = 0.02    # compressed_psum against the exact sum (norm)
+PIPE_WIDTH = 3840           # h2o-danube-3-4b's d_model
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 8, 8   # S, M, rows a microbatch
+PIPE_TOL = 1e-4             # the pipeline against the sequential product
+
+
+def lm_dryrun_phase(torch, report):
+    """The LM half of the dry run (``launch.dryrun.run_lm_cell``) over every
+    (arch × shape) of the registry: each cell sized per device on the
+    16 × 16 production mesh and whole against the card's free memory, and
+    run from seed 0 when it fits (two steps, the second timed).  The four
+    cells of ``LM_DRYRUN_FIT`` must fit and run at full width and depth:
+    finite logits, the decode's ring-cache rows written at the position's
+    slot alone (danube) or every block's SSM state (mamba2), 24 attention
+    launches a danube step, a peak below the card's memory.  Then the
+    musicgen-medium train cell at its card shape, two microbatches: a
+    finite loss, both attention kernels launched, every weight matrix
+    moved (the bf16 norm scales at 1.0 do not move at lr 3e-4: the update
+    is below their half-ulp), and the accumulated gradient
+    (``LMCell.grad_fn``) against two single-microbatch passes summed in
+    float32, leaf by leaf: ||acc - ref|| / ||ref|| over every leaf."""
+    import math
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import build_lm_cell
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0          # counts of this path only
+    flash_attention_backward.launches = 0
+    out_dir = str(ROOT / "build" / "dryrun")
+    total = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    recs = [dryrun.run_lm_cell(arch, shape, seed=0, out_dir=out_dir)
+            for arch, shape in dryrun.iter_all_cells()
+            if arch != "foem-lda"]
+    cells_s = time.perf_counter() - t0
+    ran = {(r["arch"], r["shape"]): r for r in recs if r["ran"]}
+    check(set(ran) == set(LM_DRYRUN_FIT),
+          f"the LM dry-run cells that ran: {sorted(ran)}, expected "
+          f"{sorted(LM_DRYRUN_FIT)}")
+    for key, attn in LM_DRYRUN_FIT.items():
+        r = ran[key]
+        pos = r["dims"]["S"] - 1
+        check(r["finite"], f"dry-run {key}: non-finite logits")
+        check(r["launches"]["flash_attention"] == attn,
+              f"dry-run {key}: {r['launches']} attention launches, "
+              f"expected {attn}")
+        check(0 < r["peak_allocated_bytes"] < total,
+              f"dry-run {key}: peak {r['peak_allocated_bytes']} of {total}")
+        if attn:
+            ring = get_arch(key[0]).sliding_window   # the ring's slots
+            check(r["written_slots"] == [pos % ring],
+                  f"dry-run {key}: ring slots written {r['written_slots']},"
+                  f" expected [{pos % ring}]")
+        else:
+            check(r["ssm_states_written"] == r["dims"]["layers"],
+                  f"dry-run {key}: {r['ssm_states_written']} SSM states "
+                  f"written of {r['dims']['layers']}")
+    t1 = time.perf_counter()
+    card = ShapeConfig("train_card", seq_len=LM_CARD_SEQ,
+                       global_batch=LM_CARD_BATCH, kind="train")
+    overrides = {"micro_batches": LM_CARD_MICRO}
+    train = dryrun.run_lm_cell(LM_CARD_ARCH, card, overrides=overrides,
+                               seed=0, opt_count=LM_CARD_COUNT,
+                               out_dir=out_dir)
+    train_s = time.perf_counter() - t1
+    check(train["fits"] and train["ran"] and train["finite"],
+          f"the {LM_CARD_ARCH} card train cell: fits {train['fits']}, ran "
+          f"{train['ran']}, loss {train.get('loss')}")
+    check(all(train["launches"][k] > 0 for k in dryrun.LM_KERNELS),
+          f"the card train cell's attention launches {train['launches']}")
+    check(train["matrices_changed"] == train["matrices"],
+          f"the card train steps moved {train['matrices_changed']} of "
+          f"{train['matrices']} weight matrices")
+    launched = {"flash_attention": flash_attention.launches,
+                "flash_attention_backward": flash_attention_backward.launches}
+    check(launched == {k: sum(r["launches_all"][k] for r in [*recs, train]
+                              if r["ran"]) for k in launched},
+          f"the LM dry run's records against the counters {launched}")
+    # the accumulated gradient against two single-microbatch passes
+    t2 = time.perf_counter()
+    cell = build_lm_cell(LM_CARD_ARCH, card, make_production_mesh(),
+                         overrides=overrides)
+    one = build_lm_cell(LM_CARD_ARCH, ShapeConfig(
+        "train_card_micro", seq_len=LM_CARD_SEQ, global_batch=1,
+        kind="train"), make_production_mesh())
+    params, opt, batch = cell.materialize("cuda", seed=0)
+    del opt
+    _, acc = cell.grad_fn(params, batch)
+    acc = dryrun._leaves(acc)
+    ref = None
+    for i in range(LM_CARD_MICRO):
+        _, g = one.grad_fn(params, {k: v[i:i + 1] for k, v in batch.items()})
+        if ref is None:
+            ref = [t.float() for t in dryrun._leaves(g)]
+        else:
+            for a, t in zip(ref, dryrun._leaves(g)):
+                a.add_(t.float())
+        del g
+    acc_sq = ref_sq = diff_sq = 0.0
+    for a, r in zip(acc, ref):
+        r.div_(LM_CARD_MICRO)
+        acc_sq += float(a.double().square().sum())
+        ref_sq += float(r.double().square().sum())
+        diff_sq += float((a - r).double().square().sum())
+    del acc, ref, params, batch
+    torch.cuda.empty_cache()
+    acc_norm, ref_norm = math.sqrt(acc_sq), math.sqrt(ref_sq)
+    grad_rel = math.sqrt(diff_sq) / ref_norm
+    check(math.isfinite(acc_norm) and grad_rel <= LM_CARD_GRAD_RTOL,
+          f"the card train cell's accumulated gradient against the "
+          f"microbatches' mean: ||acc - ref|| / ||ref|| = {grad_rel} "
+          f"(norms {acc_norm}, {ref_norm})")
+    grad_s = time.perf_counter() - t2
+    rec = {"seconds": time.perf_counter() - t0, "cells_s": cells_s,
+           "train_card_s": train_s, "grad_check_s": grad_s,
+           "launches": launched,
+           "cells": len(recs), "ran": [list(k) for k in ran],
+           "train_card": train, "grad_norm": acc_norm,
+           "grad_norm_microbatches": ref_norm, "grad_rel_err": grad_rel}
+    for key, r in ran.items():
+        print("lm dryrun cell " + json.dumps({
+            "arch": key[0], "shape": key[1], "step_s": r["step_s"],
+            "first_step_s": r["first_step_s"],
+            "peak_gb": r["peak_allocated_bytes"] / 1e9,
+            "predicted_gb": r["predicted_bytes_on_card"] / 1e9,
+            "argument_gb": r["argument_bytes"] / 1e9,
+            "per_device_gb_16x16":
+                r["argument_bytes_per_device"]["16x16"] / 1e9,
+            "launches": r["launches"],
+            "roofline_bound_s": r["roofline"]["bound_s"],
+            "roofline_dominant": r["roofline"]["dominant"],
+            "bound_fraction": r["roofline"]["bound_fraction"]}))
+    print("lm dryrun train card " + json.dumps({
+        k: train[k] for k in ("step_s", "first_step_s", "losses",
+                              "launches", "peak_allocated_bytes",
+                              "predicted_bytes_on_card", "argument_bytes",
+                              "working_set_bytes", "leaves_changed",
+                              "leaves", "matrices_changed", "matrices",
+                              "sample_elements_changed", "roofline")}))
+    print("lm dryrun " + json.dumps({k: v for k, v in rec.items()
+                                     if k != "train_card"}))
+    report["lm_dryrun"] = rec
+
+
+def _parallel_rank(mesh, seed):
+    """One rank of the parallel phase (a (1, 4) mesh sharing the card over
+    gloo): the collectives against the all-reduce, ``compressed_psum`` on a
+    (PAR_ELEMENTS,) float32 gradient against the exact sum, and the GPipe
+    forward against the sequential product."""
+    import torch
+
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import compression as Z
+    from repro_torch.parallel import make_pipelined_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    axis, r, dev = mesh.model, mesh.model.index, mesh.device
+    out = {"rank": r}
+    g = torch.Generator(device=dev).manual_seed(seed + r)
+    t0 = time.perf_counter()
+    x = torch.randn((4 * PAR_RANKS, 1024), generator=g, device=dev)
+    (want,) = axis.all_reduce(x)
+    errs = {
+        "psum_scatter_then_gather": C.psum_scatter_then_gather(x, axis)
+        - want,
+        "chunked_psum": C.chunked_psum(x, axis, 4) - want,
+        "reduce_scatter": C.reduce_scatter(x, axis)
+        - want[4 * r:4 * r + 4]}
+    out["collective_err"] = {k: float(v.abs().max()) for k, v in errs.items()}
+    gathered = C.all_gather(x, axis)
+    ring = C.ring_all_gather(x, axis, PAR_RANKS)
+    out["ring_equal"] = bool(torch.equal(ring.reshape(gathered.shape),
+                                         gathered))
+    y = torch.randn((PAR_RANKS * 2, 64), generator=g, device=dev)
+    moved = C.all_to_all_tokens(y, axis, PAR_RANKS)
+    out["all_to_all_equal"] = bool(torch.equal(moved, axis.all_to_all(y)))
+    torch.cuda.synchronize()
+    out["collectives_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    grad = torch.randn((PAR_ELEMENTS,), generator=g, device=dev)
+    approx, state = Z.compressed_psum(grad, axis, Z.ef_init(grad))
+    (exact,) = axis.all_reduce(grad.double())
+    out["compress_rel"] = float((approx.double() - exact).norm()
+                                / exact.norm())
+    out["compress_finite"] = bool(torch.isfinite(state.error).all())
+    torch.cuda.synchronize()
+    out["compress_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gw = torch.Generator(device=dev).manual_seed(seed)   # the same on all
+    w = torch.randn((PIPE_STAGES, PIPE_WIDTH, PIPE_WIDTH), generator=gw,
+                    device=dev) / PIPE_WIDTH ** 0.5
+    xp = torch.randn((PIPE_MICRO * PIPE_ROWS, PIPE_WIDTH), generator=gw,
+                     device=dev)
+    run = make_pipelined_apply(lambda p, h: torch.tanh(h @ p), axis,
+                               num_stages=PIPE_STAGES,
+                               num_microbatches=PIPE_MICRO)
+    with torch.no_grad():
+        piped = run(w[r:r + 1], xp)
+        h = xp
+        for s in range(PIPE_STAGES):
+            h = torch.tanh(h @ w[s])
+    torch.cuda.synchronize()
+    out["pipeline_s"] = time.perf_counter() - t0
+    out["pipeline_err"] = float((piped - h).abs().max())
+    out["pipeline_finite"] = bool(torch.isfinite(piped).all())
+    return out
+
+
+def parallel_phase(torch, report):
+    """``parallel/`` on the card: ONE ``spawn_mesh`` of 4 ranks sharing it
+    over gloo, each checking the collectives against the all-reduce, the
+    int8 error-feedback all-reduce against the exact sum, and a GPipe
+    forward of 4 stages × 8 microbatches of tanh(x @ w) at danube's width
+    against the sequential product."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(_parallel_rank, 1, PAR_RANKS, device="cuda",
+                       args=(11,), timeout=300)
+    rec = {"seconds": time.perf_counter() - t0, "ranks": PAR_RANKS,
+           "collective_err": max(max(r["collective_err"].values())
+                                 for r in ranks),
+           "compress_rel": max(r["compress_rel"] for r in ranks),
+           "pipeline_err": max(r["pipeline_err"] for r in ranks),
+           "collectives_s": max(r["collectives_s"] for r in ranks),
+           "compress_s": max(r["compress_s"] for r in ranks),
+           "pipeline_s": max(r["pipeline_s"] for r in ranks),
+           "compress_elements_per_rank": PAR_ELEMENTS,
+           "pipeline": {"stages": PIPE_STAGES, "micro": PIPE_MICRO,
+                        "rows": PIPE_ROWS, "width": PIPE_WIDTH}}
+    check(rec["collective_err"] <= PAR_ATOL,
+          f"parallel: collectives differ from the all-reduce by "
+          f"{rec['collective_err']}")
+    check(all(r["ring_equal"] and r["all_to_all_equal"] for r in ranks),
+          "parallel: the ring all-gather or the all-to-all moved the "
+          "wrong blocks")
+    check(rec["compress_rel"] <= PAR_COMPRESS_RTOL
+          and all(r["compress_finite"] for r in ranks),
+          f"parallel: compressed_psum {rec['compress_rel']} from the exact "
+          "sum")
+    check(rec["pipeline_err"] <= PIPE_TOL
+          and all(r["pipeline_finite"] for r in ranks),
+          f"parallel: the pipeline differs from the sequential product by "
+          f"{rec['pipeline_err']}")
+    print("parallel " + json.dumps(rec))
+    report["parallel"] = rec
 
 
 def quickstart_phase(report):
@@ -4346,7 +4625,10 @@ def lm_cli_phase(report):
     granite-8b --gen-tokens 8``; ``launch.train --arch granite-8b --steps
     12 --ckpt-every 5``, whose loss must fall, then ``--resume --steps 14``
     from its workdir, which must resume from step 10; and
-    ``examples/torch/train_lm.py --quick``.  Each must exit 0."""
+    ``examples/torch/train_lm.py --quick``.  Each must exit 0.  The serve
+    CLI and the example share no files with the train runs and run beside
+    them (each run's seconds are its own process's wall time, taken while
+    the others share the card)."""
     import os
     import re
 
@@ -4355,19 +4637,26 @@ def lm_cli_phase(report):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     wd = ROOT / "build" / "chip_smoke_lm_cli"
     shutil.rmtree(wd, ignore_errors=True)
-    runs = {}
+    runs, procs = {}, {}
+
+    def start(name, args):
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, *args], cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env))
+
+    def finish(name):
+        t0, proc = procs[name]
+        out, err = proc.communicate(timeout=600)
+        del procs[name]
+        check(proc.returncode == 0, f"lm cli {name} exited "
+              f"{proc.returncode}: {out[-2000:]}{err[-2000:]}")
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "last_line": out.strip().splitlines()[-1]}
+        return out
 
     def run(name, args):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *args], cwd=str(ROOT),
-                              capture_output=True, text=True, timeout=600,
-                              env=env)
-        check(proc.returncode == 0, f"lm cli {name} exited "
-              f"{proc.returncode}: {proc.stdout[-2000:]}"
-              f"{proc.stderr[-2000:]}")
-        runs[name] = {"seconds": time.perf_counter() - t0,
-                      "last_line": proc.stdout.strip().splitlines()[-1]}
-        return proc.stdout
+        start(name, args)
+        return finish(name)
 
     def losses(out):
         return [float(x) for x in re.findall(r"loss=\s*(\S+)", out)]
@@ -4375,10 +4664,10 @@ def lm_cli_phase(report):
     train = ["-m", "repro_torch.launch.train", "--arch", LM_CLI_ARCH,
              "--ckpt-every", "5", "--workdir", str(wd / "train")]
     try:
-        out = run("serve", ["-m", "repro_torch.launch.serve", "--arch",
-                            LM_CLI_ARCH, "--gen-tokens", "8"])
-        check("generated 8×64 tokens" in out and "tok/s" in out,
-              f"lm cli serve printed {out[-500:]}")
+        start("serve", ["-m", "repro_torch.launch.serve", "--arch",
+                        LM_CLI_ARCH, "--gen-tokens", "8"])
+        start("example", [str(ROOT / "examples" / "torch" / "train_lm.py"),
+                          "--quick", "--workdir", str(wd / "example")])
         first = losses(run("train", train + ["--steps", "12"]))
         check(len(first) == 12 and all(np.isfinite(first))
               and first[-1] < first[0],
@@ -4386,12 +4675,16 @@ def lm_cli_phase(report):
         out = run("resume", train + ["--steps", "14", "--resume"])
         check("[resume] from step 10" in out and len(losses(out)) == 4,
               f"lm cli resume printed {out[-500:]}")
-        ex = losses(run("example", [
-            str(ROOT / "examples" / "torch" / "train_lm.py"), "--quick",
-            "--workdir", str(wd / "example")]))
+        out = finish("serve")
+        check("generated 8×64 tokens" in out and "tok/s" in out,
+              f"lm cli serve printed {out[-500:]}")
+        ex = losses(finish("example"))
         check(len(ex) == 6 and all(np.isfinite(ex)),
               f"lm cli example losses {ex}")
     finally:
+        for _, proc in procs.values():      # a failed check: stop the rest
+            proc.kill()
+            proc.communicate()
         shutil.rmtree(wd, ignore_errors=True)
     rec = {"arch": LM_CLI_ARCH, "train_losses": first, "runs": runs}
     print("lm cli " + json.dumps(rec))
@@ -5860,6 +6153,11 @@ def main() -> int:
         shutil.rmtree(store_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     dryrun_phase(torch, report)
+    torch.cuda.empty_cache()
+    lm_dryrun_phase(torch, report)
+    parallel_phase(torch, report)
+    print(f"lm dryrun phase {report['lm_dryrun']['seconds']:.1f} s, "
+          f"parallel phase {report['parallel']['seconds']:.1f} s")
     quickstart_phase(report)
     torch.cuda.empty_cache()
     try:
@@ -6040,7 +6338,8 @@ def main() -> int:
                             "hybrid_serving")
                            for r in report[key]["runs"])
                      + report["moe_ssm_training"]["forward_launches"]
-                     + report["vlm_audio_training"]["forward_launches"]),
+                     + report["vlm_audio_training"]["forward_launches"]
+                     + report["lm_dryrun"]["launches"]["flash_attention"]),
         "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
                            for v in report["attention_lines"]),
         "ms": main["ms"],
@@ -6064,7 +6363,9 @@ def main() -> int:
                     "src/repro/models/layers.py:198)",
         "launches": (report["lm_training"]["backward_launches"]
                      + report["moe_ssm_training"]["backward_launches"]
-                     + report["vlm_audio_training"]["backward_launches"]),
+                     + report["vlm_audio_training"]["backward_launches"]
+                     + report["lm_dryrun"]["launches"][
+                         "flash_attention_backward"]),
         "max_abs_err": max(max(e["max_abs"] for e in v["errors"].values())
                            for v in report["attention_backward_lines"]),
         "ms": main["ms"],

@@ -76,9 +76,14 @@ QUARANTINED_MODULES = frozenset({
     "repro_torch.models.lm",
     "repro_torch.models.moe",
     "repro_torch.models.ssm",
-    # the LM's expert-parallel MoE over a mesh of ranks
+    # the LM's distribution: the expert-parallel MoE over a mesh of ranks,
+    # the sharding rules, collectives, int8 compression and the pipeline
     "repro_torch.parallel",
+    "repro_torch.parallel.collectives",
+    "repro_torch.parallel.compression",
     "repro_torch.parallel.moe_ep",
+    "repro_torch.parallel.pipeline",
+    "repro_torch.parallel.sharding",
     # the LM trainer's AdamW and schedules, loaded inside
     # launch.train.train_lm (the LDA trainers' step sizes are their own)
     "repro_torch.optim",

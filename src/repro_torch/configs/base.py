@@ -1,9 +1,12 @@
 """Config dataclasses: architectures, input shapes, meshes.
 
-The port's copy of ``repro.configs.base``, unchanged: the LM serving slice
-(``repro_torch.models``) reads it.  The pjit levers (``remat``,
-``moe_impl``, ``scan_barrier``, ``seq_parallel``, ``fsdp``, ...) are kept
-so that a config reads the same in both packages; the port ignores them.
+The port's copy of ``repro.configs.base``, unchanged: the LM stack
+(``repro_torch.models``) reads it.  The pjit levers are kept so that a
+config reads the same in both packages: ``fsdp``, ``zero1``, ``tp_size``
+and ``moe_impl`` are read by the sharding rules (``parallel.sharding``;
+``moe_impl`` also by ``models.lm`` under a mesh), ``micro_batches`` by the
+train cell (``launch.specs.build_lm_cell``); ``remat``, ``scan_barrier``
+and ``seq_parallel`` steer XLA only, and the port reads them nowhere.
 
 Every assigned architecture gets one ``ArchConfig`` in its own module under
 ``repro.configs``; input-shape sets are ``ShapeConfig`` tuples attached per

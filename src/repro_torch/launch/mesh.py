@@ -15,20 +15,29 @@ coordinates ``(d, m)``:
 
 The port's collectives are :meth:`MeshAxis.all_reduce`, a sum — the
 counterpart of ``lax.psum`` — and :meth:`MeshAxis.all_to_all`, the tiled
-``lax.all_to_all`` of the expert-parallel MoE.  :func:`spawn_mesh` starts a mesh of ranks on
-this host and returns what each rank's function returned.
+``lax.all_to_all`` of the expert-parallel MoE; ``parallel.collectives``
+builds the others on an axis's process group.  :func:`spawn_mesh` starts a
+mesh of ranks on this host and returns what each rank's function returned.
+
+:class:`AbstractMesh` is a mesh without ranks or devices (the counterpart
+of ``compat.abstract_mesh``), and :func:`make_production_mesh` the JAX
+package's production meshes as such descriptions: the sharding rules
+(``parallel.sharding``) size a cell per device on them.  A rank's
+:class:`Mesh` answers the same ``axis_names`` and ``shape``, so one set of
+rules serves both.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import multiprocessing as mp
 import os
 import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -116,6 +125,47 @@ class Mesh:
     @property
     def rank(self) -> int:
         return self.data.index * self.model.size + self.model.index
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name → size, as ``jax.sharding.Mesh.shape``."""
+        return {"data": self.data.size, "model": self.model.size}
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of devices described by its axes alone: names and sizes, no
+    ranks, no process groups (``compat.abstract_mesh``).  ``shape`` maps
+    each name to its size, in ``axis_names`` order."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"axes {self.axis_names} and sizes "
+                             f"{self.sizes} differ in length")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The JAX package's production meshes, described: one pod is (data 16,
+    model 16), 256 devices; ``multi_pod`` is (pod 2, data 16, model 16),
+    512.  Nothing runs on them: the dry run sizes a cell per device."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *,

@@ -44,9 +44,13 @@ hand-written backward kernel.  The MoE FFN (``models.moe``) and the SSD
 PyTorch here.  Given a mesh and ``moe_impl == "ep"``, prefill and training
 route the MoE layers through the expert-parallel form
 (``parallel.moe_ep``); decode, and any run without a mesh, take the TP
-form, as the JAX package does.  The other pjit levers (``remat``,
-``scan_barrier``, ``seq_parallel``) mean nothing here: ``ArchConfig``
-keeps them and ``LM`` ignores them.
+form, as the JAX package does.  ``LM`` reads no other lever of
+``ArchConfig``: ``fsdp``, ``zero1``, ``tp_size`` and ``moe_impl``'s expert
+layout are read by the sharding rules (``parallel.sharding``), which size
+a cell per device, and ``micro_batches`` by the train cell
+(``launch.specs.build_lm_cell``).  ``remat``, ``scan_barrier`` and
+``seq_parallel`` steer XLA's partitioner and mean nothing here: the config
+keeps them and nothing in the port reads them.
 """
 from __future__ import annotations
 
@@ -85,6 +89,17 @@ def _lcm(*xs: int) -> int:
         if x:
             out = out * x // math.gcd(out, x)
     return out
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that says it lies on the meta device: the layers'
+    initialisers draw on ``generator.device``, and a draw on the meta device
+    allocates nothing and consumes no state (PyTorch has no meta generator
+    of its own)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 class LM(nn.Module):
@@ -180,11 +195,25 @@ class LM(nn.Module):
                     blk)
             tree_map(lambda dst, src: dst[b].copy_(src), blocks, blk)
             del blk
+            if self.device.type == "meta":
+                break       # nothing is drawn there: one block shapes all
         params["blocks"] = blocks
         params["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, self.device)
         params["lm_head"] = L.lm_head_init(generator, cfg.d_model,
                                            cfg.vocab_size, dt)
         return params
+
+    def abstract_params(self) -> Tree:
+        """The tree of :meth:`init_params` on the meta device: its keys,
+        shapes and dtypes, nothing allocated (the JAX package's
+        ``jax.eval_shape`` of ``init_params``).  It is ``init_params``
+        itself, run by a copy of this model on the meta device with a
+        generator that draws there, so the two cannot drift apart."""
+        return LM(self.cfg, device="meta").init_params(_MetaGenerator())
+
+    def abstract_cache(self, batch: int, max_seq: int) -> Tree:
+        """The caches of :meth:`init_cache` on the meta device."""
+        return LM(self.cfg, device="meta").init_cache(batch, max_seq)
 
     # ----------------------------------------------------------------- cache
 

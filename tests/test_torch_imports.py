@@ -118,6 +118,10 @@ def test_blocked_slice_modules_stand_alone(name, kernel):
     "repro_torch.models.moe",
     "repro_torch.models.ssm",
     "repro_torch.parallel.moe_ep",
+    "repro_torch.parallel.sharding",
+    "repro_torch.parallel.collectives",
+    "repro_torch.parallel.compression",
+    "repro_torch.parallel.pipeline",
 ])
 def test_lm_slice_modules_stand_alone(name):
     """The LM slices' modules import without JAX, the registry's config

@@ -7,8 +7,8 @@ the CPU.
   rank's stand-ins are its slices; building allocates nothing.
 * ``lda_model_flops`` and ``model_flops_for`` equal the JAX functions on
   every LDA shape and every shape of the four ported dense archs.
-* ``dryrun.run_cell`` on a tiny shape writes a complete record with finite
-  values, and a cell larger than a given memory is recorded
+* ``dryrun.run_lda_cell`` on a tiny shape writes a complete record with
+  finite values, and a cell larger than a given memory is recorded
   ``"fits": false`` without a run.
 """
 import json
@@ -77,7 +77,7 @@ def test_sharded_cell_says_which_arguments_are_a_ranks_slice():
     stats = (W * K + K) * 4                    # φ̂ and φ̂(k), float32
     whole = stats + 2 * 1024 * 128 * 4 + 8 + 4  # + word ids, counts, key, step
     assert cell.arg_bytes() == whole
-    assert cell.arg_bytes(per_rank=True) == whole - stats * 3 // 4
+    assert cell.arg_bytes(per_device=True) == whole - stats * 3 // 4
     dense = specs.build_lda_cell(shp.name)
     assert dense.rank_args()[2].phi_wk.shape == (W, K)
     with pytest.raises(ValueError, match="shards topics"):
@@ -162,9 +162,9 @@ def _numbers(tree, path=""):
 
 @pytest.mark.parametrize("impl", ["dense", "sharded"])
 def test_dryrun_writes_a_complete_record_on_the_cpu(tmp_path, impl):
-    rec = dryrun.run_cell(TINY, impl=impl, ranks=2, active_topics=4,
-                          device="cpu", out_dir=str(tmp_path),
-                          verbose=False)
+    rec = dryrun.run_lda_cell(TINY, impl=impl, ranks=2, active_topics=4,
+                              device="cpu", out_dir=str(tmp_path),
+                              verbose=False)
     on_disk = json.loads(
         (tmp_path / f"foem-lda_tiny_{impl}.json").read_text())
     assert on_disk == rec and set(rec) == KEYS
@@ -190,14 +190,14 @@ def test_dryrun_records_a_cell_too_large_without_running(tmp_path,
         raise AssertionError("a cell predicted not to fit ran")
 
     monkeypatch.setattr(dryrun, "_run_step", must_not_run)
-    rec = dryrun.run_cell(TINY, device="cpu", free_bytes=0, out_dir=None,
-                          verbose=False, active_topics=4)
+    rec = dryrun.run_lda_cell(TINY, device="cpu", free_bytes=0,
+                              out_dir=None, verbose=False, active_topics=4)
     need = rec["predicted_bytes_on_card"]
     assert need == (rec["argument_bytes"]
                     + sum(rec["working_set_bytes"].values()))
-    rec = dryrun.run_cell(TINY, device="cpu", free_bytes=need - 1,
-                          out_dir=str(tmp_path), verbose=False,
-                          active_topics=4)
+    rec = dryrun.run_lda_cell(TINY, device="cpu", free_bytes=need - 1,
+                              out_dir=str(tmp_path), verbose=False,
+                              active_topics=4)
     assert not rec["fits"] and not rec["ran"]
     assert rec["free_bytes"] == need - 1
     assert rec["step_s"] is None and rec["roofline"] is None

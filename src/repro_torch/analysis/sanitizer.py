@@ -41,11 +41,16 @@ new buffer, so μ_old is the caller's input and costs nothing to keep.
 The φ̂ column sums and totals are taken in float64 (``# lint: host-f64``):
 the invariant compares differences of sums over all rows, which float32
 would round by more than the tolerance at the stream_1k width.  The φ̂(k)
-it checks is the kernels' own float32 running total, against the JAX
-package's bound: at a store's magnitude (φ̂(k) ≈ 5·10⁴ a topic, a half-ulp
-of 2·10⁻³) that total cannot meet the bound for a topic that barely moves,
-so a checked sweep there raises the φ̂ lockstep message on results that
-are right to float32 (the JAX package's sweep, also float32, would too).
+it checks is the float64 total that the sweep engine carries beside its
+float32 one (``sweep_invariants``' ``phi_k_total``): the same float32
+increments that the fold adds to φ̂(k), added in float64 from the input
+φ̂(k).  A float32 φ̂(k) at a store's magnitude (≈ 5·10⁴ a topic, a
+half-ulp of 2·10⁻³) cannot meet the JAX package's bound for a topic that
+barely moves; the float64 total leaves the float32 rows' own rounding as
+the only gap between the check's two sides.  A second check, the port's
+own (:func:`check_phi_k_float32`), holds the float32 φ̂(k) that the sweep
+returns, and the E-step reads, to that float64 total within float32's
+own accumulated rounding.
 """
 from __future__ import annotations
 
@@ -62,6 +67,14 @@ DEFAULT_TOL = 1e-3
 CHUNK_ELEMENTS = 1 << 25
 
 _F64 = torch.float64  # lint: host-f64
+
+#: float32's unit roundoff: a rounded add moves its result by at most
+#: this share of the result's magnitude (a half-ulp).
+U32 = 2.0 ** -24
+
+#: The port's own check (no JAX counterpart): see check_phi_k_float32.
+PHI_K_FLOAT32 = ("sanitizer: float32 phi_k parts from its float64 total by "
+                 "more than float32 rounding")
 
 Checks = Optional[List[Tuple[torch.Tensor, str]]]
 
@@ -191,6 +204,73 @@ def check_phi_totals(phi_wk, phi_k, phi_wk_before, phi_k_before, *,
           "sanitizer: total phi mass not conserved across the sweep")
 
 
+def sum_order_bound(n, abs_sum):
+    """How far two float32 sums of the same ≤ ``n`` terms, taken in two
+    orders, can lie apart: 2·γ_n·Σ|x| (Higham's bound, γ_n = n·u / (1 −
+    n·u), u = 2⁻²⁴), for ``abs_sum`` the terms' Σ|x| (a number or a
+    tensor)."""
+    gamma = n * U32 / (1.0 - n * U32)
+    return 2.0 * gamma * abs_sum
+
+
+def _weighted_col_abs(rows, weight, block: int = 1 << 14):
+    """Σ_w weight_w · |rows_w| per column, in float64, a block of rows at
+    a time."""
+    out = torch.zeros(rows.shape[1], dtype=_F64, device=rows.device)
+    for lo in range(0, rows.shape[0], block):
+        blk = rows[lo:lo + block].abs().to(_F64)
+        out += (blk * weight[lo:lo + block, None]).sum(0)
+    return out
+
+
+def check_phi_k_float32(phi_k, phi_k_total, phi_k_before, *, counts,
+                        phi_wk, phi_wk_before, word_ids,
+                        resummed: bool = False,
+                        checks: Checks = None) -> None:
+    """The float32 φ̂(k) that a sweep returns against the float64 total
+    that its engine carried beside it: the two part by float32's own
+    rounding and nothing else.  The port's own check: the φ̂ lockstep
+    check reads the total, so this one keeps the float32 value that the
+    E-step reads under watch.  ``phi_wk_before`` is the (W_s, K) rows.
+
+    With x the batch's tokens (Σ counts, so that no topic's running value
+    moves by more than 2x in a sweep, phase D's correction included):
+
+    * a running total (one device; the hooks mode without a mesh): the L
+      column adds, each rounding by at most 2⁻²⁴ of a running value ≤
+      |φ̂(k)| before + after + 2x;
+    * re-summed from the rows (``resummed``: a model axis, two-phase or
+      hooks): the sum's own rounding; the inputs' own gap between φ̂(k)
+      and the rows' column sums, which the lockstep check's deltas cancel
+      and a total carries; every row add, a live token of the word each
+      and one more for phase D, rounding by at most 2⁻²⁴ of the row's
+      magnitude over the sweep (|before| + |after| + twice the word's
+      tokens); and a column increment's other float32 summation order over
+      the D documents (:func:`sum_order_bound`)."""
+    f32 = phi_k.to(_F64)
+    tokens = counts.sum(dtype=_F64)
+    D, L = counts.shape
+    if not resummed:
+        bound = L * U32 * (phi_k_before.to(_F64).abs() + f32.abs()
+                           + 2.0 * tokens)
+    else:
+        W = phi_wk.shape[0]
+        live = counts > 0
+        ids = word_ids[live].long()
+        adds = torch.bincount(ids, minlength=W).to(_F64)
+        adds += (adds > 0).to(_F64)                   # phase D's add
+        own = torch.zeros(W, dtype=_F64, device=counts.device)
+        own.index_add_(0, ids, counts[live].to(_F64))
+        mag = (_weighted_col_abs(phi_wk_before, adds)
+               + _weighted_col_abs(phi_wk, adds))
+        cols = phi_wk_before.sum(0, dtype=_F64)
+        bound = (U32 * (f32.abs() + mag + 2.0 * (adds * own).sum())
+                 + sum_order_bound(D, 2.0 * tokens)
+                 + (cols - phi_k_before.to(_F64)).abs())
+    gap = (f32 - phi_k_total.to(_F64)).abs()
+    _emit(checks, torch.all(gap <= bound), PHI_K_FLOAT32)
+
+
 def check_padding_inert(residual, counts, token_active=None,
                         checks: Checks = None) -> None:
     """Zero-count (padding) slots — and λ_w-inactive slots — must carry
@@ -232,7 +312,7 @@ def _outside_capture(where: str) -> None:
 
 def sweep_invariants(result, *, counts, mu_before, phi_wk_before,
                      phi_k_before, word_topics=None, token_active=None,
-                     word_ids=None, axis_name=None,
+                     word_ids=None, axis_name=None, phi_k_total=None,
                      tol: float = DEFAULT_TOL) -> None:
     """All post-sweep invariants of one ``ops.sweep`` result.
 
@@ -241,8 +321,16 @@ def sweep_invariants(result, *, counts, mu_before, phi_wk_before,
     the sweep's inputs.  ``word_topics`` + ``word_ids`` (+
     ``token_active``) switch the mass checks to the scheduled eq. 38 form;
     ``axis_name`` (``launch.mesh.MeshAxis``) sums the mass invariants over
-    the model axis of a two-phase sharded sweep before comparing.  Raises
-    ``SanitizerError`` with the first failed invariant's message."""
+    the model axis of a two-phase sharded sweep before comparing.
+    ``phi_k_total``, φ̂(k)'s (K,) float64 total that the sweep engine
+    carried beside the float32 one (seeded with ``phi_k_before``, its own
+    fold increments added; ``ops.sweep`` under ``debug_checks``), is what
+    the φ̂ totals checks read in place of ``result.phi_k``, against the
+    seed ``phi_k_before``, which float64 holds exactly; without it they
+    read the float32 ``result.phi_k``; with it, :func:`check_phi_k_float32`
+    holds ``result.phi_k`` to the total (re-summed from the rows under
+    ``axis_name``).  Raises ``SanitizerError`` with the first failed
+    invariant's message."""
     _outside_capture("sweep_invariants")
     checks: List = []
     for name, val in (("mu", result.mu), ("theta", result.theta),
@@ -261,10 +349,16 @@ def sweep_invariants(result, *, counts, mu_before, phi_wk_before,
                          checks=checks)
     check_theta_row_mass(result.theta, counts, axis_name=axis_name,
                          tol=tol, checks=checks)
-    check_phi_totals(result.phi_wk, result.phi_k, phi_wk_before,
-                     phi_k_before, axis_name=axis_name, tol=tol,
-                     checks=checks)
+    check_phi_totals(result.phi_wk,
+                     result.phi_k if phi_k_total is None else phi_k_total,
+                     phi_wk_before, phi_k_before, axis_name=axis_name,
+                     tol=tol, checks=checks)
     check_padding_inert(result.residual, counts, token_active, checks)
+    if phi_k_total is not None:     # last: the JAX package's order before it
+        check_phi_k_float32(result.phi_k, phi_k_total, phi_k_before,
+                            counts=counts, phi_wk=result.phi_wk,
+                            phi_wk_before=phi_wk_before, word_ids=word_ids,
+                            resummed=axis_name is not None, checks=checks)
     _raise_first(checks, axis_name)
 
 

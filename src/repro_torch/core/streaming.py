@@ -648,6 +648,18 @@ class ParameterStore:
     def resident_rows(self) -> int:
         return int((self._buf_ids >= 0).sum())
 
+    def buffer_bytes(self) -> int:
+        """The bytes the hot-row buffer holds now: its resident rows, K
+        entries of the store's dtype each."""
+        return self.resident_rows() * self.K * self.dtype.itemsize
+
+    @staticmethod
+    def rows_for_bytes(num_topics: int, nbytes: float,
+                       dtype=np.float32) -> int:
+        """A Table 5 buffer size in bytes as W* rows: floor(nbytes / (K ·
+        itemsize))."""
+        return int(nbytes // (num_topics * np.dtype(dtype).itemsize))
+
 
 def store_from_arrays(
     path: str,

@@ -49,7 +49,9 @@
 //     document of the column reads that row. Only tokens of words shared in
 //     the column (kShared) write Δ to the (D, K) scratch for the fold.
 //   * Fold phase, a thread an item: φ̂(k) += the group sums, eight threads a
-//     lane (chunks of groups in group order, then a fixed butterfly), then
+//     lane (chunks of groups in group order, then a fixed butterfly; the
+//     same float32 sum goes into φ̂(k)'s float64 total too, where the
+//     caller gives one), then
 //     (shared word segment, lane): φ̂_w += the segment's Δ in document order
 //     — the order of the TPU kernel's serial scatter and of the reference's
 //     accumulating index_put_ — sixteen rows in flight.
@@ -142,6 +144,7 @@ struct GsLoop {
   float* theta;           // (D, K), updated in place
   float* phi;             // (W, K), updated in place
   float* phi_k;           // (K,), updated in place
+  double* phi_k64;        // (K,) float64 total, updated in place, or null
   float* delta;           // (D, K) shared tokens' Δ (wide: staged numerators)
   float* part;            // (groups, K) φ̂(k) partial sums
   const int* seg_order;   // the row fold's order over the shared tokens
@@ -328,7 +331,10 @@ __device__ __forceinline__ void fold_phi_k(const GsLoop& p, int k, int c) {
 #pragma unroll
   for (int o = kSumThreads / 2; o > 0; o >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
-  if (k < K && c == 0) p.phi_k[k] = __fadd_rn(__ldcg(p.phi_k + k), acc);
+  if (k < K && c == 0) {
+    p.phi_k[k] = __fadd_rn(__ldcg(p.phi_k + k), acc);
+    active::add_total64(p.phi_k64, k, acc);
+  }
 }
 
 // kVec: 16-byte lanes (K % 4 = 0, μ 16-byte aligned); kWide: K > 10,240.
@@ -383,7 +389,8 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 
 extern "C" {
 
-// One dense sweep on `stream`. theta, phi and phi_k are updated in place;
+// One dense sweep on `stream`. theta, phi and phi_k are updated in place,
+// and so is phi_k64, φ̂(k)'s (K,) float64 total, where it is not NULL;
 // mu_out and res_out are (D, L, K). flags is the (D, L) column plan and
 // seg_* the row fold's order over its kShared tokens (gs_sweep.column_plan);
 // delta is a (D, K) and part a (ceil(D / group_docs), K) scratch, barrier
@@ -394,10 +401,11 @@ extern "C" {
 int gs_sweep_launch(const void* word_ids, const void* counts,
                     const void* flags, const void* mu_in, void* mu_out,
                     void* res_out, void* theta, void* phi, void* phi_k,
-                    const void* seg_order, const void* seg_pos,
-                    const void* seg_end, const void* seg_word,
-                    const void* seg_count, void* delta, void* part,
-                    void* barrier, void* tok_ll, int D, int L, int K,
+                    void* phi_k64, const void* seg_order,
+                    const void* seg_pos, const void* seg_end,
+                    const void* seg_word, const void* seg_count,
+                    void* delta, void* part, void* barrier, void* tok_ll,
+                    int D, int L, int K,
                     int group_docs, int path, float alpha_m1, float beta_m1,
                     float wb, float k_alpha, int* launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -411,6 +419,7 @@ int gs_sweep_launch(const void* word_ids, const void* counts,
   p.theta = static_cast<float*>(theta);
   p.phi = static_cast<float*>(phi);
   p.phi_k = static_cast<float*>(phi_k);
+  p.phi_k64 = static_cast<double*>(phi_k64);
   p.delta = static_cast<float*>(delta);
   p.part = static_cast<float*>(part);
   p.seg_order = static_cast<const int*>(seg_order);

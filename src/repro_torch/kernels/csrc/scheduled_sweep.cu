@@ -50,7 +50,8 @@ int scheduled_pass_launch(const void* mu_in, void* mu_out, void* res_out,
 }
 
 // One scheduled sweep on `stream`, after its streaming pass. theta, phi
-// and phi_k are updated in place; mu_out and res_out are (D, L, K).
+// and phi_k are updated in place, and so is phi_k64, φ̂(k)'s (K,) float64
+// total, where it is not NULL; mu_out and res_out are (D, L, K).
 // token_active is (D, L) bytes. row_order/row_key and pair_order/pair_key
 // are the two folds' orders over the live tokens (token active and count
 // ≠ 0; see sweep_active.cuh); compact and parts are (D, A) scratches,
@@ -60,8 +61,9 @@ int scheduled_pass_launch(const void* mu_in, void* mu_out, void* res_out,
 int scheduled_sweep_launch(const void* word_ids, const void* counts,
                            const void* token_active, const void* mu_in,
                            void* mu_out, void* res_out, void* theta,
-                           void* phi, void* phi_k, const void* word_topics,
-                           int A, const void* row_order, const void* row_key,
+                           void* phi, void* phi_k, void* phi_k64,
+                           const void* word_topics, int A,
+                           const void* row_order, const void* row_key,
                            const void* pair_order, const void* pair_key,
                            void* compact, void* parts, void* barrier,
                            void* tok_ll, int D, int L, int K, float alpha_m1,
@@ -78,6 +80,7 @@ int scheduled_sweep_launch(const void* word_ids, const void* counts,
   p.theta = static_cast<float*>(theta);
   p.phi = static_cast<float*>(phi);
   p.phi_k = static_cast<float*>(phi_k);
+  p.phi_k64 = static_cast<double*>(phi_k64);
   p.word_topics = static_cast<const int*>(word_topics);
   p.remainder = nullptr;
   p.prev_mass = nullptr;

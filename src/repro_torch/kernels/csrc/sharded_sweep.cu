@@ -214,6 +214,7 @@ struct DenseLoop {
   float* theta;            // (D, K), updated in place
   float* phi;              // (W, K), updated in place
   float* phi_k;            // (K,), updated in place
+  double* phi_k64;         // (K,) float64 total, updated in place, or null
   float* delta;            // (D, K) the column's Δ
   float* part;             // (groups, K) φ̂(k) partial sums
   float* live_out;         // (D, L)
@@ -421,6 +422,7 @@ __global__ void __launch_bounds__(kDenseThreads, kDenseCtasPerSm)
       for (; g < p.groups; ++g)
         acc = __fadd_rn(acc, ld_l2(p.part + (size_t)g * K + k));
       p.phi_k[k] = __fadd_rn(ld_l2(p.phi_k + k), acc);
+      active::add_total64(p.phi_k64, k, acc);
     }
     if (l + 1 < p.L) grid_barrier(p.barrier);
   }
@@ -517,7 +519,8 @@ int sharded_pass_launch(const void* mu_in, void* mu_out, void* res_out,
 }
 
 // Phase C on `stream` (scheduled: after its streaming pass). theta, phi and
-// phi_k are updated in place; mu_out and res_out are (D, L, K); live_out is
+// phi_k are updated in place, and so is phi_k64, φ̂(k)'s (K,) float64
+// total, where it is not NULL; mu_out and res_out are (D, L, K); live_out is
 // (D, L). word_topics == NULL is the dense fold: seg_* are its row fold's
 // order over the live tokens (count ≠ 0; gs_sweep.column_segments), delta a
 // (D, K) and part a (ceil(D / 32), K) scratch. Else the scheduled fold:
@@ -531,8 +534,8 @@ int sharded_fold_launch(const void* word_ids, const void* counts,
                         const void* token_active, const void* remainder,
                         const void* prev_mass, const void* mu_in,
                         void* mu_out, void* res_out, void* theta, void* phi,
-                        void* phi_k, const void* word_topics, int A,
-                        const void* seg_order, const void* seg_pos,
+                        void* phi_k, void* phi_k64, const void* word_topics,
+                        int A, const void* seg_order, const void* seg_pos,
                         const void* seg_end, const void* seg_word,
                         const void* seg_count, const void* row_order,
                         const void* row_key, const void* pair_order,
@@ -546,6 +549,7 @@ int sharded_fold_launch(const void* word_ids, const void* counts,
   float* th = static_cast<float*>(theta);
   float* ph = static_cast<float*>(phi);
   float* pk = static_cast<float*>(phi_k);
+  double* pk64 = static_cast<double*>(phi_k64);
   cudaError_t err;
   if (word_topics != nullptr) {
     active::ActiveLoop p;
@@ -558,6 +562,7 @@ int sharded_fold_launch(const void* word_ids, const void* counts,
     p.theta = th;
     p.phi = ph;
     p.phi_k = pk;
+    p.phi_k64 = pk64;
     p.word_topics = static_cast<const int*>(word_topics);
     p.remainder = static_cast<const float*>(remainder);
     p.prev_mass = static_cast<const float*>(prev_mass);
@@ -589,6 +594,7 @@ int sharded_fold_launch(const void* word_ids, const void* counts,
     p.theta = th;
     p.phi = ph;
     p.phi_k = pk;
+    p.phi_k64 = pk64;
     p.delta = static_cast<float*>(delta);
     p.part = static_cast<float*>(part);
     p.live_out = static_cast<float*>(live_out);

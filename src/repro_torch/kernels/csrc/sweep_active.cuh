@@ -67,7 +67,9 @@
 //     shuffle pattern); in fold phase (b), after a barrier and beside the
 //     rows, the thread at a run's first position adds its block parts in
 //     block order and the run's total once to φ̂(k): φ̂(k) + ΣΔ, the
-//     reference's `ptot + delta.sum(0)` with the zero entries left out.
+//     reference's `ptot + delta.sum(0)` with the zero entries left out
+//     (and, where the caller gives one, the same float32 run total to
+//     φ̂(k)'s float64 total: add_total64).
 // It reads D·A values a column, not D·K. Each order is two int32 arrays a
 // column: the sorted documents (pairs d·A + a), -1 past the column's live
 // ones, and their keys (words, topics).
@@ -98,6 +100,17 @@ __device__ __forceinline__ float numerator(float c, float m0, float th,
 
 // A load of state that other CTAs of the launch write: through L2.
 __device__ __forceinline__ float ld_l2(const float* p) { return __ldcg(p); }
+
+// φ̂(k)'s float64 total beside the float32 one (the debug_checks φ̂
+// lockstep check reads it): the float32 increment that the fold site has
+// just added to φ̂(k)[k], added in float64 too; a null total skips it. One
+// thread adds a topic's increments in a column (no atomic), through L2 as
+// φ̂(k) itself.
+__device__ __forceinline__ void add_total64(double* total, int k,
+                                            float inc) {
+  if (total != nullptr)
+    __stcg(total + k, __dadd_rn(__ldcg(total + k), (double)inc));
+}
 
 // Barrier across every CTA of a cooperative launch, on one zeroed int (the
 // scheme of cooperative groups' grid sync, written out so that no -rdc
@@ -249,6 +262,7 @@ struct ActiveLoop {
   float* theta;               // (D, K), updated in place
   float* phi;                 // (W, K), updated in place
   float* phi_k;               // (K,), updated in place
+  double* phi_k64;            // (K,) float64 total, updated in place, or null
   const int* word_topics;     // (W, A)
   const float* remainder;     // (D, L) peers' sums (sharded only)
   const float* prev_mass;     // (D, L) global Σ_A μ_old (sharded only)
@@ -426,7 +440,8 @@ __device__ __forceinline__ void fold_blocks(const P& p, const int* order,
 }
 
 // Fold phase (b) at sorted pair position q (of npairs): where a topic's
-// run starts, add the run's total, from fold phase (a)'s parts, to φ̂(k).
+// run starts, add the run's total, from fold phase (a)'s parts, to φ̂(k)
+// (and to its float64 total, where the loop has one).
 template <class P>
 __device__ __forceinline__ void fold_topic_at(const P& p,
                                               const int* pair_order,
@@ -434,9 +449,11 @@ __device__ __forceinline__ void fold_topic_at(const P& p,
                                               int npairs, int q) {
   if (pair_order[q] < 0) return;
   const int k = pair_key[q];
-  if (q == 0 || pair_key[q - 1] != k)
-    p.phi_k[k] = __fadd_rn(ld_l2(p.phi_k + k),
-                           run_total(pair_key, npairs, q, k, p.parts));
+  if (q == 0 || pair_key[q - 1] != k) {
+    const float run = run_total(pair_key, npairs, q, k, p.parts);
+    p.phi_k[k] = __fadd_rn(ld_l2(p.phi_k + k), run);
+    add_total64(p.phi_k64, k, run);
+  }
 }
 
 // Fold phase (a) of column l: a warp a block of the pair order.

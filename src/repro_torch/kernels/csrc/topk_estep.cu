@@ -143,6 +143,7 @@ struct BlockLoop {
   float* theta;               // (D, K), updated in place
   float* phi;                 // (W, K), updated in place
   float* phi_k;               // (K,), updated in place
+  double* phi_k64;            // null: fold_topic_at's float64 total is not kept
   const int* word_topics;     // (W, A)
   const int* row_order;       // (blocks, D·nb) sorted entries, -1 past
   const int* row_key;         // their words
@@ -406,6 +407,7 @@ int topk_loop_launch(const void* word_ids, const void* counts,
   p.theta = static_cast<float*>(theta);
   p.phi = static_cast<float*>(phi);
   p.phi_k = static_cast<float*>(phi_k);
+  p.phi_k64 = nullptr;        // no checked blocked sweep reads a total
   p.word_topics = static_cast<const int*>(word_topics);
   p.row_order = static_cast<const int*>(row_order);
   p.row_key = static_cast<const int*>(row_key);

@@ -56,6 +56,9 @@ REG_MAX_K = contracts.GS_REG_GROUPS * 4
 GROUP_DOCS = 4
 #: :func:`column_plan`'s token flags (kSolo, kShared in ``csrc/gs_sweep.cu``).
 SOLO, SHARED = 1, 2
+#: The dtype of φ̂(k)'s optional running total beside the float32 one (the
+#: sweeps' ``phi_k64`` argument, which the debug_checks φ̂ lockstep check reads).
+TOTAL64 = torch.float64  # lint: host-f64 — φ̂(k)'s float64 total
 
 SweepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, Optional[torch.Tensor]]
@@ -127,13 +130,16 @@ def gs_sweep_reference(
     wb: float,
     emit_loglik: bool = False,
     hook: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None,
+    phi_k64: Optional[torch.Tensor] = None,
 ) -> SweepOut:
     """The plain PyTorch version of :func:`gs_sweep`, any device.
 
     A port of ``ops._gs_sweep_portable``: a Python loop over the columns,
     each gathering its D φ̂ rows, running the fused E-step and folding Δ
     into θ̂, the D rows (``index_put_`` with accumulation: duplicate words
-    add in document order on the CPU) and φ̂(k).
+    add in document order on the CPU) and φ̂(k).  ``phi_k64``, a (K,)
+    float64 total the caller seeded (:func:`gs_sweep`'s), gets each
+    column's float32 φ̂(k) increment added in float64, in place.
 
     ``hook`` is the per-column hooks mode's reduction (``ops.sweep`` with
     ``SweepPlan(two_phase=False)`` or a raw ``norm_psum``; the JAX
@@ -164,7 +170,7 @@ def gs_sweep_reference(
         delta = cnt * mu_new - ex
         theta = theta + delta
         phi.index_put_((wid,), delta, accumulate=True)
-        ptot = ptot + delta.sum(0)
+        ptot = add_increment(ptot, delta.sum(0), phi_k64)
         mu_out[:, l] = mu_new
         res[:, l] = cnt * (mu_new - mu_old).abs()
     if not L:
@@ -174,6 +180,36 @@ def gs_sweep_reference(
         loglik = sweep_loglik(word_ids, counts, theta, phi, ptot, wb,
                               alpha_m1=alpha_m1, beta_m1=beta_m1)
     return mu_out, res, theta, phi, ptot, loglik
+
+
+def add_increment(ptot: torch.Tensor, inc: torch.Tensor,
+                  phi_k64: Optional[torch.Tensor]) -> torch.Tensor:
+    """``ptot + inc``, the plain loops' float32 φ̂(k) fold of one column,
+    and the same float32 increment added in float64 to ``phi_k64`` (in
+    place) where there is one."""
+    if phi_k64 is not None:
+        phi_k64 += inc.to(phi_k64.dtype)
+    return ptot + inc
+
+
+def col_sum64(x: torch.Tensor, block: int = 1 << 14) -> torch.Tensor:
+    """The column sums of a 2-D ``x``, accumulated in float64 a block of
+    rows at a time: no float64 copy of the whole array (2.8 GB for a
+    rank's stream_1k φ̂ slice).  With one block it is the plain float64
+    sum."""
+    total = torch.zeros(x.shape[1], dtype=TOTAL64, device=x.device)
+    for rows in x.split(block):
+        total += rows.sum(0, dtype=TOTAL64)
+    return total
+
+
+def total_operand(phi_k64: Optional[torch.Tensor],
+                  phi_k: torch.Tensor) -> list:
+    """:func:`check_cuda_args`' entry for an optional ``phi_k64``: a
+    (K,) float64 total beside ``phi_k``."""
+    if phi_k64 is None:
+        return []
+    return [("phi_k64", phi_k64, TOTAL64, tuple(phi_k.shape))]
 
 
 def scatter_add_rows(dst: torch.Tensor, ids: torch.Tensor,
@@ -345,7 +381,7 @@ def _bind(lib) -> None:
     """The library's ctypes signatures, set once (``build.load``)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gs_sweep_launch.argtypes = (
-        [p] * 18 + [i] * 5 + [f] * 4 + [ctypes.POINTER(i), p])
+        [p] * 19 + [i] * 5 + [f] * 4 + [ctypes.POINTER(i), p])
     lib.gs_sweep_launch.restype = ctypes.c_int
     lib.sweep_loglik_launch.argtypes = (
         [p] * 6 + [i] * 3 + [f] * 4 + [p])
@@ -394,6 +430,7 @@ def gs_sweep(
     beta_m1: float,
     wb: float,                 # W·(β−1), with the *global* W
     emit_loglik: bool = False,
+    phi_k64: Optional[torch.Tensor] = None,  # (K,) float64 total, in place
 ) -> SweepOut:
     """One dense column-serial Gauss-Seidel sweep.
 
@@ -404,17 +441,24 @@ def gs_sweep(
     output is a new tensor); CPU tensors run :func:`gs_sweep_reference`.
     Word ids must index rows of ``phi_wk``: the kernel writes φ̂ rows at
     them without a bound check (``ops.sweep`` checks).
+
+    ``phi_k64``, where given, is φ̂(k)'s (K,) float64 total, which the
+    caller seeds (with ``phi_k``, which float64 holds exactly): every fold
+    site adds to it, in float64, the float32 increment it adds to φ̂(k),
+    in place.  The float32 outputs are the same bits with it and without.
     """
     wb = float(wb)
     if theta.device.type == "cpu":
         return gs_sweep_reference(
             word_ids, counts, mu, theta, phi_wk, phi_k, alpha_m1=alpha_m1,
             beta_m1=beta_m1, wb=wb, emit_loglik=emit_loglik,
+            phi_k64=phi_k64,
         )
     if theta.device.type != "cuda":
         raise ValueError(f"gs_sweep runs on cuda or cpu, not {theta.device}")
     check_cuda_args("gs_sweep", dense_operands(word_ids, counts, mu, theta,
-                                               phi_wk, phi_k))
+                                               phi_wk, phi_k)
+                    + total_operand(phi_k64, phi_k))
     D, L = word_ids.shape
     K = mu.shape[-1]
     mu_out = torch.empty_like(mu)
@@ -436,8 +480,9 @@ def gs_sweep(
             rc = lib.gs_sweep_launch(
                 ptr(word_ids), ptr(counts), ptr(flags), ptr(mu),
                 ptr(mu_out), ptr(res), ptr(theta_o), ptr(phi_o),
-                ptr(ptot_o), *map(ptr, segs), ptr(delta), ptr(part),
-                ptr(barrier), ptr(tok_ll), D, L, K, GROUP_DOCS, path.code,
+                ptr(ptot_o), ptr(phi_k64), *map(ptr, segs), ptr(delta),
+                ptr(part), ptr(barrier), ptr(tok_ll), D, L, K, GROUP_DOCS,
+                path.code,
                 float(alpha_m1), float(beta_m1), wb, float(K * alpha_m1),
                 ctypes.byref(enqueued),
                 torch.cuda.current_stream().cuda_stream,

@@ -56,6 +56,8 @@ from repro_torch.core.types import InferPlan, InferResult, SweepPlan, SweepResul
 from repro_torch.kernels import foem_estep as _foem_estep
 from repro_torch.kernels import topk_estep as _topk_estep
 from repro_torch.kernels.gs_sweep import (
+    TOTAL64,
+    col_sum64,
     gs_sweep,
     gs_sweep_reference,
     segment_sum,
@@ -451,7 +453,7 @@ def _assemble_sharded_loglik(counts, u_glob, th_den):
 
 def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
                      token_active, *, alpha_m1, beta_m1, wb, axis,
-                     compute_loglik) -> SweepResult:
+                     compute_loglik, phi_k64=None) -> SweepResult:
     """The two-phase sharded sweep (the JAX package's
     ``ops._sweep_two_phase``), on the rank's K/mp topic lanes:
 
@@ -465,6 +467,11 @@ def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
          scheduled eq. 38's global target; the φ̂ correction is the
          deterministic :func:`segment_sum` over the rank's W rows, and
          φ̂(k) the sum of the corrected rows.
+
+    ``phi_k64`` (``ops.sweep``'s float64 total under ``debug_checks``, seeded
+    with φ̂(k)) takes phase C's fold total and then phase D's own
+    correction Δ, summed in float64 — never the re-summed rows, which the
+    φ̂ lockstep check compares it with.
     """
     scheduled = word_topics is not None
     D, L, K = mu.shape
@@ -481,7 +488,8 @@ def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
     # ---- phase C: shard-local Gauss-Seidel fold ----
     mu_new, res, theta_o, phi_o, ptot_o, live, u = sharded_fold(
         word_ids, counts, mu, theta, phi_wk, phi_k, remainder, pm_glob,
-        word_topics, token_active, **kw, emit_loglik=compute_loglik)
+        word_topics, token_active, **kw, emit_loglik=compute_loglik,
+        phi_k64=phi_k64)
     del s, s_glob, remainder
     # ---- phase D: exact renorm + stop-rule assembly (one reduction) ----
     ll = None
@@ -507,6 +515,8 @@ def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
     theta_o = theta_o + delta.sum(1)
     phi_o.add_(segment_sum(delta.reshape(D * L, K), word_ids,
                            phi_wk.shape[0]))
+    if phi_k64 is not None:
+        phi_k64 += col_sum64(delta.reshape(D * L, K))
     # φ̂(k) re-summed from the rows (accumulated in float64, rounded once),
     # where the JAX package adds the correction to the fold's running
     # total: a topic's per-column adds round alike in float32 against its
@@ -518,7 +528,7 @@ def _sweep_two_phase(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
 
 def _sweep_hooks(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
                  token_active, *, alpha_m1, beta_m1, wb, hook, axis,
-                 compute_loglik) -> SweepResult:
+                 compute_loglik, phi_k64=None) -> SweepResult:
     """The per-column hooks mode (the JAX package's ``two_phase=False``
     branch of ``ops._sweep_impl``): the plain column loop
     (:func:`gs_sweep_reference` / :func:`scheduled_sweep_reference`) with
@@ -532,9 +542,11 @@ def _sweep_hooks(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
     ``compute_loglik`` gives the global-over-lanes eq. 3 loglik of the
     rank's documents: the pre-log partials and Σθ̂ + K(α−1) reduced in one
     more ``all_reduce``.  With a raw hook the loop's own φ̂(k) and
-    shard-local loglik come back, as the hook-free loop's."""
+    shard-local loglik come back, as the hook-free loop's.  ``phi_k64``
+    (``ops.sweep``'s float64 total under ``debug_checks``) takes the loop's
+    own increments, not the re-summed rows."""
     kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb, hook=hook,
-              emit_loglik=compute_loglik and axis is None)
+              emit_loglik=compute_loglik and axis is None, phi_k64=phi_k64)
     args = (word_ids, counts, mu, theta, phi_wk, phi_k)
     if word_topics is not None:
         out = scheduled_sweep_reference(*args, word_topics, token_active,
@@ -542,8 +554,8 @@ def _sweep_hooks(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
     else:
         out = gs_sweep_reference(*args, **kw)
     mu_new, res, theta_o, phi_o, ptot_o, ll = out
-    if axis is not None:
-        ptot_o = _row_total(phi_o)
+    if axis is not None:      # Σ_w φ̂_w in float64, rounded once
+        ptot_o = col_sum64(phi_o).to(phi_o.dtype)
     if compute_loglik and axis is not None:
         u = loglik_partials(word_ids, theta_o, phi_o, ptot_o,
                             alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb)
@@ -551,18 +563,6 @@ def _sweep_hooks(word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
             u, theta_o.sum(-1) + mu.shape[-1] * alpha_m1)
         ll = _assemble_sharded_loglik(counts, u_glob, th_den)
     return SweepResult(mu_new, theta_o, phi_o, ptot_o, res, ll)
-
-
-def _row_total(phi: torch.Tensor, block: int = 1 << 14) -> torch.Tensor:
-    """Σ_w φ̂_w per topic, accumulated in float64 and rounded once to φ̂'s
-    dtype, a block of rows at a time: no float64 copy of the whole φ̂ (2.8
-    GB for a rank's stream_1k slice).  With one block it is the plain
-    float64 sum."""
-    total = torch.zeros(phi.shape[1], dtype=torch.float64,  # lint: host-f64
-                        device=phi.device)
-    for rows in phi.split(block):
-        total += rows.sum(0, dtype=torch.float64)  # lint: host-f64
-    return total.to(phi.dtype)
 
 
 def _one_each(fn):
@@ -635,7 +635,13 @@ def sweep(
       padding), reduced over ``plan.axis_name`` when sharded, at one device
       sync; a failure raises ``SanitizerError``.  The kernels write every
       output into a new buffer, so the inputs are the "before" state and no
-      copy of μ or φ̂ is kept.
+      copy of μ or φ̂ is kept.  The φ̂ totals checks read φ̂(k)'s float64
+      total, which the engine that ran carries beside the float32 one
+      (seeded here with the input φ̂(k), each fold site adding its own
+      float32 increment; two-phase, phase D's correction summed in float64
+      too): a float32 φ̂(k) at a store's magnitude rounds by more than the
+      bound.  The float32 outputs are the same bits with checks and
+      without.
     * The process-wide fault plan's ``PRE_PROBE`` point fires first
       (``runtime.faults.fire_active``).
     """
@@ -670,20 +676,23 @@ def sweep(
                            mu.shape[-1])
     axis = plan.axis_name if plan is not None else None
     raw = norm_psum if norm_psum is not None else renorm_psum
+    # φ̂(k)'s float64 total, for the φ̂ totals checks alone: the input
+    # φ̂(k) (exact in float64) plus the engine's own fold increments
+    total = phi_k.to(TOTAL64) if debug_checks else None
     if axis is not None and plan.two_phase:
         result = _sweep_two_phase(
             word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
             token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
-            axis=axis, compute_loglik=compute_loglik)
+            axis=axis, compute_loglik=compute_loglik, phi_k64=total)
     elif axis is not None or raw is not None:
         result = _sweep_hooks(
             word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
             token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
             hook=axis.all_reduce if axis is not None else _one_each(raw),
-            axis=axis, compute_loglik=compute_loglik)
+            axis=axis, compute_loglik=compute_loglik, phi_k64=total)
     else:
         kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=float(wb),
-                  emit_loglik=compute_loglik)
+                  emit_loglik=compute_loglik, phi_k64=total)
         args = (word_ids, counts, mu, theta, phi_wk, phi_k)
         if word_topics is not None:
             out = scheduled_sweep(*args, word_topics, token_active, **kw)
@@ -697,5 +706,6 @@ def sweep(
         sanitizer.sweep_invariants(
             result, counts=counts, mu_before=mu, phi_wk_before=phi_wk,
             phi_k_before=phi_k, word_topics=word_topics,
-            token_active=token_active, word_ids=word_ids, axis_name=axis)
+            token_active=token_active, word_ids=word_ids, axis_name=axis,
+            phi_k_total=total)
     return result

@@ -42,11 +42,13 @@ from repro_torch.analysis.budget import Cell
 from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.gs_sweep import (
     SweepOut,
+    add_increment,
     check_cuda_args,
     dense_operands,
     note_loglik,
     ptr,
     sweep_loglik,
+    total_operand,
 )
 from repro_torch.kernels.theta_sweep import word_lane_masks
 
@@ -66,6 +68,7 @@ def scheduled_sweep_reference(
     wb: float,
     emit_loglik: bool = False,
     hook: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None,
+    phi_k64: Optional[torch.Tensor] = None,
 ) -> SweepOut:
     """The plain PyTorch version of :func:`scheduled_sweep`, any device.
 
@@ -79,7 +82,7 @@ def scheduled_sweep_reference(
     sum go through ONE ``hook(prev_mass, new_sum) -> (prev_mass,
     new_sum)`` call — a topic-sharded sweep's sums over the model axis,
     the union active set — before the renorm.  ``None`` leaves the loop as
-    it is, bit for bit.
+    it is, bit for bit.  ``phi_k64`` is :func:`gs_sweep_reference`'s.
     """
     D, L = word_ids.shape
     masks = word_lane_masks(phi_wk, word_topics)
@@ -108,7 +111,7 @@ def scheduled_sweep_reference(
         delta = cnt * (mu_new - mu_old)          # zero off the active set
         theta = theta + delta
         phi.index_put_((wid,), delta, accumulate=True)
-        ptot = ptot + delta.sum(0)
+        ptot = add_increment(ptot, delta.sum(0), phi_k64)
         mu_out[:, l] = mu_new
         res[:, l] = delta.abs()
     if not L:
@@ -179,7 +182,7 @@ def _bind(lib) -> None:
     """The library's ctypes signatures, set once (``build.load``)."""
     fn = lib.scheduled_sweep_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([p] * 10 + [i] + [p] * 8 + [i, i, i, f, f, f, f,
+    fn.argtypes = ([p] * 11 + [i] + [p] * 8 + [i, i, i, f, f, f, f,
                                                 ctypes.POINTER(i), p])
     fn.restype = ctypes.c_int
     lib.scheduled_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
@@ -215,6 +218,7 @@ def scheduled_sweep(
     beta_m1: float,
     wb: float,                   # W·(β−1), with the *global* W
     emit_loglik: bool = False,
+    phi_k64: Optional[torch.Tensor] = None,  # (K,) float64 total, in place
 ) -> SweepOut:
     """One scheduled sparse sweep.
 
@@ -225,13 +229,15 @@ def scheduled_sweep(
     run :func:`scheduled_sweep_reference`.  Word ids must index rows of
     ``phi_wk`` and ``word_topics`` must index topics, with distinct ids in
     each row: the kernel does not check (``ops.sweep`` checks the ranges).
+    ``phi_k64`` is :func:`gs_sweep.gs_sweep`'s: φ̂(k)'s float64 total, the
+    fold's own increments added in place.
     """
     wb = float(wb)
     if theta.device.type == "cpu":
         return scheduled_sweep_reference(
             word_ids, counts, mu, theta, phi_wk, phi_k, word_topics,
             token_active, alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb,
-            emit_loglik=emit_loglik,
+            emit_loglik=emit_loglik, phi_k64=phi_k64,
         )
     if theta.device.type != "cuda":
         raise ValueError(
@@ -244,7 +250,7 @@ def scheduled_sweep(
         word_ids, counts, mu, theta, phi_wk, phi_k) + [
         ("word_topics", word_topics, torch.int32, (W_s, A)),
         ("token_active", token_active, torch.bool, (D, L)),
-    ])
+    ] + total_operand(phi_k64, phi_k))
     if not 0 < A <= K:
         raise ValueError("scheduled_sweep: word_topics needs 1 <= A <= K")
     dev = theta.device
@@ -273,7 +279,8 @@ def scheduled_sweep(
             rc = lib.scheduled_sweep_launch(
                 ptr(word_ids), ptr(counts), ptr(act8), ptr(mu), ptr(mu_out),
                 ptr(res), ptr(theta_o), ptr(phi_o), ptr(ptot_o),
-                ptr(word_topics), A, *map(ptr, orders), ptr(compact),
+                ptr(phi_k64), ptr(word_topics), A, *map(ptr, orders),
+                ptr(compact),
                 ptr(parts), ptr(barrier), ptr(tok_ll), D, L, K,
                 float(alpha_m1),
                 float(beta_m1), wb, float(K * alpha_m1),

@@ -61,10 +61,12 @@ from repro_torch.analysis.budget import Cell
 
 from repro_torch.kernels.build import count_launch
 from repro_torch.kernels.gs_sweep import (
+    add_increment,
     check_cuda_args,
     column_segments,
     dense_operands,
     ptr,
+    total_operand,
 )
 from repro_torch.kernels.scheduled_sweep import fold_orders, note_pass
 from repro_torch.kernels.theta_sweep import word_lane_masks
@@ -177,6 +179,7 @@ def sharded_fold_reference(
     beta_m1: float,
     wb: float,
     emit_loglik: bool = False,
+    phi_k64: Optional[torch.Tensor] = None,
 ) -> FoldOut:
     """The plain PyTorch version of :func:`sharded_fold`, any device.
 
@@ -185,6 +188,8 @@ def sharded_fold_reference(
     and the peers' ``remainder`` injected, and folding Δ into θ̂, the rows
     (``index_put_`` with accumulation) and φ̂(k) — followed, with
     ``emit_loglik``, by :func:`loglik_partials` on the final statistics.
+    ``phi_k64`` is ``gs_sweep_reference``'s: each column's float32 φ̂(k)
+    increment added in float64, in place.
     """
     scheduled = word_topics is not None
     D, L = word_ids.shape
@@ -226,7 +231,7 @@ def sharded_fold_reference(
             live[:, l] = mu_new.sum(-1)
         theta = theta + delta
         phi.index_put_((wid,), delta, accumulate=True)
-        ptot = ptot + delta.sum(0)
+        ptot = add_increment(ptot, delta.sum(0), phi_k64)
         mu_out[:, l] = mu_new
     if not L:
         theta = theta.clone()
@@ -248,7 +253,7 @@ def _bind(lib) -> None:
         [p] * 8 + [i, p, p, i, i, i, i, f, f, f, p])
     lib.sharded_probe_launch.restype = ctypes.c_int
     lib.sharded_fold_launch.argtypes = (
-        [p] * 12 + [i] + [p] * 16 + [i, i, i, f, f, f,
+        [p] * 13 + [i] + [p] * 16 + [i, i, i, f, f, f,
                                      ctypes.POINTER(i), p])
     lib.sharded_fold_launch.restype = ctypes.c_int
     lib.sharded_pass_launch.argtypes = [p, p, p, ctypes.c_size_t, p]
@@ -366,6 +371,7 @@ def sharded_fold(
     beta_m1: float,
     wb: float,                   # W·(β−1), with the *global* W
     emit_loglik: bool = False,
+    phi_k64: Optional[torch.Tensor] = None,  # (K,) float64 total, in place
 ) -> FoldOut:
     """Phase C: the shard-local Gauss-Seidel fold.
 
@@ -375,11 +381,13 @@ def sharded_fold(
     the local active mass) this is ``gs_sweep``/``scheduled_sweep``.  CUDA
     tensors run the kernel (on the current stream, not synchronised; every
     output is a new tensor); CPU tensors run
-    :func:`sharded_fold_reference`.
+    :func:`sharded_fold_reference`.  ``phi_k64`` is
+    ``gs_sweep.gs_sweep``'s: φ̂(k)'s float64 total, the fold's own
+    increments added in place.
     """
     wb = float(wb)
     kw = dict(alpha_m1=alpha_m1, beta_m1=beta_m1, wb=wb,
-              emit_loglik=emit_loglik)
+              emit_loglik=emit_loglik, phi_k64=phi_k64)
     if theta.device.type == "cpu":
         return sharded_fold_reference(
             word_ids, counts, mu, theta, phi_wk, phi_k, remainder, prev_mass,
@@ -396,7 +404,8 @@ def sharded_fold(
     if A:
         cols.append(("prev_mass", prev_mass, torch.float32, (D, L)))
     check_cuda_args("sharded_fold", dense_operands(
-        word_ids, counts, mu, theta, phi_wk, phi_k) + sched + cols)
+        word_ids, counts, mu, theta, phi_wk, phi_k) + sched + cols
+        + total_operand(phi_k64, phi_k))
     dev = theta.device
     mu_out = torch.empty_like(mu)
     res = torch.empty_like(mu)
@@ -435,7 +444,8 @@ def sharded_fold(
             rc = lib.sharded_fold_launch(
                 ptr(word_ids), ptr(counts), ptr(act8), ptr(remainder),
                 ptr(prev_mass), ptr(mu), ptr(mu_out), ptr(res),
-                ptr(theta_o), ptr(phi_o), ptr(ptot_o), ptr(word_topics), A,
+                ptr(theta_o), ptr(phi_o), ptr(ptot_o), ptr(phi_k64),
+                ptr(word_topics), A,
                 *map(ptr, orders), ptr(delta), ptr(part), ptr(compact),
                 ptr(parts), ptr(barrier), ptr(live_m), ptr(u), D, L, K,
                 float(alpha_m1), float(beta_m1), wb, ctypes.byref(enqueued),

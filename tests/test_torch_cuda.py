@@ -85,6 +85,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.sanitizer import sum_order_bound
 from repro_torch.core import em, foem, scheduling, sem
 from repro_torch.core.types import (
     GlobalStats,
@@ -685,6 +686,71 @@ def test_sharded_fold_zero_count_slots_inert(cuda, A):
         act = args[7]
         assert torch.equal(mu[~act], args[2][~act])
         assert float(live[~act].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# φ̂(k)'s float64 total beside the float32 one (the debug_checks φ̂ lockstep
+# check reads it): gs_sweep, scheduled_sweep, sharded_fold
+# ---------------------------------------------------------------------------
+
+F64 = torch.float64  # lint: host-f64 — φ̂(k)'s float64 total
+
+
+def _total_case(kind, dev):
+    """(kernel call, plain call, φ̂(k), the kernel's terms a sum, moved mass
+    of a result) for one of the three kernels; each call takes phi_k64."""
+    if kind in ("gs_sweep", "scheduled_sweep"):
+        A = 16 if kind == "scheduled_sweep" else 0
+        args = _sweep_inputs(40, 7, 3000, 30, A, dev, seed=31,
+                             consistent=True)
+        fn = scheduled_sweep if A else gs_sweep
+        ref = scheduled_sweep_reference if A else gs_sweep_reference
+        return (lambda t: fn(*args, **SWEEP_KW, phi_k64=t),
+                lambda t: ref(*args, **SWEEP_KW, phi_k64=t), args[5], 40,
+                lambda out: out[1].sum((0, 1), dtype=F64))
+    if kind.startswith("sharded_fold"):
+        A = 4 if kind.endswith("scheduled") else 0
+        args, rem, pm = _sharded_inputs(40, 7, 2500, 30, A, dev, seed=32)
+        fa = _fold_args(args, rem, pm)
+        return (lambda t: sharded_fold(*fa, **SWEEP_KW, phi_k64=t),
+                lambda t: sharded_fold_reference(*fa, **SWEEP_KW,
+                                                 phi_k64=t),
+                args[5], 40, lambda out: out[1].sum((0, 1), dtype=F64))
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["gs_sweep", "scheduled_sweep",
+                                  "sharded_fold", "sharded_fold_scheduled"])
+def test_float64_total_on_the_card(cuda, kind):
+    """Every float32 output is the same bits with the float64 total and
+    without; the total is its seed plus the kernel's own increments (a
+    second call seeded with zeros, 1e-12 relative); and it lies within the
+    two float32 summation orders' bound of the plain version's total."""
+    run, plain, phi_k, n, moved = _total_case(kind, cuda)
+    base = run(None)
+    seed = phi_k.to(F64)
+    total = seed.clone()
+    out = run(total)
+    torch.cuda.synchronize()
+    for x, y in zip(base, out):
+        assert (x is None and y is None) or torch.equal(x, y)
+    own = torch.zeros_like(seed)
+    run(own)
+    torch.testing.assert_close(total, seed + own, rtol=1e-12, atol=0.0)
+    want = seed.clone()
+    plain(want)
+    bound = 1e-12 * want.abs() + sum_order_bound(n, moved(out))
+    assert bool(((total - want).abs() <= bound).all()), float(
+        ((total - want).abs() - bound).max())
+
+
+@pytest.mark.parametrize("kind", ["gs_sweep", "scheduled_sweep",
+                                  "sharded_fold"])
+def test_float64_total_must_be_float64(cuda, kind):
+    run = _total_case(kind, cuda)[0]
+    phi_k = _total_case(kind, cuda)[2]
+    with pytest.raises(ValueError, match="phi_k64"):
+        run(phi_k.clone())                      # float32, not float64
 
 
 # ---------------------------------------------------------------------------

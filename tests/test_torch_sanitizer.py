@@ -16,6 +16,17 @@ the JAX sanitizer (eager ``checkify`` on the CPU) and the port's fail on
 the same first message, and pass on the same clean inputs — on one result
 handed to both, and end to end through each package's ``ops.sweep`` /
 ``ops.infer``.
+
+φ̂(k)'s float64 total: in every checked sweep mode (single device dense
+and scheduled, two-phase and hooks on a 2-rank gloo mesh) the total the φ̂
+checks read is the input φ̂(k) plus the fold's own float32 increments
+(rebuilt here from the μ output, 1e-12 relative), the float32 outputs are
+the same bits with checks and without, a total short of 0.5 token a topic
+raises the lockstep message, and a float32 φ̂(k) short of 0.5 token a
+topic, its total intact, raises the port's own float32 check.  Where the JAX
+package's float32 total misses the bound at a store's magnitude, the
+port's checked sweep and trainer step pass; rows of ~10⁶ tokens in the
+batch still miss it in both packages (the open finding).
 """
 import importlib.util
 from pathlib import Path
@@ -502,13 +513,46 @@ def test_jax_and_port_pass_the_same_clean_sweep_end_to_end():
 LOCKSTEP = "sanitizer: phi_k deltas inconsistent with column sums of phi_wk"
 
 
-def test_float32_totals_miss_the_phi_bound_at_scale():
-    """A limit of the bound, not a fault: at a store's magnitude (here a
-    word outside the batch with 3·10⁶ tokens a topic) a float32 φ̂(k)
-    rounds by more than the φ̂ totals bound, so the same checked sweep
-    raises the lockstep message, and only that, in both packages."""
-    wid, cnt, mu, theta, phi, _ = _state(seed=15)
+def _at_scale(seed=15):
+    """``_state`` with a word outside the batch holding 3·10⁶ tokens a
+    topic: φ̂(k) at a store's magnitude, the batch's own rows small."""
+    wid, cnt, mu, theta, phi, _ = _state(seed=seed)
     phi = np.vstack([phi, np.full((1, phi.shape[1]), 3e6, np.float32)])
+    return wid, cnt, mu, theta, phi, phi.sum(0)
+
+
+def test_float32_totals_miss_the_phi_bound_at_scale():
+    """At a store's magnitude (here a word outside the batch with 3·10⁶
+    tokens a topic) a float32 φ̂(k) rounds by more than the φ̂ totals bound:
+    the JAX package's checked sweep, which reads its float32 running total,
+    raises the lockstep message.  The port's check reads the float64 total
+    that its engine carries beside the float32 one: the same checked sweep
+    raises nothing, and its float32 outputs are the unchecked run's bits."""
+    wid, cnt, mu, theta, phi, ptot = _at_scale()
+    skw = dict(wb=0.4, **KW)
+    jmsg = _jax_message(lambda: jops.sweep(
+        *map(jnp.asarray, (wid, cnt, mu, theta, phi, ptot)), **skw,
+        use_pallas=False, debug_checks=True))
+    assert jmsg == LOCKSTEP
+    plain = ops.sweep(wid, cnt, mu, theta, phi, ptot, **skw, device="cpu")
+    checked = ops.sweep(wid, cnt, mu, theta, phi, ptot, **skw,
+                        debug_checks=True, device="cpu")
+    assert torch.equal(checked.phi_k, plain.phi_k)
+    # the port's float32 total misses the bound as the JAX package's does
+    c, m, p, k = _t(cnt, mu, phi, ptot)
+    _expect(LOCKSTEP, lambda: san.sweep_invariants(
+        plain, counts=c, mu_before=m, phi_wk_before=p, phi_k_before=k))
+
+
+def test_large_rows_still_miss_the_phi_bound():
+    """The open finding the float64 total leaves: where the batch's own
+    rows hold ~10⁶ tokens a topic, each Δ a float32 row takes rounds by up
+    to a half-ulp (0.03 token), and the rows' column sums move apart from
+    the exact total by more than the bound leaves a topic that barely
+    moves: the checked sweep raises the lockstep message, as the JAX
+    package's does."""
+    wid, cnt, mu, theta, phi, _ = _state(seed=25)
+    phi = phi + np.float32(1e6)
     ptot = phi.sum(0)
     skw = dict(wb=0.4, **KW)
     jmsg = _jax_message(lambda: jops.sweep(
@@ -521,21 +565,377 @@ def test_float32_totals_miss_the_phi_bound_at_scale():
     assert err.value.failed == [LOCKSTEP]
 
 
-def test_checked_sweep_fires_on_a_faulty_kernel_total(monkeypatch):
-    """The φ̂ totals invariant reads the kernels' own φ̂(k): a sweep whose
-    running total drops half a token a topic raises, on inputs whose clean
-    sweep passes."""
-    inputs, _ = _clean_sweep()
+def test_chip_smoke_port_faults_give_their_messages(monkeypatch):
+    """The two faults ``chip_smoke.py`` plants in the port's own engine on
+    the card, here through the CPU engine on the same state: the kernel's
+    float64 total short of 0.5 token a topic raises the lockstep message,
+    its float32 φ̂(k) short of 0.5 token a topic the port's float32 check."""
+    want = _chip_smoke().SANITIZER_FAULTS
+    assert want["short_phi_k32"] == san.PHI_K_FLOAT32
+    inputs = _state(D=8, L=10, K=64, W=40, seed=5)
+    kw = dict(wb=40 * 0.01, **KW, debug_checks=True, device="cpu")
     real = ops.gs_sweep
 
-    def dropping(*args, **kw):
-        out = list(real(*args, **kw))
+    def short(*args, **kwargs):
+        out = list(real(*args, **kwargs))
         out[4] = out[4] - 0.5
         return tuple(out)
 
-    monkeypatch.setattr(ops, "gs_sweep", dropping)
-    _expect(LOCKSTEP, lambda: ops.sweep(*inputs, wb=0.4, **KW,
-                                        debug_checks=True, device="cpu"))
+    for name, engine in (("dropped_total64", _dropping(real)),
+                         ("short_phi_k32", short)):
+        monkeypatch.setattr(ops, "gs_sweep", engine)
+        assert _port_message(lambda: ops.sweep(*inputs, **kw)) == want[name]
+
+
+def test_chip_smoke_holds_a_raise_to_the_rows_rounding():
+    """``chip_smoke.py``'s ``PhiGaps`` keeps the checked sweep that raised
+    and lets the raise go on; its ``phi_gap`` record of a clean sweep over
+    rows of ~10⁶ tokens (the open finding) has topics over the lockstep
+    bound and none over it and the rows' rounding, and a total a topic
+    carries 50 tokens off is counted over both."""
+    cs = _chip_smoke()
+    wid, cnt, mu, theta, phi, _ = _state(seed=25)
+    phi = phi + np.float32(1e6)
+    inputs = _t(wid, cnt, mu, theta, phi, phi.sum(0))
+    gaps = cs.PhiGaps(torch)
+    with gaps, pytest.raises(ops.SanitizerError):
+        ops.sweep(*inputs, wb=0.4, **KW, debug_checks=True, device="cpu")
+    result, kw = gaps.held
+    assert san.sweep_invariants is gaps.real        # unwrapped again
+    rec = gaps.take()
+    assert gaps.held is None
+    t64 = rec["float64_total"]
+    assert t64["topics_over_bound"] >= 1
+    assert t64["topics_over_bound_and_row_rounding"] == 0
+    assert 0 < t64["topic_row_rounding_bound"] <= rec["row_rounding_bound_max"]
+    off = dict(kw, phi_k_total=kw["phi_k_total"] + 50.0)
+    assert cs.phi_gap(torch, result, off)["float64_total"][
+        "topics_over_bound_and_row_rounding"] == phi.shape[1]
+
+
+def _dropping(real, name="phi_k64"):
+    """``real`` (a sweep engine taking ``phi_k64``) with 0.5 token a topic
+    taken from the float64 total it hands back."""
+    def engine(*args, **kw):
+        out = real(*args, **kw)
+        if kw.get(name) is not None:
+            kw[name] -= 0.5
+        return out
+    return engine
+
+
+@pytest.mark.parametrize("scheduled", [False, True])
+def test_checked_sweep_fires_on_a_faulty_kernel_total(monkeypatch,
+                                                      scheduled):
+    """The φ̂ totals invariant reads the float64 total that the engine
+    returns: a sweep whose total drops half a token a topic raises the
+    lockstep message, on inputs whose clean checked sweep passes (the
+    two-phase and hooks modes: ``test_sharded_faulty_total_fires``)."""
+    inputs = _at_scale()
+    kw = dict(wb=0.4, **KW, debug_checks=True, device="cpu")
+    if scheduled:
+        kw["word_topics"] = _top3(inputs[4])
+    ops.sweep(*inputs, **kw)
+    name = "scheduled_sweep" if scheduled else "gs_sweep"
+    monkeypatch.setattr(ops, name, _dropping(getattr(ops, name)))
+    _expect(LOCKSTEP, lambda: ops.sweep(*inputs, **kw))
+
+
+@pytest.mark.parametrize("scheduled", [False, True])
+def test_checked_sweep_fires_on_a_faulty_float32_total(monkeypatch,
+                                                       scheduled):
+    """The float32 φ̂(k) that the sweep returns and the E-step reads is held
+    to the float64 total: an engine whose float32 φ̂(k) drops half a token
+    a topic, its float64 total intact, raises the port's float32 check (and
+    only that: the lockstep check reads the total), on inputs whose clean
+    checked sweep passes."""
+    inputs, _ = _clean_sweep()
+    kw = dict(wb=0.4, **KW, debug_checks=True, device="cpu")
+    if scheduled:
+        kw["word_topics"] = _top3(inputs[4])
+    ops.sweep(*inputs, **kw)
+    name = "scheduled_sweep" if scheduled else "gs_sweep"
+    real = getattr(ops, name)
+
+    def short(*args, **kwargs):
+        out = list(real(*args, **kwargs))
+        out[4] = out[4] - 0.5
+        return tuple(out)
+
+    monkeypatch.setattr(ops, name, short)
+    with pytest.raises(ops.SanitizerError) as err:
+        ops.sweep(*inputs, **kw)
+    assert err.value.failed == [san.PHI_K_FLOAT32] == [str(err.value)]
+
+
+def test_float32_total_check_holds_at_scale():
+    """At a store's magnitude (3·10⁶ tokens a topic) a clean sweep's float32
+    φ̂(k) passes the float32 check against its float64 total, and a total
+    moved just past the check's single-device bound (L column adds of a
+    half-ulp each) fails it."""
+    wid, cnt, mu, theta, phi, ptot = _t(*_at_scale(seed=26))
+    r = ops.sweep(wid, cnt, mu, theta, phi, ptot, wb=0.4, **KW,
+                  device="cpu")
+    total = ptot.to(torch.float64)  # lint: host-f64
+    for inc in _increments(r.mu, mu, cnt, False):
+        total = total + inc.to(torch.float64)  # lint: host-f64
+    kw = dict(counts=cnt, phi_wk=r.phi_wk, phi_wk_before=phi, word_ids=wid)
+    san.check_phi_k_float32(r.phi_k, total, ptot, **kw)
+    L = cnt.shape[1]
+    far = (ptot.double().abs() + r.phi_k.double().abs()
+           + 2 * cnt.sum(dtype=torch.float64)) * L * san.U32  # lint: host-f64
+    _expect("float32 phi_k parts", lambda: san.check_phi_k_float32(
+        r.phi_k, total + 1.01 * far, ptot, **kw))
+
+
+def _increments(mu_out, mu_in, counts, scheduled):
+    """Each column's float32 φ̂(k) increment of a plain column loop, rebuilt
+    from its μ output with the loop's own arithmetic — dense Δ = x·μ_new −
+    x·μ_old, scheduled x·(μ_new − μ_old) — summed over the documents."""
+    out = []
+    for l in range(mu_in.shape[1]):
+        x, new, old = counts[:, l, None], mu_out[:, l], mu_in[:, l]
+        delta = x * (new - old) if scheduled else x * new - x * old
+        out.append(delta.sum(0))
+    return out
+
+
+def _expected_total(phi_k, increments):
+    """The input φ̂(k) in float64, plus each float32 increment in float64,
+    in order."""
+    total = phi_k.to(torch.float64)  # lint: host-f64
+    for inc in increments:
+        total = total + inc.to(torch.float64)  # lint: host-f64
+    return total
+
+
+def _close64(a, b):
+    return torch.allclose(a, b, rtol=1e-12, atol=0.0)
+
+
+def _capture_total(monkeypatch):
+    """``sanitizer.sweep_invariants`` wrapped to keep the float64 total
+    ``ops.sweep`` hands it."""
+    got = []
+    real = san.sweep_invariants
+
+    def keep(result, **kw):
+        got.append(kw.get("phi_k_total"))
+        return real(result, **kw)
+
+    monkeypatch.setattr(san, "sweep_invariants", keep)
+    return got
+
+
+@pytest.mark.parametrize("kind", ["dense", "scheduled"])
+def test_float64_total_is_the_sum_of_the_fold_increments(monkeypatch, kind):
+    """The total a checked ``ops.sweep`` hands the φ̂ checks is the input
+    φ̂(k) plus, in float64, the float32 increments the column loop added to
+    φ̂(k) (rebuilt here from its μ), 1e-12 relative; the wrapper's
+    ``phi_k64`` gives the same total."""
+    from repro_torch.kernels import gs_sweep, scheduled_sweep
+
+    wid, cnt, mu, theta, phi, ptot = _t(*_state(seed=21))
+    sk = {}
+    if kind == "scheduled":
+        sk = dict(word_topics=torch.as_tensor(_top3(phi.numpy())),
+                  token_active=cnt > 0)
+    got = _capture_total(monkeypatch)
+    r = ops.sweep(wid, cnt, mu, theta, phi, ptot, wb=0.4, **KW, **sk,
+                  debug_checks=True, device="cpu")
+    want = _expected_total(ptot, _increments(r.mu, mu, cnt,
+                                             kind == "scheduled"))
+    assert got[0].dtype == torch.float64 and _close64(got[0], want)
+    seed = ptot.to(torch.float64)  # lint: host-f64
+    if kind == "dense":
+        gs_sweep.gs_sweep(wid, cnt, mu, theta, phi, ptot, wb=0.4, **KW,
+                          phi_k64=seed)
+    else:
+        scheduled_sweep.scheduled_sweep(
+            wid, cnt, mu, theta, phi, ptot, sk["word_topics"].int(),
+            sk["token_active"], wb=0.4, **KW, phi_k64=seed)
+    assert torch.equal(seed, got[0])
+
+
+@pytest.mark.parametrize("kind", ["dense", "scheduled"])
+def test_checked_outputs_are_bitwise_unchecked(kind):
+    """Every float32 output of a checked sweep is the unchecked sweep's,
+    bit for bit (the float64 total is carried beside, never instead)."""
+    inputs = _at_scale(seed=22)
+    sk = {"word_topics": _top3(inputs[4])} if kind == "scheduled" else {}
+    kw = dict(wb=0.4, **KW, **sk, compute_loglik=True, device="cpu")
+    a = ops.sweep(*inputs, **kw)
+    b = ops.sweep(*inputs, debug_checks=True, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_checked_trainer_step_runs_whole_at_scale(tmp_path, monkeypatch):
+    """A checked ``FOEMTrainer.step`` against a store whose φ̂(k) is at a
+    store's magnitude (a word outside the corpus with 3·10⁶ tokens a topic)
+    runs whole; read from the float32 φ̂(k), as before the float64 total,
+    its first sweep raises the lockstep message."""
+    from repro_torch.core import FOEMTrainer, store_from_arrays
+    from repro_torch.data import synthetic_lda_corpus
+    from repro_torch.sparse import MinibatchStream
+
+    W, K = 60, 8
+    corpus, _ = synthetic_lda_corpus(40, W, K, mean_doc_len=20, seed=3)
+    rng = np.random.default_rng(3)
+    rows = np.vstack([rng.gamma(1.0, 1.0, (W, K)),
+                      np.full((1, K), 3e6)]).astype(np.float32)
+    store = store_from_arrays(str(tmp_path / "s"), rows, live_vocab=W + 1)
+    cfg = LDAConfig(num_topics=K, vocab_size=W + 1, max_sweeps=4,
+                    active_topics=3, ppl_check_every=2, debug_checks=True)
+    mb = next(iter(MinibatchStream(corpus, 20, seed=0)))
+    m = FOEMTrainer(cfg, store, seed=0, prefetch_depth=0,
+                    device="cpu").step(mb)
+    assert m.sweeps >= 2 and np.isfinite(m.train_ppl)
+    real = san.sweep_invariants
+    monkeypatch.setattr(san, "sweep_invariants", lambda r, **kw: real(
+        r, **dict(kw, phi_k_total=None)))
+    store2 = store_from_arrays(str(tmp_path / "t"), rows, live_vocab=W + 1)
+    _expect(LOCKSTEP, lambda: FOEMTrainer(
+        cfg, store2, seed=0, prefetch_depth=0, device="cpu").step(mb))
+
+
+# ---------------------------------------------------------------------------
+# The float64 total through both sharded modes, on a 2-rank gloo mesh
+# ---------------------------------------------------------------------------
+
+def _rank_inputs(mesh, scheduled, at_scale=True):
+    m, mp = mesh.model.index, mesh.model.size
+    make = _at_scale if at_scale else _state
+    wid, cnt, mu, theta, phi, ptot = _t(*make(seed=24))
+    lanes = slice(m * 8 // mp, (m + 1) * 8 // mp)
+    args = (wid, cnt, mu[..., lanes].contiguous(),
+            theta[:, lanes].contiguous(), phi[:, lanes].contiguous(),
+            ptot[lanes].contiguous())
+    sk = {}
+    if scheduled:       # the rank's own top-2 of its 4 lanes
+        order = torch.argsort(-args[4], dim=1, stable=True)[:, :2]
+        sk = dict(word_topics=order.int(), token_active=cnt > 0)
+    return args, sk
+
+
+def _totals_rank(mesh):
+    """One rank: for each sharded mode and form, the checked sweep's float64
+    total against the fold's own increments (two-phase: plus phase D's Δ
+    summed in float64), its float32 outputs against the unchecked run, the
+    message a total short of 0.5 token a topic raises, and the messages a
+    float32 φ̂(k) short of 0.5 token a topic raises on ``_state``'s
+    inputs."""
+    from repro_torch.kernels import sharded_sweep
+
+    out = {}
+    for mode in ("two_phase", "hooks"):
+        for scheduled in (False, True):
+            key = f"{mode}{'_scheduled' if scheduled else ''}"
+            args, sk = _rank_inputs(mesh, scheduled)
+            wid, cnt, mu = args[:3]
+            plan = SweepPlan(axis_name=mesh.model,
+                             two_phase=mode == "two_phase")
+            kw = dict(alpha_m1=0.01, beta_m1=0.01, wb=0.4, plan=plan,
+                      device="cpu", **sk)
+            got = []
+            real = san.sweep_invariants
+
+            def keep(result, **skw):
+                got.append(skw.get("phi_k_total"))
+                return real(result, **skw)
+
+            san.sweep_invariants = keep
+            try:
+                checked = ops.sweep(*args, **kw, debug_checks=True)
+            finally:
+                san.sweep_invariants = real
+            plain = ops.sweep(*args, **kw)
+            out[key + ":bitwise"] = all(
+                (x is None and y is None) or torch.equal(x, y)
+                for x, y in zip(plain, checked))
+            if mode == "two_phase":
+                s, pm = sharded_sweep.sharded_probe(
+                    *args, sk.get("word_topics"), sk.get("token_active"),
+                    alpha_m1=0.01, beta_m1=0.01, wb=0.4)
+                s_glob, pm_glob = ((mesh.model.all_reduce(s, pm)) if scheduled
+                                   else (mesh.model.all_reduce(s)[0], None))
+                fold = sharded_sweep.sharded_fold(
+                    *args, s_glob - s, pm_glob, sk.get("word_topics"),
+                    sk.get("token_active"), alpha_m1=0.01, beta_m1=0.01,
+                    wb=0.4)
+                want = _expected_total(args[5], _increments(
+                    fold[0], mu, cnt, scheduled))
+                delta = (checked.mu - fold[0]) * cnt[..., None]
+                want = want + delta.sum((0, 1), dtype=torch.float64)  # lint: host-f64
+            else:
+                want = _expected_total(args[5], _increments(
+                    checked.mu, mu, cnt, scheduled))
+            out[key + ":total"] = float(
+                ((got[0] - want).abs() / want.abs()).max())
+            name = ("sharded_fold" if mode == "two_phase" else
+                    "scheduled_sweep_reference" if scheduled
+                    else "gs_sweep_reference")
+            real_engine = getattr(ops, name)
+            setattr(ops, name, _dropping(real_engine))
+            try:
+                ops.sweep(*args, **kw, debug_checks=True)
+                out[key + ":fault"] = None
+            except ops.SanitizerError as e:
+                out[key + ":fault"] = str(e)
+            finally:
+                setattr(ops, name, real_engine)
+            # the float32 φ̂(k) that the mode returns (re-summed from the
+            # rows) half a token short, its float64 total intact
+            args, sk = _rank_inputs(mesh, scheduled, at_scale=False)
+            kw = dict(kw, **sk)
+
+            def short(result, **skw):
+                return real(result._replace(phi_k=result.phi_k - 0.5), **skw)
+
+            san.sweep_invariants = short
+            try:
+                ops.sweep(*args, **kw, debug_checks=True)
+                out[key + ":fault32"] = None
+            except ops.SanitizerError as e:
+                out[key + ":fault32"] = e.failed
+            finally:
+                san.sweep_invariants = real
+    return out
+
+
+@pytest.fixture(scope="module")
+def sharded_totals():
+    return spawn_mesh(_totals_rank, 1, 2, device="cpu", timeout=300)
+
+
+FORMS = ["two_phase", "two_phase_scheduled", "hooks", "hooks_scheduled"]
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_sharded_total_is_its_own_fold(sharded_totals, form):
+    """Two-phase: phase C's fold increments plus phase D's correction Δ,
+    summed in float64; hooks: the plain loop's increments — never the
+    re-summed rows (1e-12 relative, every rank)."""
+    assert all(r[form + ":total"] <= 1e-12 for r in sharded_totals)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_sharded_checked_outputs_are_bitwise_unchecked(sharded_totals, form):
+    assert all(r[form + ":bitwise"] for r in sharded_totals)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_sharded_faulty_total_fires(sharded_totals, form):
+    """A total short of 0.5 token a topic raises the lockstep message on
+    every rank, in both modes."""
+    assert [r[form + ":fault"] for r in sharded_totals] == [LOCKSTEP] * 2
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_sharded_faulty_float32_total_fires(sharded_totals, form):
+    """A float32 φ̂(k) short of 0.5 token a topic, its float64 total intact,
+    raises the port's float32 check, and only it, on every rank."""
+    assert [r[form + ":fault32"] for r in sharded_totals] == [
+        [san.PHI_K_FLOAT32]] * 2
 
 
 def test_error_lists_every_failed_invariant():
